@@ -1,0 +1,94 @@
+"""Weight bridge: a flax variables tree → the port's ``state_dict``.
+
+Takes ``{"params": ..., "batch_stats": ...}`` as the JAX package's
+``SGGModel.init`` produces it, with numpy (or array-like) leaves, and needs
+no JAX to run.  The port names its modules after the flax tree, so a leaf's
+path is its torch name, with these conversions:
+
+  * conv kernels HWIO → OIHW (grouped ``(3, 3, C/G, C)`` → ``(C, C/G, 3, 3)``);
+  * Dense kernels ``(in, out)`` → Linear weights ``(out, in)``;
+  * norm ``scale`` → ``weight``; ``embedding`` → ``weight``;
+  * ``batch_stats`` ``mean``/``var`` → ``running_mean``/``running_var``;
+  * the encoder's flat per-layer parameters (``attn{i}_qkv``, ``ffn{i}_fc1``,
+    ...) keep their names and their ``(in, out)`` layout — the CUDA layer
+    kernel reads them so.
+
+A detector body in the unfolded layout (conv + ``FrozenBatchNorm``) loads
+into an unfolded port model as is, or is folded here (``kernel * scale``,
+``bias = bn.bias``) for a folded one.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Iterator, Mapping, Tuple
+
+import numpy as np
+import torch
+
+_FOLD_PAIRS = {"stem_conv": "stem_bn", "conv1": "bn1", "conv2": "bn2",
+               "conv3": "bn3", "downsample_conv": "downsample_bn"}
+_STATS = {"mean": "running_mean", "var": "running_var"}
+
+
+def _leaves(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Iterator:
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _leaves(v, prefix + (k,))
+        else:
+            yield prefix + (k,), np.array(v, dtype=np.float32)  # a copy
+
+
+def fold_frozen_bn(body: Mapping) -> Dict:
+    """An unfolded detector-body tree in the folded layout: each (conv,
+    FrozenBatchNorm) pair becomes a conv with ``kernel * scale`` (output
+    channels last in HWIO) and ``bias = bn.bias``.  Exact: the detector is
+    frozen."""
+    out = {}
+    for k, v in body.items():
+        if k in _FOLD_PAIRS.values():
+            continue
+        bn = body.get(_FOLD_PAIRS.get(k, ""))
+        if bn is not None:
+            out[k] = {"kernel": np.asarray(v["kernel"]) * np.asarray(bn["scale"]),
+                      "bias": np.asarray(bn["bias"])}
+        elif isinstance(v, Mapping):
+            out[k] = fold_frozen_bn(v)
+        else:
+            out[k] = v
+    return out
+
+
+def flax_to_state_dict(variables: Mapping,
+                       fold_bn: bool = False) -> Dict[str, torch.Tensor]:
+    """Convert a flax variables tree; ``fold_bn`` folds an unfolded detector
+    body (``params/backbone/body``) into the folded layout first."""
+    params = variables["params"]
+    body = params.get("backbone", {}).get("body", {})
+    if fold_bn and "stem_bn" in body:
+        params = {**params, "backbone": {**params["backbone"],
+                                         "body": fold_frozen_bn(body)}}
+    sd = {}
+    for path, arr in _leaves(params):
+        *mod, leaf = path
+        if leaf == "kernel":
+            leaf = "weight"
+            arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
+        elif leaf in ("scale", "embedding"):
+            leaf = "weight"
+        sd[".".join(mod + [leaf])] = torch.from_numpy(np.ascontiguousarray(arr))
+    for path, arr in _leaves(variables.get("batch_stats", {})):
+        *mod, leaf = path
+        sd[".".join(mod + [_STATS[leaf]])] = torch.from_numpy(arr)
+    return sd
+
+
+def load_flax_variables(model: torch.nn.Module, variables: Mapping) -> None:
+    """Load a flax variables tree into ``model`` (strict, apart from torch's
+    ``num_batches_tracked`` counters, which flax does not keep)."""
+    fold = getattr(model.backbone.body, "fold_bn", False)
+    sd = flax_to_state_dict(variables, fold_bn=fold)
+    missing, unexpected = model.load_state_dict(sd, strict=False)
+    missing = [k for k in missing if not k.endswith("num_batches_tracked")]
+    if missing or unexpected:
+        raise KeyError(f"flax tree does not match the model: missing {missing}, "
+                       f"unexpected {unexpected}")
