@@ -6,7 +6,7 @@
 Phases, in order; any failure raises and exits non-zero, and no phase
 catches its own failure:
 
-1. Build both CUDA kernels from ``veto_tpu_torch/csrc`` (one ``nvcc`` per
+1. Build the CUDA kernels from ``veto_tpu_torch/csrc`` (one ``nvcc`` per
    source, started together) and print the card's name and power limit.
 2. ROIAlign kernel vs its plain version at the PredCls eval shapes: P2-P5
    of 8 x 800x1344 images and the 1/16 depth map, 80 rois per image with
@@ -19,8 +19,19 @@ catches its own failure:
    through the evaluation entry point's ``evaluate`` and ``SGGEvaluator``,
    with the kernels' launch counts read around it; then one batch's
    ``rel_logits`` against the same model run through the plain versions.
-5. One JSON line ``{"kernels": [...]}`` and, last,
-   ``{"ok": true, "device": {...}}``.
+5. Encoder backward kernels, B2a (FFN) and B2b (attention), vs their plain
+   versions at the train shape (12,288 pairs x 19 x 576, and once with
+   t_pad 24 > t_valid 19 and a partial GEMM tile); two kernel runs must
+   give bit-equal gradients.
+6. ROIAlign backward kernel vs autograd of the plain pooling on the 1/16
+   depth map of 12 x 800x1344 images, 80 rois each.
+7. The training main path: ``relation_train_net.train`` for 5 full-width
+   PredCls steps from seeded weights, with exact launch counts per step,
+   finite losses, every trainable tensor changed and the frozen detector
+   bit-unchanged; then one step's gradients through the kernels against
+   the same step through the plain versions.
+8. One JSON line ``{"kernels": [...]}`` (``launches`` are the training
+   path's, all five kernels) and, last, ``{"ok": true, "device": {...}}``.
 
 Every f32 comparison runs with TF32 off (``torch.backends.cudnn.allow_tf32``
 and ``torch.backends.cuda.matmul.allow_tf32`` are set False below), so the
@@ -367,6 +378,332 @@ def phase_main_path(opts=()):
     return launches
 
 
+# ------------------------------------------------------------------ phase 5
+def check_scaled(name, got, ref, max_tol, mean_tol) -> float:
+    """check_close with both tolerances relative to max |ref|; returns the
+    max abs error over that scale."""
+    scale = max(float(ref.float().abs().max()), 1e-30)
+    return check_close(f"{name} (scale {scale:.3e})", got, ref,
+                       atol=max_tol * scale, rtol=0.0,
+                       mean_tol=mean_tol * scale) / scale
+
+
+def enc_bwd_kernels(x, dy, params, heads, t_pad, t_valid):
+    """B1 with the stash, then B2a and B2b: every output of both passes."""
+    from veto_tpu_torch.ops import fused_encoder as fe
+
+    _, qkv, x1 = fe._launch(x, params, heads, t_pad, t_valid, stash=True)
+    dx1, dx1b, dw1, dw2, vec4, db1 = fe._launch_ffn_bwd(x1, dy, params)
+    dx, dwqkv, dwout, vec2 = fe._launch_att_bwd(x, qkv, dx1, dx1b, params,
+                                                heads, t_pad, t_valid)
+    return dict(dx1=dx1, dw1=dw1, dw2=dw2, vec4=vec4, db1=db1, dx=dx,
+                dwqkv=dwqkv, dwout=dwout, vec2=vec2), (qkv, x1)
+
+
+def phase_encoder_bwd(gen, pairs=12288, d=576):
+    """B2a (FFN backward) and B2b (attention backward) against their plain
+    versions on the same inputs, at the PredCls train shape."""
+    from veto_tpu_torch.ops import fused_encoder as fe
+
+    t, heads = 19, 6
+    print(f"[encoder bwd] kernels vs plain, {pairs} pairs x {t} tokens x {d}")
+    params = enc_params(gen, d)
+    f = params.w1.shape[1]
+    # Both sides round the same intermediates to bf16 (dy, df1, bf16(dx1),
+    # datt, the probabilities, ds, dqkv).  An f32 sum in another order can
+    # flip one rounding, which moves that value by one bf16 ulp (2^-8 of
+    # itself); the matrix grads and dx are rounded to bf16 once more (2^-9).
+    # So each grad is held to 1% of its largest |value| everywhere and to
+    # 0.1% of it on average; a wrong index or operand would miss both by
+    # orders of magnitude.
+    tol = dict(max_tol=1e-2, mean_tol=1e-3)
+    pass_a = ("dx1", "dw1", "dw2", "vec4", "db1")
+    errs = {"a": 0.0, "b": 0.0}  # max abs error of each pass's outputs
+    with torch.inference_mode():
+        for n_pairs, t_pad in ((pairs, t), (min(pairs, 509), 24)):
+            # 509 pairs x 24 rows: 12,216 rows, a partial 128-row GEMM tile
+            # and a partial last split of the weight-gradient sums
+            x = torch.randn(n_pairs * t_pad, d, generator=gen, device=DEVICE).bfloat16()
+            dy = torch.randn(n_pairs * t_pad, d, generator=gen,
+                             device=DEVICE).bfloat16()
+            got, (qkv, x1) = enc_bwd_kernels(x, dy, params, heads, t_pad, t)
+            again, _ = enc_bwd_kernels(x, dy, params, heads, t_pad, t)
+            for k in got:  # split-K sums and column sums in a fixed order
+                if not torch.equal(got[k], again[k]):
+                    raise AssertionError(f"{k}: two kernel runs differ")
+            dx1, dw1, dw2, vec4, db1 = fe.reference_ffn_bwd(x1, dy, params)
+            dx, dwqkv, dwout, vec2 = fe.reference_att_bwd(
+                x, qkv, got["dx1"], params, heads, t_pad, t)
+            ref = dict(dx1=dx1, dw1=dw1, dw2=dw2, vec4=vec4, db1=db1, dx=dx,
+                       dwqkv=dwqkv, dwout=dwout, vec2=vec2)
+            print(f"  t_pad={t_pad}, t_valid={t}, {n_pairs} pairs "
+                  "(two kernel runs bit-equal)")
+            for k in got:
+                # one scale per grad: each row of the stacked vector grads
+                # is a parameter's own
+                parts = ([(f"{k}[{i}]", got[k][i], ref[k][i])
+                          for i in range(ref[k].shape[0])]
+                         if k.startswith("vec") else [(k, got[k], ref[k])])
+                which = "a" if k in pass_a else "b"
+                for name, g_, r_ in parts:
+                    check_scaled(name, g_, r_, **tol)
+                    errs[which] = max(errs[which],
+                                      float((g_.float() - r_.float()).abs().max()))
+        x = torch.randn(pairs * t, d, generator=gen, device=DEVICE).bfloat16()
+        dy = torch.randn(pairs * t, d, generator=gen, device=DEVICE).bfloat16()
+        _, qkv, x1 = fe._launch(x, params, heads, t, t, stash=True)
+        dx1, dx1b, *_ = fe._launch_ffn_bwd(x1, dy, params)
+        ms_a = cuda_ms(lambda: fe._launch_ffn_bwd(x1, dy, params), 10)
+        ms_b = cuda_ms(lambda: fe._launch_att_bwd(x, qkv, dx1, dx1b, params,
+                                                  heads, t, t), 10)
+        plain_a = cuda_ms(lambda: fe.reference_ffn_bwd(x1, dy, params), 2, 1)
+        plain_b = cuda_ms(lambda: fe.reference_att_bwd(x, qkv, dx1, params,
+                                                       heads, t, t), 2, 1)
+    # yardstick: autograd through torch's own layer, one sub-block at a time
+    layer = library_layer(params, heads)
+    # clones: tensors made under inference_mode cannot enter autograd
+    x3 = x.view(pairs, t, d).clone().requires_grad_()
+    x13 = x1.view(pairs, t, d).clone().requires_grad_()
+    dy3 = dy.view(pairs, t, d).clone()
+    ffn = x13 + layer._ff_block(layer.norm2(x13))
+    att = x3 + layer._sa_block(layer.norm1(x3), None, None)
+    lib_a = cuda_ms(lambda: ffn.backward(dy3, retain_graph=True), 5)
+    lib_b = cuda_ms(lambda: att.backward(dy3, retain_graph=True), 5)
+    del ffn, att, layer
+
+    rows = pairs * t
+    p = params
+
+    def size(*ts):
+        return sum(t_.numel() * t_.element_size() for t_ in ts)
+
+    # f1 recompute, dg, dh2, dW1, dW2: five products of 2 R D F
+    flops_a = 5 * 2 * rows * d * f
+    # in: x1, dy, W1, W2, LN2 scale/bias, b1;
+    # out: dx1 (f32 and bf16), dW1, dW2 (bf16), (4, D), d b1
+    bytes_a = (rows * d * (2 + 2 + 4 + 2) + 2 * size(p.w1, p.w2)
+               + size(p.ln2_scale, p.ln2_bias, p.b1) + 4 * (4 * d + f))
+    # datt, dh1, dWqkv, dWout; attention: scores, att, dp, dv, dq, dk
+    att_flops = 12 * pairs * heads * t * t * (d // heads)
+    flops_b = 2 * rows * d * d * (1 + 3 + 3 + 1) + att_flops
+    # in: x, qkv, dx1 (f32 and bf16), Wqkv, Wout, LN1 scale/bias;
+    # out: dx, dWqkv, dWout (bf16), (2, D)
+    bytes_b = (rows * d * (2 + 6 + 4 + 2 + 2) + 2 * size(p.w_qkv, p.w_out)
+               + size(p.ln1_scale, p.ln1_bias) + 4 * 2 * d)
+    out = []
+    for name, src_line, err, ms, plain_ms, lib_ms, flops, nbytes in (
+            ("encoder_ffn_bwd", 678, errs["a"], ms_a, plain_a, lib_a, flops_a,
+             bytes_a),
+            ("encoder_att_bwd", 708, errs["b"], ms_b, plain_b, lib_b, flops_b,
+             bytes_b)):
+        t_ops, t_bytes = flops / PEAK_BF16 * 1e3, nbytes / PEAK_BYTES * 1e3
+        print(f"  {name}: kernel {ms:.3f} ms/layer ({flops / ms / 1e9:.1f} "
+              f"TFLOP/s), plain {plain_ms:.3f} ms, torch TransformerEncoderLayer "
+              f"sub-block backward {lib_ms:.3f} ms; {flops / 1e12:.3f} TFLOP, "
+              f"{nbytes / 1e9:.3f} GB -> bound {max(t_ops, t_bytes):.3f} ms")
+        out.append(dict(name=name, route="cuda",
+                        source="veto_tpu_torch/csrc/encoder_layer_bwd.cu",
+                        replaces=f"veto_tpu/ops/fused_encoder.py:{src_line}",
+                        max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                        bound_ms=max(t_ops, t_bytes),
+                        bound_by="operations" if t_ops >= t_bytes else "bytes",
+                        library_ms=lib_ms))
+    return out
+
+
+# ------------------------------------------------------------------ phase 6
+def phase_roi_align_bwd(gen, b=12, h=800, w=1344, c=256):
+    """B3-bwd against autograd of the plain pooling: the depth map's
+    gradient at the PredCls train shape."""
+    from veto_tpu_torch.ops import roi_align_windowed as rw
+
+    p, s, scale = 8, 2, 0.0625
+    print(f"[roi_align bwd] kernel vs plain, {b} x {h // 16}x{w // 16}x{c} "
+          "depth map, 80 rois an image")
+    depth = torch.randn(b, h // 16, w // 16, c, generator=gen,
+                        device=DEVICE).bfloat16()
+    rois = eval_rois(gen, b, 80, h, w)
+    g = torch.randn(b, 80, p, p, c, generator=gen, device=DEVICE)
+
+    def kernel():
+        return rw._launch_backward([depth], [True], rois, g, (scale,), p, s)[0]
+
+    def plain():
+        return rw.reference_multilevel_roi_align_backward(
+            [depth], [True], rois, g, (scale,), p, s)[0]
+
+    got, ref = kernel(), plain()
+    if got.dtype != depth.dtype or ref.dtype != depth.dtype:
+        raise AssertionError(f"grad dtypes {got.dtype}, {ref.dtype}; map {depth.dtype}")
+    # both sum the same f32 products in f32 (the atomics in an order that
+    # varies from run to run) and round once to bf16: where the two f32
+    # sums straddle a rounding boundary they differ by one bf16 ulp, at most
+    # 2^-7 of the value
+    err = check_close("depth grad bf16", got, ref, atol=1e-5, rtol=2 ** -7)
+    ms, plain_ms = cuda_ms(kernel, 50), cuda_ms(plain, 3)
+    # in: the f32 gradient and the rois; out: the bf16 map gradient
+    nbytes = g.numel() * 4 + rois.numel() * 4 + depth.numel() * 2
+    flops = g.numel() * 4 * 4 * 2  # 4 samples x 4 taps, one FMA each
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_F32 * 1e3
+    print(f"  kernel {ms:.4f} ms, plain {plain_ms:.3f} ms; {nbytes / 1e6:.1f} MB "
+          f"-> bound {max(t_bytes, t_ops):.4f} ms")
+    return dict(name="roi_align_backward", route="cuda",
+                source="veto_tpu_torch/csrc/roi_align.cu",
+                replaces="veto_tpu/ops/roi_align.py:175",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                library_ms=None)
+
+
+# ------------------------------------------------------------------ phase 7
+def read_counters(reset=False):
+    """Every kernel's launch count, by kernel name; ``reset`` zeroes them."""
+    from veto_tpu_torch.ops import fused_encoder as fe
+    from veto_tpu_torch.ops import roi_align_windowed as rw
+
+    out = {"fused_encoder_layer": fe.KERNEL_LAUNCHES,
+           "encoder_ffn_bwd": fe.FFN_BWD_LAUNCHES,
+           "encoder_att_bwd": fe.ATT_BWD_LAUNCHES,
+           "multilevel_roi_align": rw.KERNEL_LAUNCHES,
+           "roi_align_backward": rw.BWD_LAUNCHES}
+    if reset:
+        fe.KERNEL_LAUNCHES = fe.FFN_BWD_LAUNCHES = fe.ATT_BWD_LAUNCHES = 0
+        rw.KERNEL_LAUNCHES = rw.BWD_LAUNCHES = 0
+    return out
+
+
+def phase_train(steps=5, opts=()):
+    """The training main path: ``relation_train_net.train`` for a few
+    full-width steps from seeded weights, with the launch counts read after
+    every step."""
+    from veto_tpu_torch.config import load_config
+    from veto_tpu_torch.models.sgg import build_model
+    from veto_tpu_torch.tools.relation_train_net import train
+
+    cfg = load_config(os.path.join(ROOT, "configs", "veto_vg_predcls.yaml"),
+                      [f"solver.max_iter={steps}", *opts])
+    model = build_model(cfg)  # cuda, seeded weights
+    layers = cfg.veto.enc_layers
+    per_step = {"fused_encoder_layer": layers, "encoder_ffn_bwd": layers,
+                "encoder_att_bwd": layers, "multilevel_roi_align": 2,
+                "roi_align_backward": 1}
+    print(f"[train] VETO PredCls training, {cfg.model.backbone} "
+          f"{cfg.model.resnet_groups}x{cfg.model.resnet_width_per_group}d frozen, "
+          f"depth ResNet-18 + trunk {cfg.veto.t_input_dim} x {layers} layers "
+          f"trained, {cfg.dtype}; {steps} steps of {cfg.solver.ims_per_batch} "
+          f"images, {cfg.relation.batch_size_per_image} pairs an image")
+    frozen = {k: v.clone() for k, v in model.backbone.state_dict().items()}
+    before = {n: p.detach().clone() for n, p in model.named_parameters()
+              if p.requires_grad}
+    stats0 = {n: b.clone() for n, b in model.named_buffers()
+              if not n.startswith("backbone.")
+              and n.endswith(("running_mean", "running_var"))}
+    counts = []
+
+    def log(line):
+        counts.append(read_counters(reset=True))
+        print(f"  {line}  launches {json.dumps(counts[-1])}")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    read_counters(reset=True)
+    state, history = train(cfg, model=model, log=log)
+    peak = torch.cuda.max_memory_allocated()
+    total = {k: sum(c[k] for c in counts) for k in per_step}
+    ms = 1e3 * float(np.mean([r["seconds"] for r in history[1:]]))
+    print(f"  after warm-up {ms:.1f} ms per step "
+          f"({[round(1e3 * r['seconds'], 1) for r in history]}); peak memory "
+          f"{peak / 2 ** 30:.2f} GiB")
+    if len(history) != steps:
+        raise AssertionError(f"{len(history)} steps ran, not {steps}")
+    for i, c in enumerate(counts):
+        if c != per_step:
+            raise AssertionError(f"step {i}: launches {c}, want {per_step}")
+    if not all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])
+               for r in history):
+        raise AssertionError(f"non-finite loss or grad norm: {history}")
+    for k, v in model.backbone.state_dict().items():
+        if not torch.equal(v, frozen[k]):
+            raise AssertionError(f"frozen detector changed: backbone.{k}")
+    still = [n for n, p in model.named_parameters()
+             if p.requires_grad and torch.equal(p, before[n])]
+    if still:
+        raise AssertionError(f"trainable parameters unchanged: {still}")
+    same = [n for n, b in model.named_buffers()
+            if n in stats0 and torch.equal(b, stats0[n])]
+    if same:
+        raise AssertionError(f"BatchNorm statistics unchanged: {same}")
+    print(f"  {len(before)} trainable tensors all changed, {len(frozen)} "
+          f"detector tensors bit-unchanged, {len(stats0)} BatchNorm "
+          "statistics updated")
+    return state, total
+
+
+def phase_train_grads(state, opts=()):
+    """One step's gradients through the kernels against the same step
+    through the plain versions, on the card, from the trained state."""
+    from veto_tpu_torch.config import load_config
+    from veto_tpu_torch.engine.train import forward_backward, sample_pairs
+    from veto_tpu_torch.ops import cuda_lib
+    from veto_tpu_torch.tools.relation_train_net import synthetic_train_dataset
+
+    cfg = load_config(os.path.join(ROOT, "configs", "veto_vg_predcls.yaml"),
+                      list(opts))
+    bsz = cfg.solver.ims_per_batch
+    batch, _ = next(synthetic_train_dataset(cfg).batches(bsz, cfg.data.max_boxes))
+    b = batch.to(DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    samples = sample_pairs(b, gen, cfg.relation.batch_size_per_image,
+                           cfg.relation.positive_fraction)
+    print(f"[train grads] one step's gradients, kernels vs plain: {bsz} images, "
+          f"{cfg.relation.batch_size_per_image} pairs an image")
+    params = [(n, p) for n, p in state.model.named_parameters() if p.requires_grad]
+
+    def grads():
+        loss = forward_backward(state, b, samples)
+        return loss, {n: p.grad.detach().clone() for n, p in params}
+
+    def compare(got, ref):
+        """(|err| / |ref| in L2, max |err| / max |ref|, name, finite) per
+        tensor, worst first."""
+        rows = []
+        for n, _ in params:
+            diff = got[n].float() - ref[n].float()
+            rows.append((float(diff.norm()) / max(float(ref[n].float().norm()), 1e-30),
+                         float(diff.abs().max())
+                         / max(float(ref[n].abs().max()), 1e-30),
+                         n, bool(torch.isfinite(got[n]).all())))
+        return sorted(rows, reverse=True)
+
+    loss, got = grads()
+    _, again = grads()
+    with cuda_lib.plain_kernels():
+        ref_loss, ref = grads()
+    state.optimizer.zero_grad()
+    print(f"  loss {float(loss):.6f} (kernels), {float(ref_loss):.6f} (plain)")
+    # The floor: two kernel runs differ only where the ROIAlign backward's
+    # atomics added in another order (the last f32 bits of the depth map's
+    # gradient).  Back through the depth ResNet-18 in bf16 those bits grow
+    # to a few % in its first layers' gradients, whose sums over every
+    # pixel nearly cancel.  Kernels vs plain versions add the encoder's
+    # bf16 rounding flips on top.  Each tensor is held to 10% (L2) and 25%
+    # (largest element) of its plain version; a dropped or misplaced term
+    # is off by about 100%.
+    floor = compare(again, got)[0]
+    print(f"  two kernel runs: worst |err| / |ref| {floor[0]:.3e} ({floor[2]})")
+    rows = compare(got, ref)
+    for rel_l2, rel_max, n, _ in rows[:4]:
+        print(f"  {n}: |err| / |ref| {rel_l2:.3e}, max |err| {rel_max:.3e} of max |ref|")
+    bad = [r for r in rows if r[0] > 0.1 or r[1] > 0.25 or not r[3]]
+    if bad:
+        raise AssertionError(f"gradients off: {bad}")
+    if abs(float(loss) - float(ref_loss)) > 1e-2 * abs(float(ref_loss)):
+        raise AssertionError("loss differs by more than 1%")
+    print(f"  {len(params)} gradient tensors within 10% (L2) and 25% (max) of "
+          "their plain versions")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device; this script runs the port on "
@@ -382,8 +719,12 @@ def main() -> int:
     build()
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     kernels = [phase_roi_align(gen), phase_encoder(gen)]
-    launches = phase_main_path()
-    for k in kernels:
+    phase_main_path()
+    kernels += [*phase_encoder_bwd(gen), phase_roi_align_bwd(gen)]
+    state, launches = phase_train()
+    phase_train_grads(state)
+    del state
+    for k in kernels:  # launches on the training path, every kernel's
         k["launches"] = launches[k["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -323,14 +323,18 @@ extern "C" int encoder_attention_smem_bytes(int t_pad, int dh) {
 }
 
 // One encoder layer.  x, y: (rows, d) bf16 with rows = pairs * t_pad;
-// scratch: h (rows, d), qkv (rows, 3d), x1 (rows, d), all bf16.  Weights
+// scratch: h (rows, d), qkv (rows, 3d), x1 (rows, d), g (rows, f), all
+// bf16.  After the call qkv and x1 hold the layer's qkv and x1 (the stash
+// the backward reads) unless g aliases qkv, which an inference call may do
+// to save the buffer (f <= 3d): the GELU activations then overwrite qkv.  Weights
 // (in, out) row-major bf16, LN scale/bias and biases f32.  Requires d, 3d
 // and f multiples of 64, d and f multiples of 32 (the GEMM tiles), d a
 // multiple of heads, and 16-byte aligned pointers; the caller checks.
 // att_scale is dh**-0.5 rounded once to f32, as the TPU kernel has it.
 // Returns cudaGetLastError() after the launches (0 on success).
 extern "C" int encoder_layer_forward(
-    const void* x, void* y, void* h, void* qkv, void* x1, const void* ln1_s,
+    const void* x, void* y, void* h, void* qkv, void* x1, void* g,
+    const void* ln1_s,
     const void* ln1_b, const void* w_qkv, const void* w_out, const void* b_out,
     const void* ln2_s, const void* ln2_b, const void* w1, const void* b1,
     const void* w2, const void* b2, int rows, int d, int f, int heads,
@@ -361,10 +365,10 @@ extern "C" int encoder_layer_forward(
   if ((err = launch_layernorm(X1, (const float*)ln2_s, (const float*)ln2_b, H,
                               rows, d, s)))
     return err;
-  // the GELU activations reuse the qkv buffer (f <= 3d)
+  bf16* G = (bf16*)g;
   if ((err = launch_gemm<EPI_BIAS_GELU>(H, (const bf16*)w1, (const float*)b1,
-                                        nullptr, QKV, rows, f, d, s)))
+                                        nullptr, G, rows, f, d, s)))
     return err;
-  return launch_gemm<EPI_BIAS_RESIDUAL>(QKV, (const bf16*)w2, (const float*)b2,
+  return launch_gemm<EPI_BIAS_RESIDUAL>(G, (const bf16*)w2, (const float*)b2,
                                         X1, (bf16*)y, rows, d, f, s);
 }

@@ -2,8 +2,9 @@
 
 Port of ``veto_tpu/models/backbone/depth_resnet.py``: (B, H, W, 1) depth →
 (B, H/16, W/16, 256), NHWC at the boundary, channels-last NCHW inside.
-BatchNorm runs from its running statistics (eps 1e-5); training it comes
-with the training slice.
+The backbone trains with the relation head: in train mode its BatchNorm
+(eps 1e-5) normalizes with the batch statistics and updates the running
+ones as flax does (``layers.BatchNorm2d``); in eval mode it reads them.
 """
 
 from __future__ import annotations

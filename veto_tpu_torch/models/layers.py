@@ -36,21 +36,34 @@ class Dense(nn.Linear):
 
 
 class BatchNorm2d(nn.BatchNorm2d):
-    """Inference BatchNorm with flax's arithmetic: ``(x - mean) *
-    (rsqrt(var + eps) * scale) + bias`` in f32, cast to the input dtype.
+    """BatchNorm with flax's arithmetic: ``(x - mean) * (rsqrt(var + eps) *
+    scale) + bias`` in f32, cast to the input dtype.
 
-    ``momentum=0.1`` is torch's name for flax's ``momentum=0.9``.  Only the
-    eval form is ported in this slice (the depth backbone trains its BN in
-    the training slice).
+    Eval: the running statistics.  Training (flax
+    ``use_running_average=False``): the batch statistics over (N, H, W),
+    computed in f32 with flax's fast variance ``max(E[x^2] - E[x]^2, 0)``,
+    gradients flowing through them; the running statistics become
+    ``0.9 running + 0.1 batch``, the biased batch variance included (torch's
+    own ``F.batch_norm`` would store the unbiased one).  ``momentum=0.1`` is
+    torch's name for flax's ``momentum=0.9``.
     """
 
     def __init__(self, features: int):
         super().__init__(features, eps=1e-5, momentum=0.1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
         if self.training:
-            raise NotImplementedError("BatchNorm training comes with the "
-                                      "training slice")
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        y = (x.float() - self.running_mean[:, None, None]) * mul[:, None, None]
+            mean = xf.mean(dim=(0, 2, 3))
+            var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+            keep = 1.0 - self.momentum
+            with torch.no_grad():
+                self.running_mean.copy_(keep * self.running_mean
+                                        + (1.0 - keep) * mean)
+                self.running_var.copy_(keep * self.running_var
+                                       + (1.0 - keep) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean[:, None, None]) * mul[:, None, None]
         return (y + self.bias[:, None, None]).to(x.dtype)

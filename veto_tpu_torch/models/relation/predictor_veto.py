@@ -2,7 +2,8 @@
 
 Per-proposal embeddings (class embedding, BatchNorm'd center-xywh position
 embedding), pair tokens and the 6-layer fusion transformer, then the
-51-way ``rel_out`` classifier.
+51-way ``rel_out`` classifier; and its training loss, the Rwt
+beta-weighted cross-entropy (``beta_class_weights``, ``weighted_ce_loss``).
 
 The JAX package's pair-factorized projections are kept as they are: every
 projection is linear in the subject/object concatenation, so each PROPOSAL
@@ -22,8 +23,9 @@ layer kernel reads them so; every other matrix is a ``Dense`` (torch
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -33,29 +35,67 @@ from ...ops.fused_encoder import EncoderLayerParams, fused_encoder_layer
 from ..layers import Dense
 
 
+def beta_class_weights(pred_counts, beta: float = 0.999) -> np.ndarray:
+    """Rwt class-balanced weights (JAX ``beta_class_weights``):
+    ``(1 - beta) / (1 - beta^count)`` per predicate class over the counts
+    sorted descending (background first), normalized to sum to the number
+    of classes."""
+    counts = np.sort(np.asarray(pred_counts, dtype=np.float64))[::-1]
+    w = (1.0 - beta) / (1.0 - np.power(beta, counts))
+    w *= float(len(w)) / w.sum()
+    return w.astype(np.float32)
+
+
+def weighted_ce_loss(logits: torch.Tensor, labels: torch.Tensor,
+                     mask: torch.Tensor,
+                     class_weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean weighted cross-entropy over the valid entries (``mask``):
+    ``sum(w_y nll) / max(sum(w_y), 1e-6)``, torch's
+    ``CrossEntropyLoss(weight=w)``; labels of masked entries are ignored."""
+    safe = torch.where(mask, labels, 0).long()
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -logp.gather(-1, safe[..., None])[..., 0]
+    if class_weights is None:
+        w = mask.float()
+    else:
+        w = torch.where(mask, class_weights[safe], 0.0)
+    return (nll * w).sum() / torch.clamp(w.sum(), min=1e-6)
+
+
 class MaskedBatchNorm(nn.Module):
     """BatchNorm1d over valid proposals (the reference's pos_embed BN(4)).
 
-    Eval form: running statistics, computed in the input's dtype like the
-    JAX module.  Masked batch statistics (momentum 0.001) come with the
-    training slice.
+    Eval: the running statistics.  Training: the statistics of the valid
+    rows only, in f32 (``cnt = max(sum(mask), 1)``, biased variance), and
+    the running ones updated with momentum 0.001 (``0.999 running + 0.001
+    batch``).  The normalization runs in the input's dtype, as in the JAX
+    module.
     """
 
-    def __init__(self, features: int, eps: float = 1e-5):
+    def __init__(self, features: int, eps: float = 1e-5,
+                 momentum: float = 0.001):
         super().__init__()
-        self.eps = eps
+        self.eps, self.momentum = eps, momentum
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError("masked BN statistics come with the "
-                                      "training slice")
         dt = x.dtype
-        y = (x - self.running_mean.to(dt)) * torch.rsqrt(
-            self.running_var + self.eps).to(dt)
+        if self.training:
+            m = mask.reshape(-1).float()[:, None]
+            flat = x.reshape(-1, x.shape[-1]).float()
+            cnt = torch.clamp(m.sum(), min=1.0)
+            mean = (flat * m).sum(0) / cnt
+            var = ((flat - mean).square() * m).sum(0) / cnt
+            with torch.no_grad():
+                k = self.momentum
+                self.running_mean.copy_((1 - k) * self.running_mean + k * mean)
+                self.running_var.copy_((1 - k) * self.running_var + k * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        y = (x - mean.to(dt)) * torch.rsqrt(var + self.eps).to(dt)
         return y * self.weight.to(dt) + self.bias.to(dt)
 
 

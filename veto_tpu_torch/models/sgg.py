@@ -5,6 +5,13 @@ Frozen ResNeXt-FPN detector body, trainable depth ResNet-18, multi-level
 the VETO relation predictor.  SGCls, SGDet, MEET and the legacy predictors
 come in later slices and raise ``NotImplementedError`` here.
 
+Training: the detector body is frozen (the JAX package's
+``FROZEN_DETECTOR``, ``tools/relation_train_net.py:297``): its parameters
+never require a gradient, it runs under ``torch.no_grad()`` (so autograd
+keeps none of its activations, as ``stop_gradient`` does in JAX) and it
+stays in eval mode when the model is put in train mode.  The depth
+backbone and the predictor train.
+
 Layout: NHWC images, (B, N) padded boxes, (B, P) padded pairs — the JAX
 package's, so the two take the same batch.
 """
@@ -63,10 +70,17 @@ class SGGModel(nn.Module):
             veto_heads, veto_patch_size, veto_depth_proj_dim,
             veto_visual_proj_dim, rgb_channels=fpn_channels, depth_channels=256,
             dtype=dtype)
+        self.backbone.requires_grad_(False)
+
+    def train(self, mode: bool = True) -> "SGGModel":
+        super().train(mode)
+        self.backbone.eval()  # the frozen detector never trains
+        return self
 
     def extract_features(self, images: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-        """Frozen FPN pyramid (P2..P6), NHWC."""
-        return self.backbone(images)
+        """Frozen FPN pyramid (P2..P6), NHWC, outside autograd."""
+        with torch.no_grad():
+            return self.backbone(images)
 
     def _pool_boxes(self, feats, boxes: torch.Tensor) -> torch.Tensor:
         levels = [f.contiguous() for f in feats[: len(self.pooler_scales)]]

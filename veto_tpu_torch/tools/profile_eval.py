@@ -103,12 +103,20 @@ def profile(cfg, batches: int = 3, log=print) -> dict:
         log(f"  {k:32s} {ms[k]:9.3f} ms")
 
     b = data[-1][0].to(dev)
+    return {"batch": bsz, "stage_ms": ms,
+            **trace(lambda: to_numpy(step(b)), OWN_KERNELS, log)}
+
+
+def trace(fn, own_kernels, log=print) -> dict:
+    """One call of ``fn`` (ending on the host) under ``torch.profiler``:
+    the device time by kernel, ``own_kernels`` summed by name, the device's
+    busy share of the wall time, and the card's name and power limit."""
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        to_numpy(step(b))
+        fn()
         wall_us = (time.perf_counter() - t0) * 1e6
     by_kernel = {}
     for e in prof.key_averages():
@@ -122,12 +130,11 @@ def profile(cfg, batches: int = 3, log=print) -> dict:
     for name, us in top:
         log(f"    {us / 1e3:9.3f} ms  {name[:110]}")
     own = {k: sum(us for n, us in by_kernel.items() if k in n) / 1e3
-           for k in OWN_KERNELS}
+           for k in own_kernels}
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
-    return {"card": card, "batch": bsz,
-            "stage_ms": ms, "traced_wall_ms": wall_us / 1e3,
+    return {"card": card, "traced_wall_ms": wall_us / 1e3,
             "device_busy_ms": busy_us / 1e3,
             "device_busy_share": busy_us / wall_us,
             "own_kernel_ms": own,
