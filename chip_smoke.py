@@ -17,21 +17,39 @@ catches its own failure:
 4. The main path: the full-width VETO PredCls model from seeded weights,
    3 synthetic batches of 8 x 800x1344 images (80 boxes, 2048 pairs)
    through the evaluation entry point's ``evaluate`` and ``SGGEvaluator``,
-   with the kernels' launch counts read around it; then one batch's
-   ``rel_logits`` against the same model run through the plain versions.
+   with exact launch counts per batch (B1 6, B3 2, every other kernel 0);
+   then one batch's ``rel_logits`` against the same model run through the
+   plain versions.
 5. Encoder backward kernels, B2a (FFN) and B2b (attention), vs their plain
    versions at the train shape (12,288 pairs x 19 x 576, and once with
    t_pad 24 > t_valid 19 and a partial GEMM tile); two kernel runs must
    give bit-equal gradients.
 6. ROIAlign backward kernel vs autograd of the plain pooling on the 1/16
    depth map of 12 x 800x1344 images, 80 rois each.
-7. The training main path: ``relation_train_net.train`` for 5 full-width
-   PredCls steps from seeded weights, with exact launch counts per step,
-   finite losses, every trainable tensor changed and the frozen detector
-   bit-unchanged; then one step's gradients through the kernels against
-   the same step through the plain versions.
-8. One JSON line ``{"kernels": [...]}`` (``launches`` are the training
-   path's, all five kernels) and, last, ``{"ok": true, "device": {...}}``.
+7. Pair-attention kernels B4a and B4b vs their plain versions, q/k/v the
+   strided thirds of a packed qkv, at 16,384 and 12,288 pairs x 19 x 576
+   and at 509 pairs with t_pad 24 > t_valid 19; SDPA with the key mask as
+   the yardstick.
+8. Monolithic encoder backward B5 vs its plain version at 12,288 pairs,
+   with and without the qkv/x1 stash; two kernel runs bit-equal; B5 vs
+   B2a + B2b on the same input; the two external dW ``torch.matmul``s
+   timed apart.
+9. The training main path: ``relation_train_net.train`` for 5 full-width
+   PredCls steps from seeded weights, with exact launch counts per step
+   (B1, B2a, B2b 6 each, B3 2, B3-bwd 1, B4a, B4b, B5 0), finite losses,
+   every trainable tensor changed and the frozen detector bit-unchanged;
+   then one step's gradients through the kernels against the same step
+   through the plain versions.
+10. The ``veto.encoder_impl=pair_attn`` path: 2 eval batches (B4a 6, B3 2
+    per batch), 3 train steps (B4a 6, B4b 6, B3 2, B3-bwd 1 per step) and
+    one step's gradients against the plain versions.
+11. The monolithic-backward path: 3 train steps with
+    ``fused_encoder.FUSED_SPLIT = False`` (B1 6, B5 6, B3 2, B3-bwd 1 per
+    step), 3 more with ``FUSED_STASH = False`` too, and one step's
+    gradients against the plain versions; both constants restored after.
+12. One JSON line ``{"kernels": [...]}`` (all eight kernels; ``launches``
+    from the training path that runs each) and, last,
+    ``{"ok": true, "device": {...}}``.
 
 Every f32 comparison runs with TF32 off (``torch.backends.cudnn.allow_tf32``
 and ``torch.backends.cuda.matmul.allow_tf32`` are set False below), so the
@@ -309,35 +327,37 @@ def phase_encoder(gen, pairs=16384, d=576):
 
 
 # ------------------------------------------------------------------ phase 4
-def phase_main_path(opts=()):
+def phase_main_path(opts=(), n_batches=3, encoder="fused_encoder_layer"):
+    """The eval entry point's ``evaluate`` over ``n_batches`` full-width
+    batches; per batch exactly ``layers`` launches of the ``encoder``
+    kernel, 2 of ROIAlign and none of any other kernel."""
     from veto_tpu_torch.config import load_config
     from veto_tpu_torch.models.relation.sampling import prepare_test_pairs
     from veto_tpu_torch.models.sgg import build_model
     from veto_tpu_torch.ops import cuda_lib
-    from veto_tpu_torch.ops import fused_encoder as fe
-    from veto_tpu_torch.ops import roi_align_windowed as rw
     from veto_tpu_torch.tools.relation_test_net import (
         evaluate, synthetic_eval_dataset,
     )
 
-    n_batches = 3
     cfg = load_config(os.path.join(ROOT, "configs", "veto_vg_predcls.yaml"),
                       list(opts))
     model = build_model(cfg)  # cuda, seeded weights, eval mode
     layers = cfg.veto.enc_layers
-    print(f"[main] VETO PredCls, {cfg.model.backbone} "
+    print(f"[main{' ' + ' '.join(opts) if opts else ''}] VETO PredCls, "
+          f"{cfg.model.backbone} "
           f"{cfg.model.resnet_groups}x{cfg.model.resnet_width_per_group}d "
           f"blocks {tuple(cfg.model.stage_blocks)}, trunk {cfg.veto.t_input_dim} "
-          f"x {layers} layers, {cfg.dtype}; {n_batches} batches of "
-          f"{cfg.test.ims_per_batch}, {cfg.data.max_boxes} boxes, "
-          f"{cfg.relation.max_proposal_pairs} pairs")
+          f"x {layers} layers ({cfg.veto.encoder_impl}), {cfg.dtype}; "
+          f"{n_batches} batches of {cfg.test.ims_per_batch}, "
+          f"{cfg.data.max_boxes} boxes, {cfg.relation.max_proposal_pairs} pairs")
+    want = expected(**{encoder: layers * n_batches,
+                       "multilevel_roi_align": 2 * n_batches})
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fe.KERNEL_LAUNCHES = rw.KERNEL_LAUNCHES = 0
+    read_counters(reset=True)
     agg, seconds = evaluate(cfg, model=model, max_batches=n_batches,
                             log=lambda s: print("  " + s))
-    launches = {"fused_encoder_layer": fe.KERNEL_LAUNCHES,
-                "multilevel_roi_align": rw.KERNEL_LAUNCHES}
+    launches = read_counters()
     peak = torch.cuda.max_memory_allocated()
     print(f"  launches {json.dumps(launches)}; after warm-up "
           f"{1e3 * float(np.mean(seconds[1:])):.1f} ms per batch "
@@ -345,12 +365,8 @@ def phase_main_path(opts=()):
           f"{peak / 2 ** 30:.2f} GiB")
     if len(seconds) != n_batches:
         raise AssertionError(f"{len(seconds)} batches ran, not {n_batches}")
-    if launches["fused_encoder_layer"] != layers * n_batches:
-        raise AssertionError(f"encoder kernel launched "
-                             f"{launches['fused_encoder_layer']} times, "
-                             f"expected {layers} per batch")
-    if launches["multilevel_roi_align"] < n_batches:
-        raise AssertionError("ROIAlign kernel launched less than once per batch")
+    if launches != want:
+        raise AssertionError(f"launches {launches}, want {want}")
     for m in ("R", "mR"):
         if not all(np.isfinite(v) and 0 <= v <= 100 for v in agg[m].values()):
             raise AssertionError(f"{m}@K out of range: {agg[m]}")
@@ -375,10 +391,14 @@ def phase_main_path(opts=()):
     scale = float(ref.abs().max())
     check_close("rel_logits kernels vs plain", got, ref, atol=0.05 * scale,
                 rtol=0.0, mean_tol=0.01 * float(ref.abs().mean()))
-    return launches
 
 
 # ------------------------------------------------------------------ phase 5
+def size(*ts) -> int:
+    """Bytes of the tensors ``ts``."""
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
 def check_scaled(name, got, ref, max_tol, mean_tol) -> float:
     """check_close with both tolerances relative to max |ref|; returns the
     max abs error over that scale."""
@@ -473,10 +493,6 @@ def phase_encoder_bwd(gen, pairs=12288, d=576):
 
     rows = pairs * t
     p = params
-
-    def size(*ts):
-        return sum(t_.numel() * t_.element_size() for t_ in ts)
-
     # f1 recompute, dg, dh2, dW1, dW2: five products of 2 R D F
     flops_a = 5 * 2 * rows * d * f
     # in: x1, dy, W1, W2, LN2 scale/bias, b1;
@@ -557,26 +573,243 @@ def phase_roi_align_bwd(gen, b=12, h=800, w=1344, c=256):
 
 
 # ------------------------------------------------------------------ phase 7
-def read_counters(reset=False):
-    """Every kernel's launch count, by kernel name; ``reset`` zeroes them."""
-    from veto_tpu_torch.ops import fused_encoder as fe
-    from veto_tpu_torch.ops import roi_align_windowed as rw
+def phase_pair_attention(gen, d=576, heads=6):
+    """B4a and B4b against their plain versions, q/k/v the strided thirds of
+    one packed qkv as ``_xla_layer`` passes them: at the eval (16,384
+    pairs) and train (12,288) shapes and once at an odd pair count with
+    t_pad 24 > t_valid 19; then their times, bounds and SDPA's."""
+    from veto_tpu_torch.ops import pair_attention as pa
 
-    out = {"fused_encoder_layer": fe.KERNEL_LAUNCHES,
-           "encoder_ffn_bwd": fe.FFN_BWD_LAUNCHES,
-           "encoder_att_bwd": fe.ATT_BWD_LAUNCHES,
-           "multilevel_roi_align": rw.KERNEL_LAUNCHES,
-           "roi_align_backward": rw.BWD_LAUNCHES}
-    if reset:
-        fe.KERNEL_LAUNCHES = fe.FFN_BWD_LAUNCHES = fe.ATT_BWD_LAUNCHES = 0
-        rw.KERNEL_LAUNCHES = rw.BWD_LAUNCHES = 0
+    t, dh = 19, d // heads
+    print(f"[pair attention] B4a/B4b vs plain, q/k/v slices of a packed qkv, "
+          f"x {t} tokens x {d}, {heads} heads")
+    # same rounding points (bf16 probabilities, bf16(ds * scale), each
+    # output once); an f32 sum in another order can flip one bf16 rounding,
+    # one ulp (2^-8) of that value: 1% of the largest |value| everywhere,
+    # 0.1% on average, as phase 5 holds the encoder backward
+    tol = dict(max_tol=1e-2, mean_tol=1e-3)
+    errs = {"fwd": 0.0, "bwd": 0.0}
+
+    def inputs(pairs, t_pad):
+        qkv = torch.randn(pairs, t_pad, 3 * d, generator=gen, device=DEVICE).bfloat16()
+        do = torch.randn(pairs, t_pad, d, generator=gen, device=DEVICE).bfloat16()
+        return qkv, qkv.chunk(3, dim=-1), do
+
+    def bwd(q, k, v, do):
+        """B4b writing dq, dk, dv packed, as ``pair_attention_qkv`` has it"""
+        dqkv = torch.empty(*q.shape[:2], 3 * d, dtype=q.dtype, device=DEVICE)
+        pa._launch_backward(q, k, v, do, heads, t, dqkv.chunk(3, dim=-1))
+        return dqkv.chunk(3, dim=-1)
+
+    def compare(which, names, got, ref):
+        for name, g_, r_ in zip(names, got, ref):
+            check_scaled(name, g_, r_, **tol)
+            errs[which] = max(errs[which], float((g_.float() - r_.float()).abs().max()))
+
+    times = {}
+    with torch.inference_mode():
+        for pairs, t_pad in ((16384, t), (12288, t), (509, 24)):
+            _, (q, k, v), do = inputs(pairs, t_pad)
+            print(f"  {pairs} pairs, t_pad {t_pad}, t_valid {t}")
+            compare("fwd", ["B4a out"], [pa._launch_forward(q, k, v, heads, t)],
+                    [pa.reference_pair_attention_forward(q, k, v, heads, t)])
+            compare("bwd", ["B4b dq", "B4b dk", "B4b dv"], bwd(q, k, v, do),
+                    pa.reference_pair_attention_backward(q, k, v, do, heads, t))
+            if t_pad == t:
+                times[pairs] = dict(
+                    fwd=cuda_ms(lambda: pa._launch_forward(q, k, v, heads, t), 20),
+                    bwd=cuda_ms(lambda: bwd(q, k, v, do), 20),
+                    plain_fwd=cuda_ms(lambda: pa.reference_pair_attention_forward(
+                        q, k, v, heads, t), 3),
+                    plain_bwd=cuda_ms(lambda: pa.reference_pair_attention_backward(
+                        q, k, v, do, heads, t), 3))
+    # yardstick: SDPA with the key mask on the same strided (P, heads, T, dh)
+    # views; the forward at the eval shape, the backward at the train shape
+    # (timed only, the port never calls it)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    mask = (torch.arange(t, device=DEVICE) < t).expand(t, t)
+
+    def heads_of(a):
+        return a.unflatten(-1, (heads, dh)).transpose(1, 2)
+
+    qkv, _, _ = inputs(16384, t)
+    with torch.inference_mode():
+        q4, k4, v4 = (heads_of(a) for a in qkv.chunk(3, dim=-1))
+        lib_fwd = cuda_ms(lambda: sdpa(q4, k4, v4, attn_mask=mask), 20)
+    qkv, _, do = inputs(12288, t)
+    q4, k4, v4 = (heads_of(a) for a in qkv.requires_grad_().chunk(3, dim=-1))
+    o4 = sdpa(q4, k4, v4, attn_mask=mask)
+    lib_bwd = cuda_ms(lambda: o4.backward(heads_of(do), retain_graph=True), 20)
+    del o4, q4, k4, v4, qkv
+
+    out = []
+    # B4a: q, k, v in, o out; QK^T and PV.  B4b: q, k, v, do in, dq, dk,
+    # dv out; QK^T again, dP, dV, dQ, dK
+    for name, key, line, tensors, products, pairs, lib_ms in (
+            ("pair_attention", "fwd", 156, 4, 2, 16384, lib_fwd),
+            ("pair_attention_backward", "bwd", 176, 7, 5, 12288, lib_bwd)):
+        for p_ in sorted(times):
+            nbytes = tensors * p_ * t * d * 2
+            t_ops = 2 * products * p_ * heads * t * t * dh / PEAK_BF16 * 1e3
+            t_bytes = nbytes / PEAK_BYTES * 1e3
+            print(f"  {name} at {p_} pairs: kernel {times[p_][key]:.3f} ms, plain "
+                  f"{times[p_]['plain_' + key]:.3f} ms; {nbytes / 1e9:.3f} GB -> "
+                  f"bound {max(t_ops, t_bytes):.3f} ms")
+            if p_ == pairs:
+                row = dict(name=name, route="cuda",
+                           source="veto_tpu_torch/csrc/pair_attention.cu",
+                           replaces=f"veto_tpu/ops/pair_attention.py:{line}",
+                           max_abs_err=errs[key], ms=times[p_][key],
+                           plain_ms=times[p_]["plain_" + key],
+                           bound_ms=max(t_ops, t_bytes),
+                           bound_by="operations" if t_ops >= t_bytes else "bytes",
+                           library_ms=lib_ms)
+        out.append(row)
+    print(f"  SDPA with the key mask: forward {lib_fwd:.3f} ms at 16384 pairs, "
+          f"backward {lib_bwd:.3f} ms at 12288 pairs")
     return out
 
 
-def phase_train(steps=5, opts=()):
-    """The training main path: ``relation_train_net.train`` for a few
-    full-width steps from seeded weights, with the launch counts read after
-    every step."""
+# ------------------------------------------------------------------ phase 8
+MONO_OUT = ("dx", "h2", "df1", "g", "vec", "db1", "dwqkv", "dwout")
+
+
+def phase_mono_bwd(gen, pairs=12288, d=576):
+    """B5 against its plain version at the train shape, with and without the
+    stash; two kernel runs bit-equal; B5 against B2a + B2b on the same
+    input; its time beside the two external dW products'."""
+    from veto_tpu_torch.ops import fused_encoder as fe
+
+    t, heads = 19, 6
+    print(f"[encoder mono bwd] B5 vs plain, {pairs} pairs x {t} tokens x {d}")
+    params = enc_params(gen, d)
+    f = params.w1.shape[1]
+    tol = dict(max_tol=1e-2, mean_tol=1e-3)  # phase 5's, for the same reason
+    err = 0.0
+    with torch.inference_mode():
+        x = torch.randn(pairs * t, d, generator=gen, device=DEVICE).bfloat16()
+        dy = torch.randn(pairs * t, d, generator=gen, device=DEVICE).bfloat16()
+        _, qkv, x1 = fe._launch(x, params, heads, t, t, stash=True)
+        runs = {}
+        for stash in (True, False):
+            sq, sx = (qkv, x1) if stash else (None, None)
+            got, again = (dict(zip(MONO_OUT, fe._launch_mono_bwd(
+                x, sq, sx, dy, params, heads, t, t))) for _ in range(2))
+            for k in got:  # split-K sums and column sums in a fixed order
+                if not torch.equal(got[k], again[k]):
+                    raise AssertionError(f"B5 {k} (stash {stash}): two kernel runs differ")
+            ref = dict(zip(MONO_OUT, fe.reference_mono_bwd(
+                x, sq, sx, dy, params, heads, t, t)))
+            print(f"  stash {stash}: two kernel runs bit-equal")
+            for k in got:
+                parts = ([(f"{k}[{i}]", got[k][i], ref[k][i]) for i in range(6)]
+                         if k == "vec" else [(k, got[k], ref[k])])
+                for name, g_, r_ in parts:
+                    check_scaled(name, g_, r_, **tol)
+                    err = max(err, float((g_.float() - r_.float()).abs().max()))
+            runs[stash] = got
+        same = all(torch.equal(runs[True][k], runs[False][k]) for k in runs[True])
+        print(f"  B5 with and without the stash bit-equal: {same}")
+        # B5 against the split backward on the same input
+        split, _ = enc_bwd_kernels(x, dy, params, heads, t, t)
+        b5 = runs[True]
+        pairs_ = [("dx", b5["dx"], split["dx"]), ("db1", b5["db1"], split["db1"]),
+                  ("dwqkv", b5["dwqkv"], split["dwqkv"]),
+                  ("dwout", b5["dwout"], split["dwout"]),
+                  ("dw1", b5["h2"].t() @ b5["df1"], split["dw1"]),
+                  ("dw2", b5["g"].t() @ dy, split["dw2"])]
+        vec = torch.cat([split["vec2"], split["vec4"]])
+        pairs_ += [(f"vec[{i}]", b5["vec"][i], vec[i]) for i in range(6)]
+        print("  B5 against B2a + B2b:")
+        for name, g_, r_ in pairs_:
+            check_scaled(f"B5 vs split {name}", g_, r_, **tol)
+        ms = cuda_ms(lambda: fe._launch_mono_bwd(x, qkv, x1, dy, params, heads, t, t), 10)
+        ms_nostash = cuda_ms(lambda: fe._launch_mono_bwd(
+            x, None, None, dy, params, heads, t, t), 10)
+        h2, df1, g = b5["h2"], b5["df1"], b5["g"]
+        ms_dw = cuda_ms(lambda: (torch.matmul(h2.t(), df1), torch.matmul(g.t(), dy)), 10)
+        plain_ms = cuda_ms(lambda: fe.reference_mono_bwd(
+            x, qkv, x1, dy, params, heads, t, t), 2, 1)
+    # yardstick: autograd through torch's own layer, the whole backward
+    layer = library_layer(params, heads)
+    x3 = x.view(pairs, t, d).clone().requires_grad_()
+    y3 = layer(x3)
+    lib_ms = cuda_ms(lambda: y3.backward(dy.view(pairs, t, d).clone(),
+                                         retain_graph=True), 5)
+    del y3, layer
+    rows = pairs * t
+    p = params
+    # f1, dg, dh2 (2 R D F each); datt, dWout (2 R D D); dh1, dWqkv
+    # (2 R D 3D); attention: scores, att, dp, dv, dq, dk
+    att_flops = 12 * pairs * heads * t * t * (d // heads)
+    flops = 2 * rows * (3 * d * f + 2 * d * d + 2 * 3 * d * d) + att_flops
+    # without the stash also the qkv and out-projection GEMMs and the
+    # attention forward (scores, att)
+    flops_nostash = (flops + 2 * rows * (3 * d * d + d * d)
+                     + 4 * pairs * heads * t * t * (d // heads))
+    # in: x, dy, qkv, x1, the parameters; out: dx, h2 (R D), df1, g (R F),
+    # the vector grads, dWqkv, dWout
+    nbytes = (rows * d * 2 * (1 + 1 + 3 + 1) + size(*p)
+              + rows * 2 * (2 * d + 2 * f) + 4 * (6 * d + f) + 2 * (3 * d * d + d * d))
+    t_ops, t_bytes = flops / PEAK_BF16 * 1e3, nbytes / PEAK_BYTES * 1e3
+    t_ops_ns = flops_nostash / PEAK_BF16 * 1e3
+    dw_flops = 2 * 2 * rows * d * f
+    print(f"  encoder_mono_bwd: kernel {ms:.3f} ms/layer with the stash "
+          f"({flops / ms / 1e9:.1f} TFLOP/s), {ms_nostash:.3f} without "
+          f"({flops_nostash / ms_nostash / 1e9:.1f} TFLOP/s, bound "
+          f"{t_ops_ns:.3f} ms); external dW1 + dW2 torch.matmul {ms_dw:.3f} ms "
+          f"({dw_flops / 1e12:.3f} TFLOP, bound {dw_flops / PEAK_BF16 * 1e3:.3f}); "
+          f"plain {plain_ms:.3f} ms, torch TransformerEncoderLayer backward "
+          f"{lib_ms:.3f} ms; {flops / 1e12:.3f} TFLOP, {nbytes / 1e9:.3f} GB -> "
+          f"bound {max(t_ops, t_bytes):.3f} ms")
+    return dict(name="encoder_mono_bwd", route="cuda",
+                source="veto_tpu_torch/csrc/encoder_layer_bwd.cu",
+                replaces="veto_tpu/ops/fused_encoder.py:752",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                library_ms=lib_ms)
+
+
+# ------------------------------------------------------------- phases 9-11
+# every kernel's launch counter: (module, attribute) by kernel name
+COUNTERS = {
+    "fused_encoder_layer": ("fused_encoder", "KERNEL_LAUNCHES"),        # B1
+    "encoder_ffn_bwd": ("fused_encoder", "FFN_BWD_LAUNCHES"),           # B2a
+    "encoder_att_bwd": ("fused_encoder", "ATT_BWD_LAUNCHES"),           # B2b
+    "multilevel_roi_align": ("roi_align_windowed", "KERNEL_LAUNCHES"),  # B3
+    "roi_align_backward": ("roi_align_windowed", "BWD_LAUNCHES"),       # B3-bwd
+    "pair_attention": ("pair_attention", "KERNEL_LAUNCHES"),            # B4a
+    "pair_attention_backward": ("pair_attention", "BWD_LAUNCHES"),      # B4b
+    "encoder_mono_bwd": ("fused_encoder", "MONO_BWD_LAUNCHES"),         # B5
+}
+
+
+def read_counters(reset=False):
+    """Every kernel's launch count, by kernel name; ``reset`` zeroes them."""
+    import importlib
+
+    out = {}
+    for name, (mod, attr) in COUNTERS.items():
+        m = importlib.import_module(f"veto_tpu_torch.ops.{mod}")
+        out[name] = getattr(m, attr)
+        if reset:
+            setattr(m, attr, 0)
+    return out
+
+
+def expected(**launches):
+    """Launch counts of every kernel: the given ones, 0 for the rest."""
+    return {name: launches.get(name, 0) for name in COUNTERS}
+
+
+def phase_train(steps=5, opts=(), encoder=("fused_encoder_layer",
+                                           "encoder_ffn_bwd", "encoder_att_bwd"),
+                what="main path"):
+    """A training path: ``relation_train_net.train`` for a few full-width
+    steps from seeded weights, with the launch counts read after every step:
+    exactly ``layers`` launches of each ``encoder`` kernel, 2 of ROIAlign,
+    1 of its backward and none of any other kernel."""
     from veto_tpu_torch.config import load_config
     from veto_tpu_torch.models.sgg import build_model
     from veto_tpu_torch.tools.relation_train_net import train
@@ -585,13 +818,13 @@ def phase_train(steps=5, opts=()):
                       [f"solver.max_iter={steps}", *opts])
     model = build_model(cfg)  # cuda, seeded weights
     layers = cfg.veto.enc_layers
-    per_step = {"fused_encoder_layer": layers, "encoder_ffn_bwd": layers,
-                "encoder_att_bwd": layers, "multilevel_roi_align": 2,
-                "roi_align_backward": 1}
-    print(f"[train] VETO PredCls training, {cfg.model.backbone} "
+    per_step = expected(**{k: layers for k in encoder}, multilevel_roi_align=2,
+                        roi_align_backward=1)
+    print(f"[train, {what}] VETO PredCls training, {cfg.model.backbone} "
           f"{cfg.model.resnet_groups}x{cfg.model.resnet_width_per_group}d frozen, "
           f"depth ResNet-18 + trunk {cfg.veto.t_input_dim} x {layers} layers "
-          f"trained, {cfg.dtype}; {steps} steps of {cfg.solver.ims_per_batch} "
+          f"({cfg.veto.encoder_impl}) trained, {cfg.dtype}; {steps} steps of "
+          f"{cfg.solver.ims_per_batch} "
           f"images, {cfg.relation.batch_size_per_image} pairs an image")
     frozen = {k: v.clone() for k, v in model.backbone.state_dict().items()}
     before = {n: p.detach().clone() for n, p in model.named_parameters()
@@ -612,7 +845,7 @@ def phase_train(steps=5, opts=()):
     peak = torch.cuda.max_memory_allocated()
     total = {k: sum(c[k] for c in counts) for k in per_step}
     ms = 1e3 * float(np.mean([r["seconds"] for r in history[1:]]))
-    print(f"  after warm-up {ms:.1f} ms per step "
+    print(f"  [{what}] after warm-up {ms:.1f} ms per step "
           f"({[round(1e3 * r['seconds'], 1) for r in history]}); peak memory "
           f"{peak / 2 ** 30:.2f} GiB")
     if len(history) != steps:
@@ -640,7 +873,7 @@ def phase_train(steps=5, opts=()):
     return state, total
 
 
-def phase_train_grads(state, opts=()):
+def phase_train_grads(state, opts=(), what="main path"):
     """One step's gradients through the kernels against the same step
     through the plain versions, on the card, from the trained state."""
     from veto_tpu_torch.config import load_config
@@ -656,7 +889,7 @@ def phase_train_grads(state, opts=()):
     gen = torch.Generator(device=DEVICE).manual_seed(1)
     samples = sample_pairs(b, gen, cfg.relation.batch_size_per_image,
                            cfg.relation.positive_fraction)
-    print(f"[train grads] one step's gradients, kernels vs plain: {bsz} images, "
+    print(f"[train grads, {what}] one step's gradients, kernels vs plain: {bsz} images, "
           f"{cfg.relation.batch_size_per_image} pairs an image")
     params = [(n, p) for n, p in state.model.named_parameters() if p.requires_grad]
 
@@ -704,6 +937,47 @@ def phase_train_grads(state, opts=()):
           "their plain versions")
 
 
+def phase_paths():
+    """The two further paths through the entry points: the encoder's
+    ``pair_attn`` implementation (evaluation, training) and the fused
+    encoder with the monolithic backward (``FUSED_SPLIT`` off, then also
+    ``FUSED_STASH`` off).  Returns each path's launches by kernel."""
+    from veto_tpu_torch.ops import fused_encoder as fe
+
+    pair_attn = ("veto.encoder_impl=pair_attn",)
+    phase_main_path(pair_attn, n_batches=2, encoder="pair_attention")
+    state, pa_launches = phase_train(
+        3, pair_attn, encoder=("pair_attention", "pair_attention_backward"),
+        what="pair_attn")
+    phase_train_grads(state, pair_attn, what="pair_attn")
+    del state
+    release()
+    saved = fe.FUSED_SPLIT, fe.FUSED_STASH
+    mono = ("fused_encoder_layer", "encoder_mono_bwd")
+    try:
+        fe.FUSED_SPLIT = False
+        state, mono_launches = phase_train(3, encoder=mono, what="FUSED_SPLIT=False")
+        del state
+        release()
+        fe.FUSED_STASH = False
+        state, _ = phase_train(3, encoder=mono,
+                               what="FUSED_SPLIT=False, FUSED_STASH=False")
+        phase_train_grads(state, what="FUSED_SPLIT=False, FUSED_STASH=False")
+        del state
+        release()
+    finally:
+        fe.FUSED_SPLIT, fe.FUSED_STASH = saved
+    return pa_launches, mono_launches
+
+
+def release():
+    """Give the freed memory of a finished phase back before the next."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device; this script runs the port on "
@@ -720,11 +994,19 @@ def main() -> int:
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     kernels = [phase_roi_align(gen), phase_encoder(gen)]
     phase_main_path()
-    kernels += [*phase_encoder_bwd(gen), phase_roi_align_bwd(gen)]
+    kernels += [*phase_encoder_bwd(gen), phase_roi_align_bwd(gen),
+                *phase_pair_attention(gen), phase_mono_bwd(gen)]
+    release()
     state, launches = phase_train()
     phase_train_grads(state)
     del state
-    for k in kernels:  # launches on the training path, every kernel's
+    release()
+    pa_launches, mono_launches = phase_paths()
+    # each kernel's launches on the training path that runs it
+    launches.update(pair_attention=pa_launches["pair_attention"],
+                    pair_attention_backward=pa_launches["pair_attention_backward"],
+                    encoder_mono_bwd=mono_launches["encoder_mono_bwd"])
+    for k in kernels:
         k["launches"] = launches[k["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

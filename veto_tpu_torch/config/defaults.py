@@ -31,8 +31,9 @@ class VetoTransformerConfig:
     # patch-projection output dims (reference model_veto.py:105-106)
     depth_proj_dim: int = 512
     visual_proj_dim: int = 64
-    # encoder implementation: auto (fused Pallas on TPU, plain XLA
-    # elsewhere) | xla | fused | pair_attn (attention-only Pallas fusion)
+    # encoder implementation: auto (= fused) | fused (the fused layer
+    # kernels) | pair_attn (plain PyTorch layer around the pair-attention
+    # kernels) | xla (plain PyTorch layer); any other value raises
     encoder_impl: str = "auto"
     # rematerialize the encoder in backward (memory for compute); the fused
     # kernel already recomputes flash-style, so off is the fast default

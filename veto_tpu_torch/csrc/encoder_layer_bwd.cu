@@ -1,5 +1,5 @@
 // Fused VETO encoder layer backward for Hopper (sm_90a): the two passes of
-// the split backward.
+// the split backward, and the monolithic backward.
 //
 // Replaces the Pallas TPU kernels of veto_tpu/ops/fused_encoder.py driven by
 // _bwd_split (the default backward, FUSED_SPLIT with the qkv/x1 stash):
@@ -13,6 +13,17 @@
 //     attention probabilities from the stashed qkv; emits dx; dWqkv, dWout,
 //     d ln1 scale/bias.
 //
+// and the Pallas kernel driven by _bwd (the backward with FUSED_SPLIT off,
+// or of a call that kept no stash):
+//
+//   B5, _bwd_kernel (encoder_mono_backward below): both sub-blocks in one
+//     entry point, pass A's launches then pass B's, emitting dx, the vector
+//     grads, dWqkv and dWout, and instead of dW1 and dW2 their factors h2,
+//     bf16(df1) and bf16(g), as _bwd_kernel does (the caller takes
+//     h2^T df1 and g^T dy).  Without the stash it first recomputes qkv and
+//     x1 with the forward's launches (LN1, the qkv GEMM, the attention, the
+//     out-projection with bias and residual), bit for bit the forward's.
+//
 // Rounding points are the TPU kernels': dy rounded to bf16 before dy W2^T
 // and g^T dy; df1 rounded to bf16 before df1 W1^T and h2^T df1; dx1 f32;
 // datt = bf16(dx1) Wout^T rounded to bf16; inside attention the bf16
@@ -25,6 +36,8 @@
 // D = 576, F = 1152) pass A is 5 GEMMs of 2 R D F (1.55 TFLOP) and pass B 4
 // GEMMs (1.26 TFLOP) plus 0.03 TFLOP of attention, so ~2.8 ms per layer at
 // 989 TFLOP/s against ~4.5 GB of activations read and written (~1.3 ms).
+// B5 runs f1, dg, dh2, datt, dh1, dWqkv and dWout (2.2 TFLOP, ~2.2 ms), and
+// without the stash also qkv and the out-projection (2.8 TFLOP, ~2.8 ms).
 // Each pass is a fixed sequence of launches: LayerNorm recompute, the
 // hand-written WMMA tensor-core GEMM of the forward (128x64x32 tiles,
 // cp.async double buffering) with either operand read transposed from its
@@ -153,6 +166,8 @@ enum {
   EPI_GELU_BWD = 3,        // df = acc * gelu'(aux): out_bf16 = bf16(df),
                            // colsum[blockIdx.y][n] = sum of the tile's df
   EPI_SPLITK = 4,          // out_f32[z] = acc (partial of split z)
+  EPI_BIAS_RESID = 5,      // out_bf16 = bf16(resid + bf16(acc + bias)), the
+                           // forward's out-projection (B5's x1 recompute)
 };
 
 constexpr int BM = 128, BN = 64, BK = 32, GEMM_THREADS = 256;
@@ -179,6 +194,7 @@ struct Epi {
   float* out_f32;     // (M, N), or (splits, M, N) for EPI_SPLITK
   bf16* out_bf16;     // (M, N)
   float* colsum;      // (gridDim.y, N)
+  const bf16* resid;  // (M, N)
 };
 
 // Loads the k-tile at k0; rows or columns past M, N or k_end are zero-filled.
@@ -322,6 +338,12 @@ __global__ void __launch_bounds__(GEMM_THREADS)
           __floats2bfloat162_rn(v0, v1);
       smem.c[r][col] = v0;  // kept for the column sums below
       smem.c[r][col + 1] = v1;
+    } else if (EPI == EPI_BIAS_RESID) {
+      const float2 res = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(epi.resid + o));
+      *reinterpret_cast<__nv_bfloat162*>(epi.out_bf16 + o) =
+          __floats2bfloat162_rn(res.x + round_bf16(v0 + epi.bias[gc]),
+                                res.y + round_bf16(v1 + epi.bias[gc + 1]));
     }
   }
   if (EPI == EPI_GELU_BWD) {
@@ -446,7 +468,8 @@ __global__ void __launch_bounds__(LNB_WARPS * 32)
 // ----------------------------------------------------------------------------
 // Attention backward: one block per (pair, head).  Recomputes the scores and
 // probabilities from the stashed qkv, writes the recomputed head output att
-// (the forward's, bit for bit) and dq, dk, dv.
+// (the forward's, bit for bit) and dq, dk, dv.  With datt null it stops
+// after att: the attention forward, for B5's recompute without the stash.
 // ----------------------------------------------------------------------------
 constexpr int ATT_THREADS = 128;
 
@@ -473,7 +496,7 @@ __global__ void __launch_bounds__(ATT_THREADS)
     q[t * ld + c] = __bfloat162float(r[0]);
     k[t * ld + c] = __bfloat162float(r[d]);
     v[t * ld + c] = __bfloat162float(r[2 * d]);
-    go[t * ld + c] = __bfloat162float(datt[(row0 + t) * (size_t)d + h * dh + c]);
+    if (datt) go[t * ld + c] = __bfloat162float(datt[(row0 + t) * (size_t)d + h * dh + c]);
   }
   __syncthreads();
   for (int e = threadIdx.x; e < t_pad * t_valid; e += ATT_THREADS) {
@@ -502,6 +525,7 @@ __global__ void __launch_bounds__(ATT_THREADS)
     for (int j = 0; j < t_valid; ++j) acc += round_bf16(p[i * lds + j]) * v[j * ld + c];
     att[(row0 + i) * (size_t)d + h * dh + c] = __float2bfloat16(acc);
   }
+  if (!datt) return;  // the same for every thread of the block
   for (int e = threadIdx.x; e < t_pad * t_valid; e += ATT_THREADS) {
     const int i = e / t_valid, j = e % t_valid;
     float acc = 0.f;
@@ -620,6 +644,25 @@ static int launch_ln_backward(const bf16* x, const float* dh, const RES* resid,
   return (int)cudaGetLastError();
 }
 
+// Shared memory of the attention backward kernel for (t_pad, dh), in bytes.
+extern "C" int encoder_attention_bwd_smem_bytes(int t_pad, int dh) {
+  return (4 * t_pad * (dh + 1) + 2 * t_pad * (t_pad + 1)) * (int)sizeof(float);
+}
+
+// One block per (pair, head); datt null: the forward only (att).
+static int launch_attention(const bf16* qkv, const bf16* datt, bf16* att,
+                            bf16* dqkv, int pairs, int heads, int t_pad,
+                            int t_valid, int d, float scale, cudaStream_t s) {
+  const int dh = d / heads;
+  const int smem = encoder_attention_bwd_smem_bytes(t_pad, dh);
+  if (smem > 48 * 1024)
+    cudaFuncSetAttribute(pair_attention_bwd_kernel,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  pair_attention_bwd_kernel<<<dim3(pairs, heads), ATT_THREADS, smem, s>>>(
+      qkv, datt, att, dqkv, t_pad, t_valid, d, dh, scale);
+  return (int)cudaGetLastError();
+}
+
 // workspace carving: 256-byte aligned sub-buffers
 struct Carve {
   char* base;
@@ -682,9 +725,79 @@ extern "C" size_t encoder_att_backward_workspace(int rows, int d) {
   return att_work(nullptr, rows, d, &w);
 }
 
-// Shared memory of the attention backward kernel for (t_pad, dh), in bytes.
-extern "C" int encoder_attention_bwd_smem_bytes(int t_pad, int dh) {
-  return (4 * t_pad * (dh + 1) + 2 * t_pad * (t_pad + 1)) * (int)sizeof(float);
+// The FFN sub-block's backward without its weight gradients: h2 = LN2(x1),
+// f1 = h2 W1 + b1 (f32), g = bf16(gelu f1), df1 = bf16((dy W2^T) gelu'(f1)),
+// dh2 = df1 W1^T, dx1 = dy + LN2 backward (f32 and bf16), vec4 = [d ln2
+// scale, d ln2 bias, d b_out, d b2], db1.  Scratch: f1 (rows, f) and dh2
+// (rows, d) f32, part_b1 and part_ln (4 d) per block.
+static int ffn_backward_core(const bf16* X1, const bf16* DY, const float* ln2_s,
+                             const float* ln2_b, const bf16* w1, const float* b1,
+                             const bf16* w2, bf16* h2, bf16* gb, bf16* df1b,
+                             float* f1, float* dh2, float* part_b1,
+                             float* part_ln, float* dx1, bf16* dx1b,
+                             float* vec4, float* db1, int rows, int d, int f,
+                             cudaStream_t s) {
+  int err;
+  if ((err = launch_layernorm(X1, ln2_s, ln2_b, h2, rows, d, s))) return err;
+  // f1 = h2 W1 + b1 (kept in f32), g = bf16(gelu f1)
+  Epi e1 = {b1, nullptr, f1, gb, nullptr};
+  if ((err = launch_gemm<false, false, EPI_BIAS_GELU_SAVE>(h2, w1, rows, f, d, d,
+                                                           f, e1, s)))
+    return err;
+  // df1 = (dy W2^T) gelu'(f1), bf16; per-tile column sums for d b1
+  Epi e2 = {nullptr, f1, nullptr, df1b, part_b1};
+  if ((err = launch_gemm<false, true, EPI_GELU_BWD>(DY, w2, rows, f, d, d, d, e2,
+                                                    s)))
+    return err;
+  if ((err = colsum(part_b1, (int)row_tiles(rows), f, db1, s))) return err;
+  // dh2 = df1 W1^T
+  Epi e3 = {nullptr, nullptr, dh2, nullptr, nullptr};
+  if ((err = launch_gemm<false, true, EPI_F32>(df1b, w1, rows, d, f, f, f, e3, s)))
+    return err;
+  // dx1 = dy + LN2 backward; column sums of dh2 xhat2, dh2, dx1, dy
+  if ((err = launch_ln_backward<4, bf16>(X1, dh2, DY, ln2_s, dx1, dx1b, part_ln,
+                                         rows, d, s)))
+    return err;
+  return colsum(part_ln, (int)ln_blocks(rows), 4 * d, vec4, s);
+}
+
+// The attention sub-block's backward: h1 = LN1(x), datt = bf16(bf16(dx1)
+// Wout^T), the attention backward (recomputed att, dqkv), dh1 = dqkv
+// Wqkv^T, dx = bf16(dx1 + LN1 backward), vec2 = [d ln1 scale, d ln1 bias],
+// dWqkv = h1^T dqkv, dWout = att^T bf16(dx1).
+static int att_backward_core(const bf16* X, const bf16* QKV, const float* DX1,
+                             const bf16* DX1B, const float* ln1_s,
+                             const float* ln1_b, const bf16* w_qkv,
+                             const bf16* w_out, bf16* dx, bf16* dwqkv,
+                             bf16* dwout, float* vec2, const AttWork& w,
+                             int rows, int d, int heads, int t_pad, int t_valid,
+                             float att_scale, cudaStream_t s) {
+  const int dh = d / heads;
+  const int pairs = rows / t_pad;
+  int err;
+  if ((err = launch_layernorm(X, ln1_s, ln1_b, w.h1, rows, d, s))) return err;
+  // datt = bf16(dx1) Wout^T, rounded to bf16
+  Epi e1 = {nullptr, nullptr, nullptr, w.datt, nullptr};
+  if ((err = launch_gemm<false, true, EPI_BF16>(DX1B, w_out, rows, d, d, d, d,
+                                                e1, s)))
+    return err;
+  if ((err = launch_attention(QKV, w.datt, w.att, w.dqkv, pairs, heads, t_pad,
+                              t_valid, d, att_scale, s)))
+    return err;
+  // dh1 = bf16(dqkv) Wqkv^T
+  Epi e2 = {nullptr, nullptr, w.dh1, nullptr, nullptr};
+  if ((err = launch_gemm<false, true, EPI_F32>(w.dqkv, w_qkv, rows, d, 3 * d,
+                                               3 * d, 3 * d, e2, s)))
+    return err;
+  // dx = dx1 + LN1 backward; column sums of dh1 xhat1, dh1
+  if ((err = launch_ln_backward<2, float>(X, w.dh1, DX1, ln1_s, nullptr, dx,
+                                          w.part_ln, rows, d, s)))
+    return err;
+  if ((err = colsum(w.part_ln, (int)ln_blocks(rows), 2 * d, vec2, s))) return err;
+  // dWqkv = h1^T dqkv, dWout = att^T bf16(dx1)
+  if ((err = weight_grad(w.h1, w.dqkv, d, 3 * d, rows, w.part_w, dwqkv, s)))
+    return err;
+  return weight_grad(w.att, DX1B, d, d, rows, w.part_w, dwout, s);
 }
 
 // Pass A.  In: x1 (rows, d) bf16 stash, dy (rows, d) bf16, LN2 scale/bias
@@ -700,34 +813,14 @@ extern "C" int encoder_ffn_backward(
   cudaStream_t s = (cudaStream_t)stream;
   FfnWork w;
   ffn_work((char*)workspace, rows, d, f, &w);
-  const bf16* X1 = (const bf16*)x1;
   const bf16* DY = (const bf16*)dy;
   int err;
-  if ((err = launch_layernorm(X1, (const float*)ln2_s, (const float*)ln2_b, w.h2,
-                              rows, d, s)))
-    return err;
-  // f1 = h2 W1 + b1 (kept in f32), g = bf16(gelu f1)
-  Epi e1 = {(const float*)b1, nullptr, w.f1, w.gb, nullptr};
-  if ((err = launch_gemm<false, false, EPI_BIAS_GELU_SAVE>(
-           w.h2, (const bf16*)w1, rows, f, d, d, f, e1, s)))
-    return err;
-  // df1 = (dy W2^T) gelu'(f1), bf16; per-tile column sums for d b1
-  Epi e2 = {nullptr, w.f1, nullptr, w.df1b, w.part_b1};
-  if ((err = launch_gemm<false, true, EPI_GELU_BWD>(DY, (const bf16*)w2, rows, f,
-                                                    d, d, d, e2, s)))
-    return err;
-  if ((err = colsum(w.part_b1, (int)row_tiles(rows), f, (float*)db1, s))) return err;
-  // dh2 = df1 W1^T
-  Epi e3 = {nullptr, nullptr, w.dh2, nullptr, nullptr};
-  if ((err = launch_gemm<false, true, EPI_F32>(w.df1b, (const bf16*)w1, rows, d,
-                                               f, f, f, e3, s)))
-    return err;
-  // dx1 = dy + LN2 backward; column sums of dh2 xhat2, dh2, dx1, dy
-  if ((err = launch_ln_backward<4, bf16>(X1, w.dh2, DY, (const float*)ln2_s,
-                                         (float*)dx1, (bf16*)dx1b, w.part_ln,
-                                         rows, d, s)))
-    return err;
-  if ((err = colsum(w.part_ln, (int)ln_blocks(rows), 4 * d, (float*)vec4, s)))
+  if ((err = ffn_backward_core((const bf16*)x1, DY, (const float*)ln2_s,
+                               (const float*)ln2_b, (const bf16*)w1,
+                               (const float*)b1, (const bf16*)w2, w.h2, w.gb,
+                               w.df1b, w.f1, w.dh2, w.part_b1, w.part_ln,
+                               (float*)dx1, (bf16*)dx1b, (float*)vec4,
+                               (float*)db1, rows, d, f, s)))
     return err;
   // dW1 = h2^T df1, dW2 = g^T dy
   if ((err = weight_grad(w.h2, w.df1b, d, f, rows, w.part_w, (bf16*)dw1, s)))
@@ -746,43 +839,97 @@ extern "C" int encoder_att_backward(
     const void* ln1_s, const void* ln1_b, const void* w_qkv, const void* w_out,
     void* dx, void* dwqkv, void* dwout, void* vec2, void* workspace, int rows,
     int d, int heads, int t_pad, int t_valid, float att_scale, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
   AttWork w;
   att_work((char*)workspace, rows, d, &w);
+  return att_backward_core(
+      (const bf16*)x, (const bf16*)qkv, (const float*)dx1, (const bf16*)dx1b,
+      (const float*)ln1_s, (const float*)ln1_b, (const bf16*)w_qkv,
+      (const bf16*)w_out, (bf16*)dx, (bf16*)dwqkv, (bf16*)dwout, (float*)vec2, w,
+      rows, d, heads, t_pad, t_valid, att_scale, (cudaStream_t)stream);
+}
+
+// B5's workspace: pass B's, then pass A's scratch, dx1 in f32 and bf16, and
+// without the stash the recomputed qkv and x1.
+struct MonoWork {
+  AttWork att;
+  bf16 *qkv, *x1, *dx1b;
+  float *f1, *dh2, *dx1, *part_b1, *part_ln;
+};
+static size_t mono_work(char* base, int rows, int d, int f, bool stash,
+                        MonoWork* w) {
+  Carve c{base, att_work(base, rows, d, &w->att)};
+  w->f1 = c.take<float>((size_t)rows * f);
+  w->dh2 = c.take<float>((size_t)rows * d);
+  w->dx1 = c.take<float>((size_t)rows * d);
+  w->dx1b = c.take<bf16>((size_t)rows * d);
+  w->part_b1 = c.take<float>(row_tiles(rows) * f);
+  w->part_ln = c.take<float>(ln_blocks(rows) * 4 * d);
+  w->qkv = stash ? nullptr : c.take<bf16>((size_t)rows * 3 * d);
+  w->x1 = stash ? nullptr : c.take<bf16>((size_t)rows * d);
+  return c.used;
+}
+
+extern "C" size_t encoder_mono_backward_workspace(int rows, int d, int f,
+                                                  int stash) {
+  MonoWork w;
+  return mono_work(nullptr, rows, d, f, stash != 0, &w);
+}
+
+// B5, the monolithic layer backward (_bwd_kernel).  In: x, dy (rows, d)
+// bf16; qkv (rows, 3d) and x1 (rows, d) bf16, the forward's stash, or both
+// null to recompute them here (h1 = LN1 x, qkv = bf16(h1 Wqkv), att,
+// x1 = x + bf16(att Wout + b_out), bit for bit the forward's); the 11
+// layer parameters in EncoderLayerParams order (b2 unused).  Out: dx, h2
+// (rows, d), df1, g (rows, f) bf16 (h2, df1, g are the factors of dW1 =
+// h2^T df1 and dW2 = g^T dy, taken outside); vec6 (6, d) f32 = [d ln1
+// scale, d ln1 bias, d ln2 scale, d ln2 bias, d b_out, d b2], db1 (f,) f32;
+// dwqkv (d, 3d) and dwout (d, d) bf16.  workspace holds
+// encoder_mono_backward_workspace(rows, d, f, stash) bytes.
+extern "C" int encoder_mono_backward(
+    const void* x, const void* qkv, const void* x1, const void* dy,
+    const void* ln1_s, const void* ln1_b, const void* w_qkv, const void* w_out,
+    const void* b_out, const void* ln2_s, const void* ln2_b, const void* w1,
+    const void* b1, const void* w2, const void* b2, void* dx, void* h2,
+    void* df1, void* g, void* vec6, void* db1, void* dwqkv, void* dwout,
+    void* workspace, int rows, int d, int f, int heads, int t_pad, int t_valid,
+    float att_scale, void* stream) {
+  (void)b2;
+  cudaStream_t s = (cudaStream_t)stream;
+  const bool stash = qkv != nullptr;
+  MonoWork w;
+  mono_work((char*)workspace, rows, d, f, stash, &w);
   const bf16* X = (const bf16*)x;
-  const bf16* DX1B = (const bf16*)dx1b;
-  const int dh = d / heads;
-  const int pairs = rows / t_pad;
+  const bf16* QKV = stash ? (const bf16*)qkv : w.qkv;
+  const bf16* X1 = stash ? (const bf16*)x1 : w.x1;
   int err;
-  if ((err = launch_layernorm(X, (const float*)ln1_s, (const float*)ln1_b, w.h1,
-                              rows, d, s)))
+  if (!stash) {
+    if ((err = launch_layernorm(X, (const float*)ln1_s, (const float*)ln1_b,
+                                w.att.h1, rows, d, s)))
+      return err;
+    Epi e1 = {nullptr, nullptr, nullptr, w.qkv, nullptr};
+    if ((err = launch_gemm<false, false, EPI_BF16>(w.att.h1, (const bf16*)w_qkv,
+                                                   rows, 3 * d, d, d, 3 * d, e1,
+                                                   s)))
+      return err;
+    if ((err = launch_attention(w.qkv, nullptr, w.att.att, nullptr, rows / t_pad,
+                                heads, t_pad, t_valid, d, att_scale, s)))
+      return err;
+    Epi e2 = {(const float*)b_out, nullptr, nullptr, w.x1, nullptr, X};
+    if ((err = launch_gemm<false, false, EPI_BIAS_RESID>(
+             w.att.att, (const bf16*)w_out, rows, d, d, d, d, e2, s)))
+      return err;
+  }
+  float* vec = (float*)vec6;
+  if ((err = ffn_backward_core(X1, (const bf16*)dy, (const float*)ln2_s,
+                               (const float*)ln2_b, (const bf16*)w1,
+                               (const float*)b1, (const bf16*)w2, (bf16*)h2,
+                               (bf16*)g, (bf16*)df1, w.f1, w.dh2, w.part_b1,
+                               w.part_ln, w.dx1, w.dx1b, vec + 2 * d,
+                               (float*)db1, rows, d, f, s)))
     return err;
-  // datt = bf16(dx1) Wout^T, rounded to bf16
-  Epi e1 = {nullptr, nullptr, nullptr, w.datt, nullptr};
-  if ((err = launch_gemm<false, true, EPI_BF16>(DX1B, (const bf16*)w_out, rows,
-                                                d, d, d, d, e1, s)))
-    return err;
-  const int smem = encoder_attention_bwd_smem_bytes(t_pad, dh);
-  if (smem > 48 * 1024)
-    cudaFuncSetAttribute(pair_attention_bwd_kernel,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  pair_attention_bwd_kernel<<<dim3(pairs, heads), ATT_THREADS, smem, s>>>(
-      (const bf16*)qkv, w.datt, w.att, w.dqkv, t_pad, t_valid, d, dh, att_scale);
-  if ((err = (int)cudaGetLastError())) return err;
-  // dh1 = bf16(dqkv) Wqkv^T
-  Epi e2 = {nullptr, nullptr, w.dh1, nullptr, nullptr};
-  if ((err = launch_gemm<false, true, EPI_F32>(w.dqkv, (const bf16*)w_qkv, rows,
-                                               d, 3 * d, 3 * d, 3 * d, e2, s)))
-    return err;
-  // dx = dx1 + LN1 backward; column sums of dh1 xhat1, dh1
-  if ((err = launch_ln_backward<2, float>(X, w.dh1, (const float*)dx1,
-                                          (const float*)ln1_s, nullptr, (bf16*)dx,
-                                          w.part_ln, rows, d, s)))
-    return err;
-  if ((err = colsum(w.part_ln, (int)ln_blocks(rows), 2 * d, (float*)vec2, s)))
-    return err;
-  // dWqkv = h1^T dqkv, dWout = att^T bf16(dx1)
-  if ((err = weight_grad(w.h1, w.dqkv, d, 3 * d, rows, w.part_w, (bf16*)dwqkv, s)))
-    return err;
-  return weight_grad(w.att, DX1B, d, d, rows, w.part_w, (bf16*)dwout, s);
+  return att_backward_core(X, QKV, w.dx1, w.dx1b, (const float*)ln1_s,
+                           (const float*)ln1_b, (const bf16*)w_qkv,
+                           (const bf16*)w_out, (bf16*)dx, (bf16*)dwqkv,
+                           (bf16*)dwout, vec, w.att, rows, d, heads, t_pad,
+                           t_valid, att_scale, s);
 }

@@ -19,6 +19,12 @@ another order would silently mix channels in ``proj_d_*``/``proj_v_*``.
 The encoder's matrices are kept (in, out), the JAX layout, because the CUDA
 layer kernel reads them so; every other matrix is a ``Dense`` (torch
 ``(out, in)``).
+
+The encoder has the JAX package's implementations (``encoder_impl``), over
+the same parameters: ``fused`` (the fused layer, B1 with B2 or B5 on the
+card), ``pair_attn`` (``VetoEncoder._xla_layer``: plain PyTorch
+projections, LayerNorms and FFN around the pair-attention kernels B4a/B4b)
+and ``xla`` (``_xla_layer`` in plain PyTorch alone).
 """
 
 from __future__ import annotations
@@ -31,8 +37,24 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...ops.box_ops import center_xywh, xyxy_to_xywh
-from ...ops.fused_encoder import EncoderLayerParams, fused_encoder_layer
+from ...ops.fused_encoder import (
+    EncoderLayerParams, _gelu_exact, _gelu_grad, _ln, fused_encoder_layer,
+)
+from ...ops.pair_attention import pair_attention_qkv
 from ..layers import Dense
+
+ENCODER_IMPLS = ("fused", "pair_attn", "xla")
+
+
+def resolve_encoder_impl(impl: str) -> str:
+    """``veto.encoder_impl`` → the encoder's implementation: ``auto`` is
+    ``fused``, the port's main path; anything outside ``ENCODER_IMPLS``
+    raises (the JAX package would run ``xla`` for a typo)."""
+    impl = "fused" if impl == "auto" else impl
+    if impl not in ENCODER_IMPLS:
+        raise ValueError(f"veto.encoder_impl={impl!r}: expected auto or one "
+                         f"of {ENCODER_IMPLS}")
+    return impl
 
 
 def beta_class_weights(pred_counts, beta: float = 0.999) -> np.ndarray:
@@ -99,20 +121,41 @@ class MaskedBatchNorm(nn.Module):
         return y * self.weight.to(dt) + self.bias.to(dt)
 
 
+class _Gelu(torch.autograd.Function):
+    """The rational-erf GELU on f32, keeping only its input for the
+    backward (``Phi(z) + z phi(z)``, ``_gelu_grad``): autograd through
+    ``_gelu_exact`` would keep a dozen f32 intermediates of f1's size per
+    layer.  The analytic derivative differs from JAX's autodiff of the same
+    formula by f32 rounding (~1e-7)."""
+
+    @staticmethod
+    def forward(ctx, z):
+        ctx.save_for_backward(z)
+        return _gelu_exact(z)
+
+    @staticmethod
+    def backward(ctx, g):
+        (z,) = ctx.saved_tensors
+        return g * _gelu_grad(z)
+
+
 class VetoEncoder(nn.Module):
     """CLS + tokens + shared position embedding + PreNorm encoder layers.
 
     Parameters are declared flat, with the JAX names (``attn{i}_qkv``,
-    ``ffn{i}_fc1``, ...), matrices (in, out).  Each layer runs
-    :func:`fused_encoder_layer` on (pairs * 19, D) rows — the CUDA kernel
-    on the card, its plain version on the CPU.  No token padding: the JAX
-    package padded 19 → 20 only for the TPU compiler.
+    ``ffn{i}_fc1``, ...), matrices (in, out), the same for every ``impl``
+    (see :func:`resolve_encoder_impl`).  ``fused``: each layer runs
+    :func:`fused_encoder_layer` on (pairs * 19, D) rows — the CUDA kernels
+    on the card, their plain versions on the CPU.  ``pair_attn`` / ``xla``:
+    each layer runs :meth:`_xla_layer`.  No token padding: the JAX package
+    padded 19 → 20 only for the TPU compiler.
     """
 
     def __init__(self, dim: int = 576, layers: int = 6, heads: int = 6,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16, impl: str = "fused"):
         super().__init__()
         self.dim, self.layers, self.heads, self.dtype = dim, layers, heads, dtype
+        self.impl = resolve_encoder_impl(impl)
         d = dim
         self.cls_token = nn.Parameter(torch.zeros(1, 1, d))
         self.pos_embedding = nn.Parameter(torch.zeros(1, 1, d))
@@ -146,11 +189,44 @@ class VetoEncoder(nn.Module):
         x = torch.cat([self.cls_token.to(dt).expand(n, 1, d), patch_tokens,
                        loc_token[:, None, :], cls_token[:, None, :]], dim=1)
         x = x + self.pos_embedding.to(dt)
+        if self.impl != "fused":
+            for i in range(self.layers):
+                x = self._xla_layer(x, self.layer_params(i),
+                                    fused_attn=self.impl == "pair_attn")
+            return x[:, 0]
         t = x.shape[1]
         x = x.reshape(n * t, d).contiguous()
         for i in range(self.layers):
             x = fused_encoder_layer(x, self.layer_params(i), self.heads, t, t)
         return x.view(n, t, d)[:, 0]
+
+    def _xla_layer(self, x: torch.Tensor, p: EncoderLayerParams,
+                   fused_attn: bool = False) -> torch.Tensor:
+        """One layer on x (n, t, D) in plain tensor ops that autograd
+        differentiates, at the JAX ``_xla_layer``'s own rounding points (not
+        the fused kernel's): qkv rounded to the compute dtype; the out- and
+        FFN-projections rounded, then their f32 bias added and rounded
+        again; GELU on f32.  Attention: :func:`pair_attention_qkv` (B4a/B4b
+        on the card) when ``fused_attn``, else per head with f32 scores and
+        softmax, the probabilities rounded, f32 sums rounded; no mask, all
+        tokens are real."""
+        cdt = self.dtype
+        h1 = _ln(x, p.ln1_scale, p.ln1_bias).to(cdt)
+        qkv = h1 @ p.w_qkv
+        if fused_attn:
+            att = pair_attention_qkv(qkv, self.heads)
+        else:
+            n, t, d3 = qkv.shape
+            dh = d3 // 3 // self.heads
+            q, k, v = (qkv.reshape(n, t, 3, self.heads, dh)
+                       .permute(2, 0, 3, 1, 4).float().unbind(0))
+            s = (q @ k.transpose(-1, -2)) * dh ** -0.5
+            pr = torch.softmax(s, dim=-1).to(cdt).float()
+            att = (pr @ v).to(cdt).transpose(1, 2).reshape(n, t, d3 // 3)
+        x1 = x + (att @ p.w_out + p.b_out).to(cdt)
+        h2 = _ln(x1, p.ln2_scale, p.ln2_bias).to(cdt)
+        g = _Gelu.apply((h2 @ p.w1 + p.b1).float()).to(cdt)
+        return x1 + (g @ p.w2 + p.b2).to(cdt)
 
 
 class VetoTrunk(nn.Module):
@@ -161,7 +237,8 @@ class VetoTrunk(nn.Module):
                  dim: int = 576, layers: int = 6, heads: int = 6,
                  patch_size: int = 2, depth_proj_dim: int = 512,
                  visual_proj_dim: int = 64, rgb_channels: int = 256,
-                 depth_channels: int = 256, dtype: torch.dtype = torch.bfloat16):
+                 depth_channels: int = 256, dtype: torch.dtype = torch.bfloat16,
+                 encoder_impl: str = "fused"):
         super().__init__()
         self.dtype, self.patch_size, self.dim = dtype, patch_size, dim
         pp = patch_size * patch_size
@@ -184,7 +261,8 @@ class VetoTrunk(nn.Module):
         self.proj_v_obj = Dense(pp * rgb_channels, visual_proj_dim, bias=False,
                                 dtype=dtype)
         self.proj_v_bias = nn.Parameter(torch.zeros(visual_proj_dim))
-        self.fusion_transformer = VetoEncoder(dim, layers, heads, dtype)
+        self.fusion_transformer = VetoEncoder(dim, layers, heads, dtype,
+                                              encoder_impl)
 
     def _patchify(self, x: torch.Tensor) -> torch.Tensor:
         """(B, N, H, W, C) → (B, N, H/ps * W/ps, ps*ps*C), (py, px, c) order."""
@@ -237,12 +315,13 @@ class VetoPredictor(nn.Module):
                  embed_dim: int = 200, dim: int = 576, layers: int = 6,
                  heads: int = 6, patch_size: int = 2, depth_proj_dim: int = 512,
                  visual_proj_dim: int = 64, rgb_channels: int = 256,
-                 depth_channels: int = 256, dtype: torch.dtype = torch.bfloat16):
+                 depth_channels: int = 256, dtype: torch.dtype = torch.bfloat16,
+                 encoder_impl: str = "fused"):
         super().__init__()
         self.num_obj_classes = num_obj_classes
         self.trunk = VetoTrunk(num_obj_classes, embed_dim, dim, layers, heads,
                                patch_size, depth_proj_dim, visual_proj_dim,
-                               rgb_channels, depth_channels, dtype)
+                               rgb_channels, depth_channels, dtype, encoder_impl)
         self.rel_out = Dense(dim, num_rel_classes, dtype=torch.float32)
 
     def forward(self, boxes, box_mask, obj_labels, pair_idx, roi_features,

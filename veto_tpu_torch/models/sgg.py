@@ -50,7 +50,8 @@ class SGGModel(nn.Module):
                  veto_dim: int = 576, veto_layers: int = 6, veto_heads: int = 6,
                  veto_patch_size: int = 2, veto_depth_proj_dim: int = 512,
                  veto_visual_proj_dim: int = 64, embed_dim: int = 200,
-                 fold_bn: bool = True, dtype: torch.dtype = torch.bfloat16):
+                 fold_bn: bool = True, dtype: torch.dtype = torch.bfloat16,
+                 veto_encoder_impl: str = "fused"):
         super().__init__()
         if mode != "predcls":
             raise NotImplementedError(
@@ -69,7 +70,7 @@ class SGGModel(nn.Module):
             num_obj_classes, num_rel_classes, embed_dim, veto_dim, veto_layers,
             veto_heads, veto_patch_size, veto_depth_proj_dim,
             veto_visual_proj_dim, rgb_channels=fpn_channels, depth_channels=256,
-            dtype=dtype)
+            dtype=dtype, encoder_impl=veto_encoder_impl)
         self.backbone.requires_grad_(False)
 
     def train(self, mode: bool = True) -> "SGGModel":
@@ -114,7 +115,9 @@ class SGGModel(nn.Module):
 def build_model(cfg, device=None, seed: int = None) -> SGGModel:
     """SGGModel for a config, on ``device`` (default ``cuda``; raises when no
     GPU is present unless ``device="cpu"``), in eval mode, with weights
-    drawn from ``seed`` (default ``cfg.solver.seed``)."""
+    drawn from ``seed`` (default ``cfg.solver.seed``) and the encoder that
+    ``veto.encoder_impl`` names (raises ``ValueError`` on a name it does not
+    know)."""
     dev = resolve_device(device)
     if cfg.relation.mode != "predcls":
         raise NotImplementedError(
@@ -144,6 +147,7 @@ def build_model(cfg, device=None, seed: int = None) -> SGGModel:
         veto_visual_proj_dim=cfg.veto.visual_proj_dim,
         fold_bn=cfg.model.fold_bn,
         dtype=torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32,
+        veto_encoder_impl=cfg.veto.encoder_impl,
     ).to(dev)
     init_weights(model, cfg.solver.seed if seed is None else seed)
     return model.eval()

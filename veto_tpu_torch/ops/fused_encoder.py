@@ -24,6 +24,15 @@ the layer's qkv and x1 as the stash, as ``_fwd`` does with
 :func:`reference_att_bwd` on the CPU).  Matrix gradients come back in the
 matrices' dtype, as ``_bwd_split`` casts them.
 
+The monolithic backward B5 (``_bwd`` → ``_bwd_kernel``, the JAX package's
+backward when ``FUSED_SPLIT`` is False or a call kept no stash) is one C
+entry point that recomputes qkv and x1 when they were not stashed, then
+runs both sub-blocks' backward; it returns dx, the vector grads, dWqkv and
+dWout, and the factors h2, df1 and g, from which the Function takes dW1 and
+dW2 with ``torch.matmul``, as ``_bwd`` leaves them to XLA.
+``FUSED_STASH`` and ``FUSED_SPLIT`` are the JAX module constants, read
+when the layer runs; :func:`reference_mono_bwd` is B5's plain version.
+
 Bound on the H100: compute.  At the PredCls eval shapes (16,384 pairs x 19
 tokens, D = 576) a forward layer is 1.67 TFLOP of bf16 products, ~1.7 ms
 at 989 TFLOP/s, against ~0.2 ms for its 0.7 GB of activations; at the
@@ -44,11 +53,19 @@ import torch
 from . import cuda_lib
 
 _NEG = -1e9
-# CUDA kernel launches since the last reset: the forward (B1) and the two
-# backward passes (B2a: FFN, B2b: attention)
+# Read when the layer runs, as in the JAX package: FUSED_STASH by the
+# forward (keep qkv and x1 for the backward), FUSED_SPLIT by the backward
+# (two passes, B2a and B2b, when the stash is there; else B5, one pass that
+# recomputes what is not stashed)
+FUSED_STASH = True
+FUSED_SPLIT = True
+# CUDA kernel launches since the last reset: the forward (B1), the two
+# passes of the split backward (B2a: FFN, B2b: attention) and the
+# monolithic backward (B5)
 KERNEL_LAUNCHES = 0
 FFN_BWD_LAUNCHES = 0
 ATT_BWD_LAUNCHES = 0
+MONO_BWD_LAUNCHES = 0
 
 
 class EncoderLayerParams(NamedTuple):
@@ -144,14 +161,21 @@ def _attention(qkv: torch.Tensor, heads: int, t_pad: int, t_valid: int,
     return _merge((p.float() @ v).to(dtype))
 
 
-def _reference_forward(x, params: EncoderLayerParams, heads, t_pad, t_valid):
-    """The plain layer → (y, qkv, x1): the output and the stash."""
+def _reference_stash(x, params: EncoderLayerParams, heads, t_pad, t_valid):
+    """The attention sub-block → (qkv, x1), the stash."""
     dtype = x.dtype
     p = params
     h1 = _ln(x, p.ln1_scale, p.ln1_bias).to(dtype)
     qkv = _mm(h1, p.w_qkv).to(dtype)
     att = _attention(qkv, heads, t_pad, t_valid, dtype)
-    x1 = x + (_mm(att, p.w_out) + p.b_out).to(dtype)
+    return qkv, x + (_mm(att, p.w_out) + p.b_out).to(dtype)
+
+
+def _reference_forward(x, params: EncoderLayerParams, heads, t_pad, t_valid):
+    """The plain layer → (y, qkv, x1): the output and the stash."""
+    dtype = x.dtype
+    p = params
+    qkv, x1 = _reference_stash(x, p, heads, t_pad, t_valid)
     h2 = _ln(x1, p.ln2_scale, p.ln2_bias).to(dtype)
     g = _gelu_exact(_mm(h2, p.w1) + p.b1).to(dtype)
     return x1 + (_mm(g, p.w2) + p.b2).to(dtype), qkv, x1
@@ -163,6 +187,26 @@ def reference_encoder_layer(x: torch.Tensor, params: EncoderLayerParams,
     return _reference_forward(x, params, heads, t_pad, t_valid)[0]
 
 
+def _ffn_bwd(x1, dy, params: EncoderLayerParams):
+    """The FFN sub-block's backward → dx1 (f32), the dW factors h2, df1,
+    g (x1's dtype), the vector grads (4, D) = [d ln2_scale, d ln2_bias,
+    d b_out, d b2] and d b1 (F,), f32."""
+    dtype = x1.dtype
+    p = params
+    h2, c2, inv2 = _ln_parts(x1, p.ln2_scale, p.ln2_bias)
+    h2 = h2.to(dtype)
+    f1 = _mm(h2, p.w1) + p.b1
+    gb = _gelu_exact(f1).to(dtype)
+    dyf = dy.float()
+    df1 = _mm(dy.to(dtype), p.w2.t()) * _gelu_grad(f1)
+    df1b = df1.to(dtype)
+    dh2 = _mm(df1b, p.w1.t())
+    dx1 = dyf + _ln_bwd(dh2, c2, inv2, p.ln2_scale)
+    vd = torch.stack([(dh2 * c2 * inv2).sum(0), dh2.sum(0), dx1.sum(0),
+                      dyf.sum(0)])
+    return dx1, h2, df1b, gb, vd, df1.sum(0)
+
+
 def reference_ffn_bwd(x1: torch.Tensor, dy: torch.Tensor,
                       params: EncoderLayerParams):
     """Plain pass A (``_ffn_bwd_kernel``) at the kernel's rounding points.
@@ -170,20 +214,8 @@ def reference_ffn_bwd(x1: torch.Tensor, dy: torch.Tensor,
     Returns dx1 (f32), dW1, dW2 (f32 sums), the vector grads (4, D) =
     [d ln2_scale, d ln2_bias, d b_out, d b2] and d b1 (F,), all f32.
     """
-    dtype = x1.dtype
-    p = params
-    h2, c2, inv2 = _ln_parts(x1, p.ln2_scale, p.ln2_bias)
-    h2 = h2.to(dtype)
-    f1 = _mm(h2, p.w1) + p.b1
-    gb = _gelu_exact(f1).to(dtype)
-    dyf, dyb = dy.float(), dy.to(dtype)
-    df1 = _mm(dyb, p.w2.t()) * _gelu_grad(f1)
-    df1b = df1.to(dtype)
-    dh2 = _mm(df1b, p.w1.t())
-    dx1 = dyf + _ln_bwd(dh2, c2, inv2, p.ln2_scale)
-    vd = torch.stack([(dh2 * c2 * inv2).sum(0), dh2.sum(0), dx1.sum(0),
-                      dyf.sum(0)])
-    return dx1, _mm(h2.t(), df1b), _mm(gb.t(), dyb), vd, df1.sum(0)
+    dx1, h2, df1b, gb, vd, db1 = _ffn_bwd(x1, dy, params)
+    return dx1, _mm(h2.t(), df1b), _mm(gb.t(), dy.to(x1.dtype)), vd, db1
 
 
 def _attention_bwd(qkv, dattb, heads, t_pad, t_valid, dtype):
@@ -225,6 +257,26 @@ def reference_att_bwd(x: torch.Tensor, qkv: torch.Tensor, dx1: torch.Tensor,
     return dx, _mm(h1.t(), dqkvb), _mm(att.t(), dx1b), vd
 
 
+def reference_mono_bwd(x: torch.Tensor, qkv, x1, dy: torch.Tensor,
+                       params: EncoderLayerParams, heads: int, t_pad: int,
+                       t_valid: int):
+    """Plain B5 (``_bwd_kernel``) at the kernel's rounding points; without
+    the stash (``qkv`` and ``x1`` None) it recomputes them first, as
+    ``_bwd_kernel`` does when ``qkv_ref is None``.
+
+    Returns dx (x's dtype); h2, df1 and g (x's dtype), the factors of the
+    external dW1 and dW2; the vector grads (6, D) = [d ln1_scale,
+    d ln1_bias, d ln2_scale, d ln2_bias, d b_out, d b2] and d b1 (F,),
+    f32; dWqkv and dWout (f32 sums).
+    """
+    if qkv is None:
+        qkv, x1 = _reference_stash(x, params, heads, t_pad, t_valid)
+    dx1, h2, df1b, gb, vd_a, db1 = _ffn_bwd(x1, dy, params)
+    dx, dwqkv, dwout, vd_b = reference_att_bwd(x, qkv, dx1, params, heads,
+                                               t_pad, t_valid)
+    return dx, h2, df1b, gb, torch.cat([vd_b, vd_a]), db1, dwqkv, dwout
+
+
 def _param_grads(params: EncoderLayerParams, vd_a, db1, dw1, dw2, vd_b,
                  dwqkv, dwout) -> EncoderLayerParams:
     """Assemble the per-parameter grads, each in its parameter's dtype."""
@@ -236,16 +288,21 @@ def _param_grads(params: EncoderLayerParams, vd_a, db1, dw1, dw2, vd_b,
 
 
 class _EncoderLayer(torch.autograd.Function):
-    """The differentiable layer: forward with the qkv/x1 stash, backward in
-    two passes (FFN, then attention)."""
+    """The differentiable layer: forward with the qkv/x1 stash when
+    ``FUSED_STASH``; backward in two passes (FFN, then attention) when
+    ``FUSED_SPLIT`` and the stash is there, else in one (B5) with dW1 and
+    dW2 taken outside it."""
 
     @staticmethod
     def forward(ctx, x, heads, t_pad, t_valid, *params):
         p = EncoderLayerParams(*params)
+        stash = FUSED_STASH
         if cuda_lib.use_kernel(x):
-            y, qkv, x1 = _launch(x, p, heads, t_pad, t_valid, stash=True)
+            y, qkv, x1 = _launch(x, p, heads, t_pad, t_valid, stash=stash)
         else:
             y, qkv, x1 = _reference_forward(x, p, heads, t_pad, t_valid)
+        if not stash:
+            qkv = x1 = None
         ctx.save_for_backward(x, qkv, x1, *params)
         ctx.shape = (heads, t_pad, t_valid)
         return y
@@ -256,14 +313,25 @@ class _EncoderLayer(torch.autograd.Function):
         p = EncoderLayerParams(*params)
         heads, t_pad, t_valid = ctx.shape
         dy = dy.contiguous()
-        if cuda_lib.use_kernel(dy):
-            dx1, dx1b, dw1, dw2, vd_a, db1 = _launch_ffn_bwd(x1, dy, p)
-            dx, dwqkv, dwout, vd_b = _launch_att_bwd(x, qkv, dx1, dx1b, p, heads,
-                                                     t_pad, t_valid)
+        kernel = cuda_lib.use_kernel(dy)
+        if FUSED_SPLIT and qkv is not None:
+            if kernel:
+                dx1, dx1b, dw1, dw2, vd_a, db1 = _launch_ffn_bwd(x1, dy, p)
+                dx, dwqkv, dwout, vd_b = _launch_att_bwd(
+                    x, qkv, dx1, dx1b, p, heads, t_pad, t_valid)
+            else:
+                dx1, dw1, dw2, vd_a, db1 = reference_ffn_bwd(x1, dy, p)
+                dx, dwqkv, dwout, vd_b = reference_att_bwd(
+                    x, qkv, dx1, p, heads, t_pad, t_valid)
         else:
-            dx1, dw1, dw2, vd_a, db1 = reference_ffn_bwd(x1, dy, p)
-            dx, dwqkv, dwout, vd_b = reference_att_bwd(x, qkv, dx1, p, heads,
-                                                       t_pad, t_valid)
+            mono = _launch_mono_bwd if kernel else reference_mono_bwd
+            dx, h2, df1b, gb, vd, db1, dwqkv, dwout = mono(
+                x, qkv, x1, dy, p, heads, t_pad, t_valid)
+            # JAX takes these two outside the kernel too (``_bwd``); a
+            # bf16 product accumulates in f32 and rounds once
+            dw1 = torch.matmul(h2.t(), df1b)
+            dw2 = torch.matmul(gb.t(), dy.to(x.dtype))
+            vd_a, vd_b = vd[2:], vd[:2]
         grads = _param_grads(p, vd_a, db1, dw1, dw2, vd_b, dwqkv, dwout)
         return (dx, None, None, None, *grads)
 
@@ -347,6 +415,8 @@ def _bwd_lib():
     lib.encoder_ffn_backward_workspace.argtypes = [ctypes.c_int] * 3
     lib.encoder_att_backward_workspace.restype = ctypes.c_size_t
     lib.encoder_att_backward_workspace.argtypes = [ctypes.c_int] * 2
+    lib.encoder_mono_backward_workspace.restype = ctypes.c_size_t
+    lib.encoder_mono_backward_workspace.argtypes = [ctypes.c_int] * 4
     lib.encoder_attention_bwd_smem_bytes.restype = ctypes.c_int
     lib.encoder_attention_bwd_smem_bytes.argtypes = [ctypes.c_int] * 2
     return lib
@@ -424,3 +494,47 @@ def _launch_att_bwd(x, qkv, dx1, dx1b, params, heads, t_pad, t_valid):
     cuda_lib.check(lib, status, "encoder_att_backward")
     ATT_BWD_LAUNCHES += 1
     return dx, dwqkv, dwout, vec
+
+
+def _launch_mono_bwd(x, qkv, x1, dy, params, heads, t_pad, t_valid):
+    """B5 → dx, h2, df1, g (bf16), vec (6, D), d b1 (f32), dWqkv, dWout
+    (bf16); ``qkv`` and ``x1`` None: recomputed inside (no stash)."""
+    global MONO_BWD_LAUNCHES
+    rows, d, f = _check(x, params, heads, t_pad)
+    stash = qkv is not None
+    given = {"dy": (dy, d), **({"qkv": (qkv, 3 * d), "x1": (x1, d)} if stash else {})}
+    for name, (t, cols) in given.items():
+        if (t.dtype != torch.bfloat16 or tuple(t.shape) != (rows, cols)
+                or not t.is_contiguous() or t.data_ptr() % 16):
+            raise TypeError(f"{name}: need aligned contiguous bf16 ({rows}, {cols})")
+    dev = x.device
+    lib = _bwd_lib()
+    dh = d // heads
+    if lib.encoder_attention_bwd_smem_bytes(t_pad, dh) > 200 * 1024:
+        raise ValueError(f"t_pad={t_pad}, head dim {dh}: attention backward "
+                         "tile exceeds 200 KB of shared memory")
+    dx, h2 = torch.empty_like(x), torch.empty_like(x)
+    df1, g = _rows_like(x, x.dtype, f), _rows_like(x, x.dtype, f)
+    vec = torch.empty((6, d), dtype=torch.float32, device=dev)
+    db1 = torch.empty((f,), dtype=torch.float32, device=dev)
+    dwqkv = torch.empty((d, 3 * d), dtype=torch.bfloat16, device=dev)
+    dwout = torch.empty((d, d), dtype=torch.bfloat16, device=dev)
+    if rows == 0:
+        return (dx, h2, df1, g, vec.zero_(), db1.zero_(), dwqkv.zero_(),
+                dwout.zero_())
+    work = torch.empty(lib.encoder_mono_backward_workspace(rows, d, f, int(stash)),
+                       dtype=torch.uint8, device=dev)
+    fn = lib.encoder_mono_backward
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 24 + [ctypes.c_int] * 6
+                   + [ctypes.c_float, ctypes.c_void_p])
+    p = params
+    status = fn(x.data_ptr(), qkv.data_ptr() if stash else None,
+                x1.data_ptr() if stash else None, dy.data_ptr(),
+                *[t.data_ptr() for t in p], dx.data_ptr(), h2.data_ptr(),
+                df1.data_ptr(), g.data_ptr(), vec.data_ptr(), db1.data_ptr(),
+                dwqkv.data_ptr(), dwout.data_ptr(), work.data_ptr(), rows, d, f,
+                heads, t_pad, t_valid, float(dh ** -0.5), cuda_lib.stream_ptr(dev))
+    cuda_lib.check(lib, status, "encoder_mono_backward")
+    MONO_BWD_LAUNCHES += 1
+    return dx, h2, df1, g, vec, db1, dwqkv, dwout

@@ -33,7 +33,7 @@ import torch
 
 # kernels of veto_tpu_torch/csrc, by the name the profiler shows
 OWN_KERNELS = ("gemm_bf16_kernel", "pair_attention_kernel", "layernorm_kernel",
-               "roi_align_fwd_kernel")
+               "roi_align_fwd_kernel", "pair_attn_fwd_kernel")
 
 
 def _stage_timer(named_modules):
