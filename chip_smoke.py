@@ -8,46 +8,53 @@ catches its own failure:
 
 1. Build the CUDA kernels from ``veto_tpu_torch/csrc`` (one ``nvcc`` per
    source, started together) and print the card's name and power limit.
-2. ROIAlign kernel vs its plain version at the PredCls eval shapes: P2-P5
+2. The GEMM core (``csrc/gemm_sm90.cuh``: wgmma fed by TMA through an
+   mbarrier ring) alone against ``torch.matmul`` in f32, at every product
+   shape of the main path (B1's four at 311,296 rows, B2a's and B2b's at
+   233,472, the split-K weight gradients) in the operand majors each is
+   used with, and at 12,216 rows; its ms and TFLOP/s beside
+   ``torch.matmul`` in bf16; the Python mirror of the split count against
+   the C code's.
+3. ROIAlign kernel vs its plain version at the PredCls eval shapes: P2-P5
    of 8 x 800x1344 images and the 1/16 depth map, 80 rois per image with
    edge cases, bf16 maps (and f32 maps once).
-3. Encoder-layer kernel vs its plain version at 16,384 pairs x 19 tokens x
+4. Encoder-layer kernel vs its plain version at 16,384 pairs x 19 tokens x
    576, and once with padded tokens (t_pad 24 > t_valid 19) and a row count
    that leaves a partial GEMM tile.
-4. The main path: the full-width VETO PredCls model from seeded weights,
+5. The main path: the full-width VETO PredCls model from seeded weights,
    3 synthetic batches of 8 x 800x1344 images (80 boxes, 2048 pairs)
    through the evaluation entry point's ``evaluate`` and ``SGGEvaluator``,
    with exact launch counts per batch (B1 6, B3 2, every other kernel 0);
    then one batch's ``rel_logits`` against the same model run through the
    plain versions.
-5. Encoder backward kernels, B2a (FFN) and B2b (attention), vs their plain
+6. Encoder backward kernels, B2a (FFN) and B2b (attention), vs their plain
    versions at the train shape (12,288 pairs x 19 x 576, and once with
    t_pad 24 > t_valid 19 and a partial GEMM tile); two kernel runs must
    give bit-equal gradients.
-6. ROIAlign backward kernel vs autograd of the plain pooling on the 1/16
+7. ROIAlign backward kernel vs autograd of the plain pooling on the 1/16
    depth map of 12 x 800x1344 images, 80 rois each.
-7. Pair-attention kernels B4a and B4b vs their plain versions, q/k/v the
+8. Pair-attention kernels B4a and B4b vs their plain versions, q/k/v the
    strided thirds of a packed qkv, at 16,384 and 12,288 pairs x 19 x 576
    and at 509 pairs with t_pad 24 > t_valid 19; SDPA with the key mask as
    the yardstick.
-8. Monolithic encoder backward B5 vs its plain version at 12,288 pairs,
+9. Monolithic encoder backward B5 vs its plain version at 12,288 pairs,
    with and without the qkv/x1 stash; two kernel runs bit-equal; B5 vs
    B2a + B2b on the same input; the two external dW ``torch.matmul``s
    timed apart.
-9. The training main path: ``relation_train_net.train`` for 5 full-width
-   PredCls steps from seeded weights, with exact launch counts per step
-   (B1, B2a, B2b 6 each, B3 2, B3-bwd 1, B4a, B4b, B5 0), finite losses,
-   every trainable tensor changed and the frozen detector bit-unchanged;
-   then one step's gradients through the kernels against the same step
-   through the plain versions.
-10. The ``veto.encoder_impl=pair_attn`` path: 2 eval batches (B4a 6, B3 2
+10. The training main path: ``relation_train_net.train`` for 5 full-width
+    PredCls steps from seeded weights, with exact launch counts per step
+    (B1, B2a, B2b 6 each, B3 2, B3-bwd 1, B4a, B4b, B5 0), finite losses,
+    every trainable tensor changed and the frozen detector bit-unchanged;
+    then one step's gradients through the kernels against the same step
+    through the plain versions.
+11. The ``veto.encoder_impl=pair_attn`` path: 2 eval batches (B4a 6, B3 2
     per batch), 3 train steps (B4a 6, B4b 6, B3 2, B3-bwd 1 per step) and
     one step's gradients against the plain versions.
-11. The monolithic-backward path: 3 train steps with
+12. The monolithic-backward path: 3 train steps with
     ``fused_encoder.FUSED_SPLIT = False`` (B1 6, B5 6, B3 2, B3-bwd 1 per
     step), 3 more with ``FUSED_STASH = False`` too, and one step's
     gradients against the plain versions; both constants restored after.
-12. One JSON line ``{"kernels": [...]}`` (all eight kernels; ``launches``
+13. One JSON line ``{"kernels": [...]}`` (all eight kernels; ``launches``
     from the training path that runs each) and, last,
     ``{"ok": true, "device": {...}}``.
 
@@ -138,6 +145,84 @@ def build():
 
 
 # ------------------------------------------------------------------ phase 2
+# (name, M, N, K, mode): the encoder's products at the main path's shapes,
+# in the operand majors each is used with (fused_encoder.gemm_product: mode
+# 0 x W, W (in, out) read MN-major; 1 x W^T, W read K-major; 2 the split-K
+# weight gradient A^T B, both read MN-major)
+EVAL_ROWS, TRAIN_ROWS, D, F = 16384 * 19, 12288 * 19, 576, 1152
+GEMM_SHAPES = (
+    ("B1 qkv", EVAL_ROWS, 3 * D, D, 0),
+    ("B1 out-proj", EVAL_ROWS, D, D, 0),
+    ("B1 FFN1", EVAL_ROWS, F, D, 0),
+    ("B1 FFN2", EVAL_ROWS, D, F, 0),
+    ("B2a f1 = h2 W1", TRAIN_ROWS, F, D, 0),
+    ("B2a dg = dy W2^T", TRAIN_ROWS, F, D, 1),
+    ("B2a dh2 = df1 W1^T", TRAIN_ROWS, D, F, 1),
+    ("B2a dW1 = h2^T df1", D, F, TRAIN_ROWS, 2),
+    ("B2a dW2 = g^T dy", F, D, TRAIN_ROWS, 2),
+    ("B2b datt = dx1 Wout^T", TRAIN_ROWS, D, D, 1),
+    ("B2b dh1 = dqkv Wqkv^T", TRAIN_ROWS, D, 3 * D, 1),
+    ("B2b dWqkv = h1^T dqkv", D, 3 * D, TRAIN_ROWS, 2),
+    ("B2b dWout = att^T dx1", D, D, TRAIN_ROWS, 2),
+    # 12,216 rows (509 pairs x 24): a partial 128-row tile, a partial split
+    ("qkv at 12,216 rows", 12216, 3 * D, D, 0),
+    ("dh1 at 12,216 rows", 12216, D, 3 * D, 1),
+    ("dW1 at 12,216 rows", D, F, 12216, 2),
+)
+
+
+def phase_gemm_core(gen):
+    """The GEMM core (``csrc/gemm_sm90.cuh``) alone against ``torch.matmul``
+    in f32 on the same bf16 operands, at every product shape of the main
+    path; its time and TFLOP/s beside ``torch.matmul`` in bf16 (a yardstick
+    only, never on the port's path).  Also holds the Python mirror of the
+    split count to the C code's."""
+    from veto_tpu_torch.ops import fused_encoder as fe
+
+    print("[gemm core] wgmma + TMA core vs torch.matmul (f32), each product "
+          "in the operand majors the encoder uses")
+    lib = fe._bwd_lib()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows = {}
+    for name, m, n, k, mode in GEMM_SHAPES:
+        a = torch.randn(*((k, m) if mode == 2 else (m, k)), generator=gen,
+                        device=DEVICE).bfloat16()
+        b = torch.randn(*((n, k) if mode == 1 else (k, n)), generator=gen,
+                        device=DEVICE).bfloat16()
+        with torch.inference_mode():
+            got = fe.gemm_product(a, b, mode)
+            af, bf = a.float(), b.float()
+            ref = af.t() @ bf if mode == 2 else af @ (bf.t() if mode == 1 else bf)
+            del af, bf
+            # modes 0, 1: exact bf16 products summed in f32 in another order
+            # (~1e-6 of the scale); mode 2 rounds each sum once to bf16, at
+            # most 2^-8 of the largest value
+            tol = (dict(max_tol=5e-3, mean_tol=1e-3) if mode == 2
+                   else dict(max_tol=1e-4, mean_tol=1e-5))
+            err = check_scaled(f"{name} {m}x{n}x{k}", got, ref, **tol)
+            del got, ref
+            lib_fn = {0: lambda: torch.matmul(a, b), 1: lambda: torch.matmul(a, b.t()),
+                      2: lambda: torch.matmul(a.t(), b)}[mode]
+            ms = cuda_ms(lambda: fe.gemm_product(a, b, mode), 10)
+            lib_ms = cuda_ms(lib_fn, 10)
+        flops = 2 * m * n * k
+        extra = ""
+        if mode == 2:
+            c_splits = lib.encoder_splitk_count(m, n, k)
+            if c_splits != fe.splitk_count(m, n, k, sms):
+                raise AssertionError(f"{name}: split count {c_splits} in C, "
+                                     f"{fe.splitk_count(m, n, k, sms)} in Python")
+            extra = f", {c_splits} splits"
+        print(f"    {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s{extra}), torch.matmul "
+              f"bf16 {lib_ms:.3f} ms ({flops / lib_ms / 1e9:.1f}); bound "
+              f"{flops / PEAK_BF16 * 1e3:.3f} ms")
+        rows[name] = dict(ms=ms, lib_ms=lib_ms, tflops=flops / ms / 1e9, err=err)
+        del a, b
+    release()
+    return rows
+
+
+# ------------------------------------------------------------------ phase 3
 def eval_rois(gen, b=8, r=80, h=800, w=1344):
     """Rois as the synthetic corpus draws them at the eval shape, with the
     edge cases in image 0: one roi per FPN level, rois partly off the map,
@@ -244,7 +329,7 @@ def phase_roi_align(gen, b=8, h=800, w=1344, c=256):
                 library_ms=None)
 
 
-# ------------------------------------------------------------------ phase 3
+# ------------------------------------------------------------------ phase 4
 def enc_params(gen, d=576, f=1152):
     from veto_tpu_torch.ops.fused_encoder import EncoderLayerParams
 
@@ -326,7 +411,7 @@ def phase_encoder(gen, pairs=16384, d=576):
                 library_ms=library_ms)
 
 
-# ------------------------------------------------------------------ phase 4
+# ------------------------------------------------------------------ phase 5
 def phase_main_path(opts=(), n_batches=3, encoder="fused_encoder_layer"):
     """The eval entry point's ``evaluate`` over ``n_batches`` full-width
     batches; per batch exactly ``layers`` launches of the ``encoder``
@@ -393,7 +478,7 @@ def phase_main_path(opts=(), n_batches=3, encoder="fused_encoder_layer"):
                 rtol=0.0, mean_tol=0.01 * float(ref.abs().mean()))
 
 
-# ------------------------------------------------------------------ phase 5
+# ------------------------------------------------------------------ phase 6
 def size(*ts) -> int:
     """Bytes of the tensors ``ts``."""
     return sum(t.numel() * t.element_size() for t in ts)
@@ -527,7 +612,7 @@ def phase_encoder_bwd(gen, pairs=12288, d=576):
     return out
 
 
-# ------------------------------------------------------------------ phase 6
+# ------------------------------------------------------------------ phase 7
 def phase_roi_align_bwd(gen, b=12, h=800, w=1344, c=256):
     """B3-bwd against autograd of the plain pooling: the depth map's
     gradient at the PredCls train shape."""
@@ -572,7 +657,7 @@ def phase_roi_align_bwd(gen, b=12, h=800, w=1344, c=256):
                 library_ms=None)
 
 
-# ------------------------------------------------------------------ phase 7
+# ------------------------------------------------------------------ phase 8
 def phase_pair_attention(gen, d=576, heads=6):
     """B4a and B4b against their plain versions, q/k/v the strided thirds of
     one packed qkv as ``_xla_layer`` passes them: at the eval (16,384
@@ -586,7 +671,7 @@ def phase_pair_attention(gen, d=576, heads=6):
     # same rounding points (bf16 probabilities, bf16(ds * scale), each
     # output once); an f32 sum in another order can flip one bf16 rounding,
     # one ulp (2^-8) of that value: 1% of the largest |value| everywhere,
-    # 0.1% on average, as phase 5 holds the encoder backward
+    # 0.1% on average, as phase 6 holds the encoder backward
     tol = dict(max_tol=1e-2, mean_tol=1e-3)
     errs = {"fwd": 0.0, "bwd": 0.0}
 
@@ -670,7 +755,7 @@ def phase_pair_attention(gen, d=576, heads=6):
     return out
 
 
-# ------------------------------------------------------------------ phase 8
+# ------------------------------------------------------------------ phase 9
 MONO_OUT = ("dx", "h2", "df1", "g", "vec", "db1", "dwqkv", "dwout")
 
 
@@ -684,7 +769,7 @@ def phase_mono_bwd(gen, pairs=12288, d=576):
     print(f"[encoder mono bwd] B5 vs plain, {pairs} pairs x {t} tokens x {d}")
     params = enc_params(gen, d)
     f = params.w1.shape[1]
-    tol = dict(max_tol=1e-2, mean_tol=1e-3)  # phase 5's, for the same reason
+    tol = dict(max_tol=1e-2, mean_tol=1e-3)  # phase 6's, for the same reason
     err = 0.0
     with torch.inference_mode():
         x = torch.randn(pairs * t, d, generator=gen, device=DEVICE).bfloat16()
@@ -771,7 +856,7 @@ def phase_mono_bwd(gen, pairs=12288, d=576):
                 library_ms=lib_ms)
 
 
-# ------------------------------------------------------------- phases 9-11
+# ------------------------------------------------------------ phases 10-12
 # every kernel's launch counter: (module, attribute) by kernel name
 COUNTERS = {
     "fused_encoder_layer": ("fused_encoder", "KERNEL_LAUNCHES"),        # B1
@@ -992,6 +1077,7 @@ def main() -> int:
     t0 = time.perf_counter()
     build()
     gen = torch.Generator(device=DEVICE).manual_seed(0)
+    phase_gemm_core(gen)
     kernels = [phase_roi_align(gen), phase_encoder(gen)]
     phase_main_path()
     kernels += [*phase_encoder_bwd(gen), phase_roi_align_bwd(gen),

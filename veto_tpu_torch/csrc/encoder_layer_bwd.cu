@@ -39,10 +39,14 @@
 // B5 runs f1, dg, dh2, datt, dh1, dWqkv and dWout (2.2 TFLOP, ~2.2 ms), and
 // without the stash also qkv and the out-projection (2.8 TFLOP, ~2.8 ms).
 // Each pass is a fixed sequence of launches: LayerNorm recompute, the
-// hand-written WMMA tensor-core GEMM of the forward (128x64x32 tiles,
-// cp.async double buffering) with either operand read transposed from its
+// Hopper GEMM core of gemm_sm90.cuh (wgmma fed by TMA through an mbarrier
+// ring) with either operand read K-major or MN-major as it lies in its
 // row-major storage, the per-(pair, head) attention backward from shared
-// memory, and a row-wise LayerNorm backward.
+// memory, and a row-wise LayerNorm backward.  Pass A's first product is
+// dual: one launch computes f1 = h2 W1 + b1 and dg = dy W2^T for the same
+// (rows x F) tile and writes only g = bf16(gelu f1), df1 = bf16(dg
+// gelu'(f1)) and the tile's column sums of df1, so f1 never reaches device
+// memory (the TPU kernel keeps it in VMEM).
 //
 // Determinism: the weight gradients are contractions over all rows and the
 // vector gradients column sums over all rows.  Where the TPU kernel
@@ -51,70 +55,10 @@
 // order; column sums are per-block partials summed in a fixed order.  No
 // atomics, so two runs give bit-equal gradients.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-#include <stdint.h>
-
-#include <type_traits>
-
-using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
-
-// ----------------------------------------------------------------------------
-// helpers (as in encoder_layer.cu)
-// ----------------------------------------------------------------------------
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16(v));
-}
+#include "gemm_sm90.cuh"
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
-
-// Abramowitz-Stegun 7.1.26 rational erf, the TPU kernel's _erf.
-__device__ __forceinline__ float erf_rational(float x) {
-  const float sign = x > 0.f ? 1.f : (x < 0.f ? -1.f : 0.f);
-  const float ax = fabsf(x);
-  const float t = 1.f / (1.f + 0.3275911f * ax);
-  const float poly =
-      t * (0.254829592f +
-           t * (-0.284496736f +
-                t * (1.421413741f + t * (-1.453152027f + t * 1.061405429f))));
-  return sign * (1.f - poly * expf(-ax * ax));
-}
-
-__device__ __forceinline__ float gelu_exact(float z) {
-  return 0.5f * z * (1.f + erf_rational(z * 0.7071067811865476f));
-}
-
-// d gelu / dz = Phi(z) + z phi(z), with the rational erf
-__device__ __forceinline__ float gelu_grad(float z) {
-  const float phi = expf(-0.5f * z * z) * 0.3989422804014327f;
-  const float cdf = 0.5f * (1.f + erf_rational(z * 0.7071067811865476f));
-  return cdf + z * phi;
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool pred) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  const int n = pred ? 16 : 0;  // 0 source bytes: the 16 bytes are zero-filled
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(n)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 // ----------------------------------------------------------------------------
 // LayerNorm forward recompute: one warp per row, f32 statistics, bf16 out
@@ -154,209 +98,8 @@ __global__ void layernorm_kernel(const bf16* __restrict__ x,
 }
 
 // ----------------------------------------------------------------------------
-// GEMM C[M,N] = A[M,K] B[K,N] on the tensor cores, bf16 in, f32 accumulate.
-// TA: A is stored transposed, as K x M row-major (A[m][k] = S[k * lda + m]);
-// TB: B is stored transposed, as N x K row-major (B[k][n] = S[n * ldb + k]).
-// blockIdx.z is the split of the K range [z * k_chunk, (z + 1) * k_chunk).
+// fixed-order reductions of the GEMM core's per-block partials
 // ----------------------------------------------------------------------------
-enum {
-  EPI_F32 = 0,             // out_f32 = acc
-  EPI_BF16 = 1,            // out_bf16 = bf16(acc)
-  EPI_BIAS_GELU_SAVE = 2,  // f = acc + bias: out_f32 = f, out_bf16 = bf16(gelu f)
-  EPI_GELU_BWD = 3,        // df = acc * gelu'(aux): out_bf16 = bf16(df),
-                           // colsum[blockIdx.y][n] = sum of the tile's df
-  EPI_SPLITK = 4,          // out_f32[z] = acc (partial of split z)
-  EPI_BIAS_RESID = 5,      // out_bf16 = bf16(resid + bf16(acc + bias)), the
-                           // forward's out-projection (B5's x1 recompute)
-};
-
-constexpr int BM = 128, BN = 64, BK = 32, GEMM_THREADS = 256;
-constexpr int LDA_N = BK + 8;  // A tile [BM][BK]; +8 skews shared-memory banks
-constexpr int LDA_T = BM + 8;  // A tile [BK][BM]
-constexpr int LDB_N = BN + 8;  // B tile [BK][BN]
-constexpr int LDB_T = BK + 8;  // B tile [BN][BK]
-constexpr int C_LD = BN + 4;   // f32 elements
-
-template <bool TA, bool TB>
-struct GemmPipe {
-  bf16 a[2][TA ? BK : BM][TA ? LDA_T : LDA_N];
-  bf16 b[2][TB ? BN : BK][TB ? LDB_T : LDB_N];
-};
-template <bool TA, bool TB>
-union GemmSmem {
-  GemmPipe<TA, TB> pipe;
-  float c[BM][C_LD];
-};
-
-struct Epi {
-  const float* bias;  // (N,)
-  const float* aux;   // (M, N) f32
-  float* out_f32;     // (M, N), or (splits, M, N) for EPI_SPLITK
-  bf16* out_bf16;     // (M, N)
-  float* colsum;      // (gridDim.y, N)
-  const bf16* resid;  // (M, N)
-};
-
-// Loads the k-tile at k0; rows or columns past M, N or k_end are zero-filled.
-// M and N are multiples of 8 where a 16-byte chunk runs along them; K is a
-// multiple of 8 where a chunk runs along it (the host checks).
-template <bool TA, bool TB>
-__device__ __forceinline__ void gemm_load_tile(
-    GemmPipe<TA, TB>& s, int buf, const bf16* __restrict__ A,
-    const bf16* __restrict__ B, int M, int N, int k_end, int lda, int ldb,
-    int m0, int n0, int k0, int tid) {
-  if constexpr (!TA) {
-    for (int c = tid; c < BM * (BK / 8); c += GEMM_THREADS) {
-      const int r = c / (BK / 8), kc = (c % (BK / 8)) * 8;
-      const int gm = m0 + r, gk = k0 + kc;
-      const bool ok = gm < M && gk < k_end;
-      cp_async16(&s.a[buf][r][kc], ok ? A + (size_t)gm * lda + gk : A, ok);
-    }
-  } else {
-    for (int c = tid; c < BK * (BM / 8); c += GEMM_THREADS) {
-      const int r = c / (BM / 8), mc = (c % (BM / 8)) * 8;
-      const int gk = k0 + r, gm = m0 + mc;
-      const bool ok = gk < k_end && gm < M;
-      cp_async16(&s.a[buf][r][mc], ok ? A + (size_t)gk * lda + gm : A, ok);
-    }
-  }
-  if constexpr (!TB) {
-    for (int c = tid; c < BK * (BN / 8); c += GEMM_THREADS) {
-      const int r = c / (BN / 8), nc = (c % (BN / 8)) * 8;
-      const int gk = k0 + r, gn = n0 + nc;
-      const bool ok = gk < k_end && gn < N;
-      cp_async16(&s.b[buf][r][nc], ok ? B + (size_t)gk * ldb + gn : B, ok);
-    }
-  } else {
-    for (int c = tid; c < BN * (BK / 8); c += GEMM_THREADS) {
-      const int r = c / (BK / 8), kc = (c % (BK / 8)) * 8;
-      const int gn = n0 + r, gk = k0 + kc;
-      const bool ok = gn < N && gk < k_end;
-      cp_async16(&s.b[buf][r][kc], ok ? B + (size_t)gn * ldb + gk : B, ok);
-    }
-  }
-}
-
-template <bool TA, bool TB, int EPI>
-__global__ void __launch_bounds__(GEMM_THREADS)
-    gemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B,
-                int M, int N, int K, int lda, int ldb, int k_chunk, Epi epi) {
-  __shared__ __align__(128) GemmSmem<TA, TB> smem;
-  using LayA = typename std::conditional<TA, wmma::col_major, wmma::row_major>::type;
-  using LayB = typename std::conditional<TB, wmma::col_major, wmma::row_major>::type;
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int wm = warp >> 1, wn = warp & 1;  // 4 x 2 warps, 32 x 32 each
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int k_begin = blockIdx.z * k_chunk;
-  const int k_end = min(K, k_begin + k_chunk);
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  const int k_tiles = (k_end - k_begin + BK - 1) / BK;
-  if (k_tiles > 0) {
-    gemm_load_tile<TA, TB>(smem.pipe, 0, A, B, M, N, k_end, lda, ldb, m0, n0,
-                           k_begin, tid);
-  }
-  cp_async_commit();
-  for (int kt = 0; kt < k_tiles; ++kt) {
-    const int buf = kt & 1;
-    if (kt + 1 < k_tiles)
-      gemm_load_tile<TA, TB>(smem.pipe, buf ^ 1, A, B, M, N, k_end, lda, ldb,
-                             m0, n0, k_begin + (kt + 1) * BK, tid);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, LayA> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, LayB> b[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        if constexpr (TA)
-          wmma::load_matrix_sync(a[i], &smem.pipe.a[buf][kk][wm * 32 + i * 16],
-                                 LDA_T);
-        else
-          wmma::load_matrix_sync(a[i], &smem.pipe.a[buf][wm * 32 + i * 16][kk],
-                                 LDA_N);
-      }
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        if constexpr (TB)
-          wmma::load_matrix_sync(b[j], &smem.pipe.b[buf][wn * 32 + j * 16][kk],
-                                 LDB_T);
-        else
-          wmma::load_matrix_sync(b[j], &smem.pipe.b[buf][kk][wn * 32 + j * 16],
-                                 LDB_N);
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-  cp_async_wait<0>();
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(&smem.c[wm * 32 + i * 16][wn * 32 + j * 16],
-                              acc[i][j], C_LD, wmma::mem_row_major);
-  __syncthreads();
-
-  // epilogue: each warp writes whole row segments, two columns a thread
-  const int col = (tid & 31) * 2;
-  const int gc = n0 + col;
-  float* out_f32 = epi.out_f32;
-  if (EPI == EPI_SPLITK) out_f32 += (size_t)blockIdx.z * M * N;
-  for (int r = tid >> 5; r < BM; r += GEMM_THREADS / 32) {
-    const int gr = m0 + r;
-    if (gr >= M) break;
-    const size_t o = (size_t)gr * N + gc;
-    float v0 = smem.c[r][col], v1 = smem.c[r][col + 1];
-    if (EPI == EPI_F32 || EPI == EPI_SPLITK) {
-      *reinterpret_cast<float2*>(out_f32 + o) = make_float2(v0, v1);
-    } else if (EPI == EPI_BF16) {
-      *reinterpret_cast<__nv_bfloat162*>(epi.out_bf16 + o) =
-          __floats2bfloat162_rn(v0, v1);
-    } else if (EPI == EPI_BIAS_GELU_SAVE) {
-      v0 += epi.bias[gc];
-      v1 += epi.bias[gc + 1];
-      *reinterpret_cast<float2*>(out_f32 + o) = make_float2(v0, v1);
-      *reinterpret_cast<__nv_bfloat162*>(epi.out_bf16 + o) =
-          __floats2bfloat162_rn(gelu_exact(v0), gelu_exact(v1));
-    } else if (EPI == EPI_GELU_BWD) {
-      const float2 z = *reinterpret_cast<const float2*>(epi.aux + o);
-      v0 *= gelu_grad(z.x);
-      v1 *= gelu_grad(z.y);
-      *reinterpret_cast<__nv_bfloat162*>(epi.out_bf16 + o) =
-          __floats2bfloat162_rn(v0, v1);
-      smem.c[r][col] = v0;  // kept for the column sums below
-      smem.c[r][col + 1] = v1;
-    } else if (EPI == EPI_BIAS_RESID) {
-      const float2 res = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(epi.resid + o));
-      *reinterpret_cast<__nv_bfloat162*>(epi.out_bf16 + o) =
-          __floats2bfloat162_rn(res.x + round_bf16(v0 + epi.bias[gc]),
-                                res.y + round_bf16(v1 + epi.bias[gc + 1]));
-    }
-  }
-  if (EPI == EPI_GELU_BWD) {
-    __syncthreads();
-    if (tid < BN) {
-      const int rows = min(BM, M - m0);
-      float s = 0.f;
-      for (int r = 0; r < rows; ++r) s += smem.c[r][tid];
-      epi.colsum[(size_t)blockIdx.y * N + n0 + tid] = s;
-    }
-  }
-}
-
 // out[i] = sum over z of part[z][i], in order of z, rounded to bf16
 __global__ void splitk_reduce_kernel(const float* __restrict__ part, int splits,
                                      size_t mn, bf16* __restrict__ out) {
@@ -567,47 +310,38 @@ extern "C" const char* veto_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-static int num_sms() {
-  int dev = 0, n = 132;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-  return n;
-}
-
-// Split count of a (M x N, K over rows) weight-gradient GEMM: about four
-// blocks per SM, and at least 8 k-tiles a split.  Depends on the shapes and
-// the card only, so a run's partial sums always have the same ranges.
+// Split count of a (M x N, K over rows) weight-gradient GEMM: as many
+// splits as keep the card's SMs busy for about four waves of one block
+// each (rounded down, so the last wave is nearly full), and at least 8
+// k-tiles a split.  Depends on the shapes and the card only, so a run's
+// partial sums always have the same ranges.  fused_encoder.splitk_count
+// mirrors it for the wrappers' workspace checks.
 static int splitk_count(int M, int N, int K) {
-  const int tiles = (N / BN) * ((M + BM - 1) / BM);
-  const int want = (4 * num_sms() + tiles - 1) / tiles;
-  const int most = (K + 8 * BK - 1) / (8 * BK);
+  const int tiles = ((N + GEMM_BN - 1) / GEMM_BN) * ((M + GEMM_BM - 1) / GEMM_BM);
+  const int want = 4 * num_sms() / tiles;
+  const int most = (K + 8 * GEMM_BK - 1) / (8 * GEMM_BK);
   const int s = want < most ? want : most;
   return s < 1 ? 1 : s;
 }
 static int splitk_chunk(int K, int splits) {
-  return ((K + splits - 1) / splits + BK - 1) / BK * BK;
+  return ((K + splits - 1) / splits + GEMM_BK - 1) / GEMM_BK * GEMM_BK;
 }
-
-template <bool TA, bool TB, int EPI>
-static int launch_gemm(const bf16* A, const bf16* B, int M, int N, int K,
-                       int lda, int ldb, Epi epi, cudaStream_t s) {
-  const dim3 grid(N / BN, (M + BM - 1) / BM, 1);
-  gemm_kernel<TA, TB, EPI><<<grid, GEMM_THREADS, 0, s>>>(A, B, M, N, K, lda,
-                                                           ldb, K, epi);
-  return (int)cudaGetLastError();
+static int splitk_splits(int M, int N, int K) {
+  const int chunk = splitk_chunk(K, splitk_count(M, N, K));
+  return (K + chunk - 1) / chunk;
 }
 
 // C (M x N, bf16) = A^T B over K rows: A stored K x M, B stored K x N, both
-// row-major.  part holds splitk_count(M, N, K) x M x N floats.
+// row-major, so both are read MN-major.  part holds splitk_splits(M, N, K)
+// x M x N floats.
 static int weight_grad(const bf16* A, const bf16* B, int M, int N, int K,
                        float* part, bf16* out, cudaStream_t s) {
   const int chunk = splitk_chunk(K, splitk_count(M, N, K));
   const int splits = (K + chunk - 1) / chunk;
-  Epi epi = {nullptr, nullptr, part, nullptr, nullptr};
-  gemm_kernel<true, false, EPI_SPLITK>
-      <<<dim3(N / BN, (M + BM - 1) / BM, splits), GEMM_THREADS, 0, s>>>(
-          A, B, M, N, K, M, N, chunk, epi);
-  int err = (int)cudaGetLastError();
+  Epi epi{};
+  epi.out_f32 = part;
+  int err = gemm_launch<GEMM_BN, true, true, true, EPI_SPLITK>(
+      A, B, nullptr, nullptr, M, N, K, splits, chunk, epi, s);
   if (err) return err;
   const size_t mn = (size_t)M * N;
   splitk_reduce_kernel<<<(unsigned)((mn + 255) / 256), 256, 0, s>>>(part, splits,
@@ -676,24 +410,23 @@ struct Carve {
 };
 
 static size_t ln_blocks(int rows) { return (rows + LNB_ROWS - 1) / LNB_ROWS; }
-static size_t row_tiles(int rows) { return (rows + BM - 1) / BM; }
+static size_t row_tiles(int rows) { return (rows + GEMM_BM - 1) / GEMM_BM; }
 
 // Pass A's workspace, carved from `base` (nullptr: just count the bytes).
 struct FfnWork {
   bf16 *h2, *gb, *df1b;
-  float *f1, *dh2, *part_b1, *part_ln, *part_w;
+  float *dh2, *part_b1, *part_ln, *part_w;
 };
 static size_t ffn_work(char* base, int rows, int d, int f, FfnWork* w) {
   Carve c{base, 0};
   w->h2 = c.take<bf16>((size_t)rows * d);
-  w->f1 = c.take<float>((size_t)rows * f);
   w->gb = c.take<bf16>((size_t)rows * f);
   w->df1b = c.take<bf16>((size_t)rows * f);
   w->dh2 = c.take<float>((size_t)rows * d);
   w->part_b1 = c.take<float>(row_tiles(rows) * f);
   w->part_ln = c.take<float>(ln_blocks(rows) * 4 * d);
-  const size_t s1 = (size_t)splitk_count(d, f, rows) * d * f;
-  const size_t s2 = (size_t)splitk_count(f, d, rows) * f * d;
+  const size_t s1 = (size_t)splitk_splits(d, f, rows) * d * f;
+  const size_t s2 = (size_t)splitk_splits(f, d, rows) * f * d;
   w->part_w = c.take<float>(s1 > s2 ? s1 : s2);
   return c.used;
 }
@@ -710,8 +443,8 @@ static size_t att_work(char* base, int rows, int d, AttWork* w) {
   w->dqkv = c.take<bf16>((size_t)rows * 3 * d);
   w->dh1 = c.take<float>((size_t)rows * d);
   w->part_ln = c.take<float>(ln_blocks(rows) * 2 * d);
-  const size_t s1 = (size_t)splitk_count(d, 3 * d, rows) * d * 3 * d;
-  const size_t s2 = (size_t)splitk_count(d, d, rows) * d * d;
+  const size_t s1 = (size_t)splitk_splits(d, 3 * d, rows) * d * 3 * d;
+  const size_t s2 = (size_t)splitk_splits(d, d, rows) * d * d;
   w->part_w = c.take<float>(s1 > s2 ? s1 : s2);
   return c.used;
 }
@@ -726,34 +459,33 @@ extern "C" size_t encoder_att_backward_workspace(int rows, int d) {
 }
 
 // The FFN sub-block's backward without its weight gradients: h2 = LN2(x1),
-// f1 = h2 W1 + b1 (f32), g = bf16(gelu f1), df1 = bf16((dy W2^T) gelu'(f1)),
-// dh2 = df1 W1^T, dx1 = dy + LN2 backward (f32 and bf16), vec4 = [d ln2
-// scale, d ln2 bias, d b_out, d b2], db1.  Scratch: f1 (rows, f) and dh2
-// (rows, d) f32, part_b1 and part_ln (4 d) per block.
+// then one dual launch for f1 = h2 W1 + b1 (f32, kept in registers) and
+// dg = dy W2^T: g = bf16(gelu f1), df1 = bf16(dg gelu'(f1)) and per-tile
+// column sums of df1; dh2 = df1 W1^T, dx1 = dy + LN2 backward (f32 and
+// bf16), vec4 = [d ln2 scale, d ln2 bias, d b_out, d b2], db1.  Scratch:
+// dh2 (rows, d) f32, part_b1 and part_ln (4 d) per block.
 static int ffn_backward_core(const bf16* X1, const bf16* DY, const float* ln2_s,
                              const float* ln2_b, const bf16* w1, const float* b1,
                              const bf16* w2, bf16* h2, bf16* gb, bf16* df1b,
-                             float* f1, float* dh2, float* part_b1,
-                             float* part_ln, float* dx1, bf16* dx1b,
-                             float* vec4, float* db1, int rows, int d, int f,
-                             cudaStream_t s) {
+                             float* dh2, float* part_b1, float* part_ln,
+                             float* dx1, bf16* dx1b, float* vec4, float* db1,
+                             int rows, int d, int f, cudaStream_t s) {
   int err;
   if ((err = launch_layernorm(X1, ln2_s, ln2_b, h2, rows, d, s))) return err;
-  // f1 = h2 W1 + b1 (kept in f32), g = bf16(gelu f1)
-  Epi e1 = {b1, nullptr, f1, gb, nullptr};
-  if ((err = launch_gemm<false, false, EPI_BIAS_GELU_SAVE>(h2, w1, rows, f, d, d,
-                                                           f, e1, s)))
-    return err;
-  // df1 = (dy W2^T) gelu'(f1), bf16; per-tile column sums for d b1
-  Epi e2 = {nullptr, f1, nullptr, df1b, part_b1};
-  if ((err = launch_gemm<false, true, EPI_GELU_BWD>(DY, w2, rows, f, d, d, d, e2,
-                                                    s)))
+  // W1 (d, f) read MN-major; W2 (f, d) read K-major as W2^T
+  Epi e1{};
+  e1.bias = b1;
+  e1.out_bf16 = gb;
+  e1.out2_bf16 = df1b;
+  e1.colsum = part_b1;
+  if ((err = gemm_launch<GEMM_BN_DUAL, false, true, false, EPI_DUAL_GELU_BWD>(
+           h2, w1, DY, w2, rows, f, d, 1, d, e1, s)))
     return err;
   if ((err = colsum(part_b1, (int)row_tiles(rows), f, db1, s))) return err;
   // dh2 = df1 W1^T
-  Epi e3 = {nullptr, nullptr, dh2, nullptr, nullptr};
-  if ((err = launch_gemm<false, true, EPI_F32>(df1b, w1, rows, d, f, f, f, e3, s)))
-    return err;
+  Epi e2{};
+  e2.out_f32 = dh2;
+  if ((err = gemm<EPI_F32, true>(df1b, w1, rows, d, f, e2, s))) return err;
   // dx1 = dy + LN2 backward; column sums of dh2 xhat2, dh2, dx1, dy
   if ((err = launch_ln_backward<4, bf16>(X1, dh2, DY, ln2_s, dx1, dx1b, part_ln,
                                          rows, d, s)))
@@ -772,23 +504,20 @@ static int att_backward_core(const bf16* X, const bf16* QKV, const float* DX1,
                              bf16* dwout, float* vec2, const AttWork& w,
                              int rows, int d, int heads, int t_pad, int t_valid,
                              float att_scale, cudaStream_t s) {
-  const int dh = d / heads;
   const int pairs = rows / t_pad;
   int err;
   if ((err = launch_layernorm(X, ln1_s, ln1_b, w.h1, rows, d, s))) return err;
   // datt = bf16(dx1) Wout^T, rounded to bf16
-  Epi e1 = {nullptr, nullptr, nullptr, w.datt, nullptr};
-  if ((err = launch_gemm<false, true, EPI_BF16>(DX1B, w_out, rows, d, d, d, d,
-                                                e1, s)))
-    return err;
+  Epi e1{};
+  e1.out_bf16 = w.datt;
+  if ((err = gemm<EPI_BF16, true>(DX1B, w_out, rows, d, d, e1, s))) return err;
   if ((err = launch_attention(QKV, w.datt, w.att, w.dqkv, pairs, heads, t_pad,
                               t_valid, d, att_scale, s)))
     return err;
   // dh1 = bf16(dqkv) Wqkv^T
-  Epi e2 = {nullptr, nullptr, w.dh1, nullptr, nullptr};
-  if ((err = launch_gemm<false, true, EPI_F32>(w.dqkv, w_qkv, rows, d, 3 * d,
-                                               3 * d, 3 * d, e2, s)))
-    return err;
+  Epi e2{};
+  e2.out_f32 = w.dh1;
+  if ((err = gemm<EPI_F32, true>(w.dqkv, w_qkv, rows, d, 3 * d, e2, s))) return err;
   // dx = dx1 + LN1 backward; column sums of dh1 xhat1, dh1
   if ((err = launch_ln_backward<2, float>(X, w.dh1, DX1, ln1_s, nullptr, dx,
                                           w.part_ln, rows, d, s)))
@@ -818,7 +547,7 @@ extern "C" int encoder_ffn_backward(
   if ((err = ffn_backward_core((const bf16*)x1, DY, (const float*)ln2_s,
                                (const float*)ln2_b, (const bf16*)w1,
                                (const float*)b1, (const bf16*)w2, w.h2, w.gb,
-                               w.df1b, w.f1, w.dh2, w.part_b1, w.part_ln,
+                               w.df1b, w.dh2, w.part_b1, w.part_ln,
                                (float*)dx1, (bf16*)dx1b, (float*)vec4,
                                (float*)db1, rows, d, f, s)))
     return err;
@@ -853,12 +582,11 @@ extern "C" int encoder_att_backward(
 struct MonoWork {
   AttWork att;
   bf16 *qkv, *x1, *dx1b;
-  float *f1, *dh2, *dx1, *part_b1, *part_ln;
+  float *dh2, *dx1, *part_b1, *part_ln;
 };
 static size_t mono_work(char* base, int rows, int d, int f, bool stash,
                         MonoWork* w) {
   Carve c{base, att_work(base, rows, d, &w->att)};
-  w->f1 = c.take<float>((size_t)rows * f);
   w->dh2 = c.take<float>((size_t)rows * d);
   w->dx1 = c.take<float>((size_t)rows * d);
   w->dx1b = c.take<bf16>((size_t)rows * d);
@@ -906,24 +634,25 @@ extern "C" int encoder_mono_backward(
     if ((err = launch_layernorm(X, (const float*)ln1_s, (const float*)ln1_b,
                                 w.att.h1, rows, d, s)))
       return err;
-    Epi e1 = {nullptr, nullptr, nullptr, w.qkv, nullptr};
-    if ((err = launch_gemm<false, false, EPI_BF16>(w.att.h1, (const bf16*)w_qkv,
-                                                   rows, 3 * d, d, d, 3 * d, e1,
-                                                   s)))
+    Epi e1{};
+    e1.out_bf16 = w.qkv;
+    if ((err = gemm<EPI_BF16>(w.att.h1, (const bf16*)w_qkv, rows, 3 * d, d, e1, s)))
       return err;
     if ((err = launch_attention(w.qkv, nullptr, w.att.att, nullptr, rows / t_pad,
                                 heads, t_pad, t_valid, d, att_scale, s)))
       return err;
-    Epi e2 = {(const float*)b_out, nullptr, nullptr, w.x1, nullptr, X};
-    if ((err = launch_gemm<false, false, EPI_BIAS_RESID>(
-             w.att.att, (const bf16*)w_out, rows, d, d, d, d, e2, s)))
+    Epi e2{};
+    e2.bias = (const float*)b_out;
+    e2.resid = X;
+    e2.out_bf16 = w.x1;
+    if ((err = gemm<EPI_BIAS_RESID>(w.att.att, (const bf16*)w_out, rows, d, d, e2, s)))
       return err;
   }
   float* vec = (float*)vec6;
   if ((err = ffn_backward_core(X1, (const bf16*)dy, (const float*)ln2_s,
                                (const float*)ln2_b, (const bf16*)w1,
                                (const float*)b1, (const bf16*)w2, (bf16*)h2,
-                               (bf16*)g, (bf16*)df1, w.f1, w.dh2, w.part_b1,
+                               (bf16*)g, (bf16*)df1, w.dh2, w.part_b1,
                                w.part_ln, w.dx1, w.dx1b, vec + 2 * d,
                                (float*)db1, rows, d, f, s)))
     return err;
@@ -932,4 +661,35 @@ extern "C" int encoder_mono_backward(
                            (const bf16*)w_out, (bf16*)dx, (bf16*)dwqkv,
                            (bf16*)dwout, vec, w.att, rows, d, heads, t_pad,
                            t_valid, att_scale, s);
+}
+
+// The split count of weight_grad for (M, N, K) on this card.
+extern "C" int encoder_splitk_count(int M, int N, int K) {
+  return splitk_count(M, N, K);
+}
+
+// Scratch of encoder_gemm_product's weight-gradient form, in bytes.
+extern "C" size_t encoder_gemm_workspace(int M, int N, int K) {
+  return (size_t)splitk_splits(M, N, K) * M * N * sizeof(float);
+}
+
+// The GEMM core alone, in the operand majors the encoder uses, so that it
+// can be held against a plain product and timed at the encoder's shapes:
+//   mode 0: c (M, N) f32 = a (M, K) b, b (K, N) row-major (x W);
+//   mode 1: c (M, N) f32 = a (M, K) b^T, b (N, K) row-major (dy W^T);
+//   mode 2: c (M, N) bf16 = a^T b, a (K, M) and b (K, N) row-major, split-K
+//           with the fixed-order reduction (the weight gradients);
+//           workspace holds encoder_gemm_workspace(M, N, K) bytes.
+extern "C" int encoder_gemm_product(const void* a, const void* b, void* c,
+                                    void* workspace, int M, int N, int K,
+                                    int mode, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const bf16* A = (const bf16*)a;
+  const bf16* B = (const bf16*)b;
+  Epi epi{};
+  epi.out_f32 = (float*)c;
+  if (mode == 0) return gemm<EPI_F32>(A, B, M, N, K, epi, s);
+  if (mode == 1) return gemm<EPI_F32, true>(A, B, M, N, K, epi, s);
+  if (mode == 2) return weight_grad(A, B, M, N, K, (float*)workspace, (bf16*)c, s);
+  return (int)cudaErrorInvalidValue;
 }

@@ -5,7 +5,8 @@ for ``sm_90a`` into its own shared library under ``build/`` at the repo
 root (git-ignored), then loaded with ``ctypes``.  Nothing is compiled when
 a module is imported: a library is built at its first use, or by
 :func:`build` (which starts one ``nvcc`` per source, all at once).  The
-library name carries a hash of its source, so an edited kernel is rebuilt.
+library name carries a hash of its source and of the shared headers
+(``csrc/*.cuh``, the GEMM core), so an edit to either is rebuilt.
 
 Every kernel wrapper in ``ops/`` launches its kernel for CUDA tensors and
 runs its plain PyTorch version for CPU tensors.  :func:`plain_kernels`
@@ -50,8 +51,14 @@ def nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """The library of ``csrc/<name>.cu``, named by a hash of that source and
+    of every shared header in ``csrc/``, so that an edit to either rebuilds
+    it."""
+    h = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(names: Iterable[str] = SOURCES) -> Dict[str, float]:

@@ -37,10 +37,12 @@ Bound on the H100: compute.  At the PredCls eval shapes (16,384 pairs x 19
 tokens, D = 576) a forward layer is 1.67 TFLOP of bf16 products, ~1.7 ms
 at 989 TFLOP/s, against ~0.2 ms for its 0.7 GB of activations; at the
 train shapes (12,288 pairs) the backward is 2.8 TFLOP a layer.  Each
-kernel is a fixed sequence of hand-written launches (LN, tensor-core GEMMs
-with fused epilogues, per-(pair, head) attention); it needs no token
-padding (19 tokens, where the TPU padded to 20) but honours
-``t_pad > t_valid`` (masked keys).
+kernel is a fixed sequence of hand-written launches (LN, GEMMs with fused
+epilogues, per-(pair, head) attention); it needs no token padding (19
+tokens, where the TPU padded to 20) but honours ``t_pad > t_valid``
+(masked keys).  Every GEMM runs on one core, ``csrc/gemm_sm90.cuh``
+(wgmma fed by TMA through an mbarrier ring); :func:`gemm_product` calls it
+alone, for holding it against a plain product on the card.
 """
 
 from __future__ import annotations
@@ -66,6 +68,10 @@ KERNEL_LAUNCHES = 0
 FFN_BWD_LAUNCHES = 0
 ATT_BWD_LAUNCHES = 0
 MONO_BWD_LAUNCHES = 0
+# The GEMM core's tile (csrc/gemm_sm90.cuh: GEMM_BM, GEMM_BN, GEMM_BK) and
+# the most rows its grid takes (65,535 row tiles)
+GEMM_BM, GEMM_BN, GEMM_BK = 128, 192, 64
+MAX_ROWS = 65535 * GEMM_BM
 
 
 class EncoderLayerParams(NamedTuple):
@@ -355,6 +361,27 @@ def fused_encoder_layer(x: torch.Tensor, params: EncoderLayerParams,
     return _launch(x, params, heads, t_pad, t_valid, stash=False)[0]
 
 
+def splitk_count(m: int, n: int, k: int, sms: int) -> int:
+    """Split count of a weight-gradient product (M x N, summed over K rows)
+    on a card with ``sms`` SMs: ``splitk_count`` of
+    ``csrc/encoder_layer_bwd.cu`` (about four waves of one block an SM,
+    rounded down; at least 8 k-tiles a split)."""
+    tiles = -(-n // GEMM_BN) * -(-m // GEMM_BM)
+    most = -(-k // (8 * GEMM_BK))
+    return max(1, min(4 * sms // tiles, most))
+
+
+def _aligned(t: torch.Tensor) -> bool:
+    """Contiguous with a 16-byte aligned start, as TMA reads it."""
+    return t.is_contiguous() and t.data_ptr() % 16 == 0
+
+
+def _need_rows(name, t, dtype, rows, cols):
+    if (t.dtype != dtype or tuple(t.shape) != (rows, cols) or not _aligned(t)):
+        raise TypeError(f"{name}: need aligned contiguous {dtype} ({rows}, {cols}), "
+                        f"got {t.dtype} {tuple(t.shape)}")
+
+
 def _check(x, params, heads, t_pad):
     rows, d = x.shape
     f = params.w1.shape[1]
@@ -362,19 +389,21 @@ def _check(x, params, heads, t_pad):
     shapes = dict(ln1_scale=(d,), ln1_bias=(d,), w_qkv=(d, 3 * d),
                   w_out=(d, d), b_out=(d,), ln2_scale=(d,), ln2_bias=(d,),
                   w1=(d, f), b1=(f,), w2=(f, d), b2=(d,))
-    if x.dtype != torch.bfloat16 or not x.is_contiguous() or x.data_ptr() % 16:
+    if x.dtype != torch.bfloat16 or not _aligned(x):
         raise TypeError("the CUDA encoder layer takes contiguous, 16-byte "
                         "aligned bf16 x")
+    if rows > MAX_ROWS:
+        raise ValueError(f"{rows} rows: the GEMM grid takes at most {MAX_ROWS}")
     for name, t in params._asdict().items():
         want = torch.bfloat16 if t.dim() == 2 else torch.float32
         if (tuple(t.shape) != shapes[name] or t.dtype != want
-                or t.device != dev or not t.is_contiguous()
-                or t.data_ptr() % 16):
+                or t.device != dev or not _aligned(t)):
             raise ValueError(f"{name}: need aligned {want} {shapes[name]} "
                              f"on {dev}, got {t.dtype} {tuple(t.shape)}")
     if d % 64 or f % 64 or d % heads or f > 3 * d:
-        raise ValueError("the kernel's GEMM tiles need D and F multiples of 64 "
-                         "and F <= 3D; D must split into heads")
+        raise ValueError("the GEMM core needs D and F multiples of 64 (16-byte "
+                         "TMA strides, whole 64-deep k-tiles) and F <= 3D; D "
+                         "must split into heads")
     return rows, d, f
 
 
@@ -419,6 +448,10 @@ def _bwd_lib():
     lib.encoder_mono_backward_workspace.argtypes = [ctypes.c_int] * 4
     lib.encoder_attention_bwd_smem_bytes.restype = ctypes.c_int
     lib.encoder_attention_bwd_smem_bytes.argtypes = [ctypes.c_int] * 2
+    lib.encoder_gemm_workspace.restype = ctypes.c_size_t
+    lib.encoder_gemm_workspace.argtypes = [ctypes.c_int] * 3
+    lib.encoder_splitk_count.restype = ctypes.c_int
+    lib.encoder_splitk_count.argtypes = [ctypes.c_int] * 3
     return lib
 
 
@@ -431,8 +464,7 @@ def _launch_ffn_bwd(x1, dy, params):
     """B2a → dx1 (f32), dx1 in bf16, dW1, dW2 (bf16), vec (4, D), d b1."""
     global FFN_BWD_LAUNCHES
     rows, d, f = _check(x1, params, 1, 1)
-    if dy.shape != x1.shape or dy.dtype != torch.bfloat16 or not dy.is_contiguous():
-        raise TypeError("dy must be contiguous bf16 shaped like x1")
+    _need_rows("dy", dy, torch.bfloat16, rows, d)
     dev = x1.device
     lib = _bwd_lib()
     dx1, dx1b = _rows_like(x1, torch.float32), _rows_like(x1, torch.bfloat16)
@@ -462,11 +494,9 @@ def _launch_att_bwd(x, qkv, dx1, dx1b, params, heads, t_pad, t_valid):
     """B2b → dx (bf16), dWqkv, dWout (bf16), vec (2, D)."""
     global ATT_BWD_LAUNCHES
     rows, d, _ = _check(x, params, heads, t_pad)
-    for name, t, want in (("qkv", qkv, (torch.bfloat16, 3 * d)),
-                          ("dx1", dx1, (torch.float32, d)),
-                          ("dx1b", dx1b, (torch.bfloat16, d))):
-        if (t.dtype, t.shape[-1]) != want or t.shape[0] != rows or not t.is_contiguous():
-            raise TypeError(f"{name}: need contiguous {want[0]} ({rows}, {want[1]})")
+    _need_rows("qkv", qkv, torch.bfloat16, rows, 3 * d)
+    _need_rows("dx1", dx1, torch.float32, rows, d)
+    _need_rows("dx1b", dx1b, torch.bfloat16, rows, d)
     dev = x.device
     lib = _bwd_lib()
     dh = d // heads
@@ -504,9 +534,7 @@ def _launch_mono_bwd(x, qkv, x1, dy, params, heads, t_pad, t_valid):
     stash = qkv is not None
     given = {"dy": (dy, d), **({"qkv": (qkv, 3 * d), "x1": (x1, d)} if stash else {})}
     for name, (t, cols) in given.items():
-        if (t.dtype != torch.bfloat16 or tuple(t.shape) != (rows, cols)
-                or not t.is_contiguous() or t.data_ptr() % 16):
-            raise TypeError(f"{name}: need aligned contiguous bf16 ({rows}, {cols})")
+        _need_rows(name, t, torch.bfloat16, rows, cols)
     dev = x.device
     lib = _bwd_lib()
     dh = d // heads
@@ -538,3 +566,38 @@ def _launch_mono_bwd(x, qkv, x1, dy, params, heads, t_pad, t_valid):
     cuda_lib.check(lib, status, "encoder_mono_backward")
     MONO_BWD_LAUNCHES += 1
     return dx, h2, df1, g, vec, db1, dwqkv, dwout
+
+
+def gemm_product(a: torch.Tensor, b: torch.Tensor, mode: int) -> torch.Tensor:
+    """The GEMM core alone, in the operand majors the encoder uses: mode 0
+    ``a @ b`` and mode 1 ``a @ b.T`` in f32 (``b`` a weight as it lies),
+    mode 2 ``a.T @ b`` in bf16 (the split-K weight gradient).  bf16
+    operands.  Only for holding the core against a plain product and
+    timing it (``chip_smoke.py``); the encoder's launches call it inside
+    their C entry points."""
+    if mode not in (0, 1, 2) or a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16:
+        raise ValueError("mode 0, 1 or 2 with bf16 operands")
+    m, k = a.shape[::-1] if mode == 2 else a.shape
+    n = b.shape[0] if mode == 1 else b.shape[1]
+    if (b.shape[1] if mode == 1 else b.shape[0]) != k:
+        raise ValueError(f"shapes {tuple(a.shape)} and {tuple(b.shape)} in mode {mode}")
+    if not cuda_lib.use_kernel(a):
+        return (_mm(a.t(), b).to(torch.bfloat16) if mode == 2
+                else _mm(a, b.t() if mode == 1 else b))
+    if (n % 64 or k % 8 or (mode == 2 and m % 8)
+            or not (_aligned(a) and _aligned(b))):
+        raise ValueError("the GEMM core needs 16-byte aligned contiguous "
+                         "operands (rows of a multiple of 16 bytes) and N a "
+                         "multiple of 64")
+    lib = _bwd_lib()
+    out = torch.empty((m, n), dtype=torch.bfloat16 if mode == 2 else torch.float32,
+                      device=a.device)
+    work = torch.empty(lib.encoder_gemm_workspace(m, n, k) if mode == 2 else 0,
+                       dtype=torch.uint8, device=a.device)
+    fn = lib.encoder_gemm_product
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    status = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), work.data_ptr(), m, n,
+                k, mode, cuda_lib.stream_ptr(a.device))
+    cuda_lib.check(lib, status, "encoder_gemm_product")
+    return out

@@ -31,8 +31,10 @@ import time
 import numpy as np
 import torch
 
-# kernels of veto_tpu_torch/csrc, by the name the profiler shows
-OWN_KERNELS = ("gemm_bf16_kernel", "pair_attention_kernel", "layernorm_kernel",
+# kernels of veto_tpu_torch/csrc, by the name the profiler shows (the GEMM
+# core of csrc/gemm_sm90.cuh carries every encoder product, forward and
+# backward)
+OWN_KERNELS = ("gemm_sm90_kernel", "pair_attention_kernel", "layernorm_kernel",
                "roi_align_fwd_kernel", "pair_attn_fwd_kernel")
 
 

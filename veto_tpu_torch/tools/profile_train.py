@@ -32,8 +32,8 @@ import torch
 from .profile_eval import OWN_KERNELS, _stage_timer, trace
 
 # the backward kernels of csrc/encoder_layer_bwd.cu, csrc/roi_align.cu and
-# csrc/pair_attention.cu
-OWN_BWD_KERNELS = ("gemm_kernel<", "pair_attention_bwd_kernel",
+# csrc/pair_attention.cu (its GEMMs are OWN_KERNELS' gemm_sm90_kernel)
+OWN_BWD_KERNELS = ("pair_attention_bwd_kernel",
                    "ln_backward_kernel", "splitk_reduce_kernel",
                    "colsum_reduce_kernel", "roi_align_bwd_kernel",
                    "pair_attn_bwd_kernel")
