@@ -7,7 +7,8 @@ Phases, in order; any failure raises and exits non-zero, and no phase
 catches its own failure:
 
 1. Build the CUDA kernels from ``veto_tpu_torch/csrc`` (one ``nvcc`` per
-   source, started together) and print the card's name and power limit.
+   source, started together), print ptxas's registers and spills and the
+   card's name and power limit.
 2. The GEMM core (``csrc/gemm_sm90.cuh``: wgmma fed by TMA through an
    mbarrier ring) alone against ``torch.matmul`` in f32, at every product
    shape of the main path (B1's four at 311,296 rows, B2a's and B2b's at
@@ -27,10 +28,16 @@ catches its own failure:
    with exact launch counts per batch (B1 6, B3 2, every other kernel 0);
    then one batch's ``rel_logits`` against the same model run through the
    plain versions.
-6. Encoder backward kernels, B2a (FFN) and B2b (attention), vs their plain
-   versions at the train shape (12,288 pairs x 19 x 576, and once with
-   t_pad 24 > t_valid 19 and a partial GEMM tile); two kernel runs must
-   give bit-equal gradients.
+6. Encoder backward kernels.  First B2b's attention backward alone (the
+   tensor-core kernel that B2b and B5 launch) vs the plain ``_attention_bwd``
+   (att, dq, dk, dv) and, without datt, vs ``_attention``, at 12,288 pairs x
+   19 and at 509 pairs with t_pad 24 > t_valid 19, two runs bit-equal; its
+   time against its bound and SDPA's backward, and the HMMA instructions
+   in its SASS (``cuobjdump``).  Then B2a (FFN) and B2b (attention) vs their
+   plain versions at the train shape (12,288 pairs x 19 x 576, and once
+   with t_pad 24 > t_valid 19 and a partial GEMM tile); two kernel runs
+   must give bit-equal gradients; each pass's kernels timed by
+   ``torch.profiler`` (the LN backwards against their bounds).
 7. ROIAlign backward kernel vs autograd of the plain pooling on the 1/16
    depth map of 12 x 800x1344 images, 80 rois each.
 8. Pair-attention kernels B4a and B4b vs their plain versions, q/k/v the
@@ -134,14 +141,32 @@ def build():
     for name in cuda_lib.SOURCES:
         log = cuda_lib.BUILD_DIR / f"{name}.log"
         if log.exists():  # absent when the library was already built
-            text = log.read_text()
-            used = [ln.split(": ", 1)[-1] for ln in text.splitlines()
-                    if "Used" in ln]
-            spills = "no spills" if " 0 bytes spill stores" in text and \
-                "spill stores" not in text.replace(" 0 bytes spill stores", "") \
-                else "SPILLS"
-            print(f"  {name} ptxas ({spills}): " + "; ".join(used))
+            entries = ptxas_entries(log.read_text())
+            spilled = [e for e, (_, spill) in entries.items() if spill]
+            print(f"  {name} ptxas: {len(entries)} kernels, registers "
+                  f"{sorted({regs for regs, _ in entries.values()})}, "
+                  f"spills {spilled or 'none'}")
+            for e, (regs, spill) in entries.items():
+                if "attention_bwd_mma_kernel" in e or "ln_backward_kernel" in e and "Li9E" in e:
+                    print(f"    {e}: {regs} registers, {spill} bytes spilled")
     print(f"[card] {card()}")
+
+
+def ptxas_entries(text):
+    """ptxas -v's report by kernel: {mangled name: (registers, bytes of
+    spill stores)}."""
+    out, name = {}, None
+    for line in text.splitlines():
+        if "Compiling entry function '" in line:
+            name = line.split("'")[1]
+        elif name and "bytes spill stores" in line:
+            spill = int(line.split("bytes spill stores")[0].split(",")[-1])
+            out[name] = (0, spill)
+        elif name and "Used" in line and "registers" in line:
+            regs = int(line.split("Used")[1].split("registers")[0])
+            out[name] = (regs, out.get(name, (0, 0))[1])
+            name = None
+    return out
 
 
 # ------------------------------------------------------------------ phase 2
@@ -505,12 +530,123 @@ def enc_bwd_kernels(x, dy, params, heads, t_pad, t_valid):
                 dwqkv=dwqkv, dwout=dwout, vec2=vec2), (qkv, x1)
 
 
-def phase_encoder_bwd(gen, pairs=12288, d=576):
-    """B2a (FFN backward) and B2b (attention backward) against their plain
-    versions on the same inputs, at the PredCls train shape."""
+def sass_count(lib_name, kernel, opcode) -> int:
+    """Instructions ``opcode`` in the SASS of the functions of library
+    ``lib_name`` whose name holds ``kernel`` (``cuobjdump -sass``)."""
+    from veto_tpu_torch.ops import cuda_lib
+
+    tool = os.path.join(os.path.dirname(cuda_lib.nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(cuda_lib._lib_path(lib_name))],
+                          capture_output=True, text=True, check=True).stdout
+    n, inside = 0, False
+    for line in sass.splitlines():
+        if "Function : " in line:
+            inside = kernel in line
+        elif inside and opcode in line:
+            n += 1
+    return n
+
+
+def sdpa_ms(gen, pairs, t, d, heads, backward) -> float:
+    """SDPA with the key mask on the strided (P, heads, T, dh) views of a
+    packed qkv, as the pair-attention path lays them out: the forward, or
+    its backward (timed only; the port never calls it)."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    mask = (torch.arange(t, device=DEVICE) < t).expand(t, t)
+    qkv = torch.randn(pairs, t, 3 * d, generator=gen, device=DEVICE).bfloat16()
+    do = torch.randn(pairs, t, d, generator=gen, device=DEVICE).bfloat16()
+
+    def heads_of(a):
+        return a.unflatten(-1, (heads, d // heads)).transpose(1, 2)
+
+    if not backward:
+        with torch.inference_mode():
+            q4, k4, v4 = (heads_of(a) for a in qkv.chunk(3, dim=-1))
+            return cuda_ms(lambda: sdpa(q4, k4, v4, attn_mask=mask), 20)
+    q4, k4, v4 = (heads_of(a) for a in qkv.requires_grad_().chunk(3, dim=-1))
+    o4 = sdpa(q4, k4, v4, attn_mask=mask)
+    return cuda_ms(lambda: o4.backward(heads_of(do), retain_graph=True), 20)
+
+
+def phase_attention_alone(gen, pairs=12288, d=576, heads=6, t=19):
+    """The attention backward kernel of B2b and B5 alone
+    (``fused_encoder._launch_attention_bwd``) against the plain
+    ``_attention_bwd`` (att, dq, dk, dv) and, without datt, ``_attention``,
+    at the train shape and at 509 pairs with t_pad 24 > t_valid 19; two runs
+    bit-equal; its time against its bound and SDPA's backward; the
+    tensor-core instructions in its SASS; the Python mirror of its shared
+    memory against the C code's.  Returns its ms and bound ms."""
     from veto_tpu_torch.ops import fused_encoder as fe
 
+    print(f"[attention alone] B2b's attention backward vs plain, {pairs} pairs "
+          f"x {t} tokens x {d}, {heads} heads")
+    lib = fe._bwd_lib()
+    tol = dict(max_tol=1e-2, mean_tol=1e-3)  # phase 6's, for the same reason
+    with torch.inference_mode():
+        for n_pairs, t_pad in ((pairs, t), (min(pairs, 509), 24)):
+            smem = lib.encoder_attention_bwd_smem_bytes(t_pad, d)
+            if smem != fe.attention_bwd_smem_bytes(t_pad, d):
+                raise AssertionError(f"shared memory {smem} in C, "
+                                     f"{fe.attention_bwd_smem_bytes(t_pad, d)} in Python")
+            qkv = torch.randn(n_pairs * t_pad, 3 * d, generator=gen,
+                              device=DEVICE).bfloat16()
+            datt = torch.randn(n_pairs * t_pad, d, generator=gen,
+                               device=DEVICE).bfloat16()
+            runs = [fe._launch_attention_bwd(qkv, datt, heads, t_pad, t)
+                    for _ in range(2)]
+            fwd = [fe._launch_attention_bwd(qkv, None, heads, t_pad, t)[0]
+                   for _ in range(2)]
+            if not (all(torch.equal(a, b) for a, b in zip(*runs))
+                    and torch.equal(*fwd) and runs[0][1] is not None):
+                raise AssertionError(f"t_pad {t_pad}: two kernel runs differ")
+            print(f"  {n_pairs} pairs, t_pad {t_pad}, t_valid {t}, {smem} B of "
+                  "shared memory a block (two kernel runs bit-equal)")
+            (att, dqkv), ref = runs[0], fe._attention_bwd(qkv, datt, heads, t_pad, t,
+                                                          torch.bfloat16)
+            check_scaled("att", att, ref[0], **tol)
+            for i, name in enumerate(("dq", "dk", "dv")):
+                cols = slice(i * d, (i + 1) * d)
+                check_scaled(name, dqkv[:, cols], ref[1][:, cols], **tol)
+            check_scaled("att without datt (forward)", fwd[0],
+                         fe._attention(qkv, heads, t_pad, t, torch.bfloat16), **tol)
+        del runs, fwd, att, dqkv, ref
+        qkv = torch.randn(pairs * t, 3 * d, generator=gen, device=DEVICE).bfloat16()
+        datt = torch.randn(pairs * t, d, generator=gen, device=DEVICE).bfloat16()
+        ms = cuda_ms(lambda: fe._launch_attention_bwd(qkv, datt, heads, t, t), 20)
+        fwd_ms = cuda_ms(lambda: fe._launch_attention_bwd(qkv, None, heads, t, t), 20)
+        plain_ms = cuda_ms(lambda: fe._attention_bwd(qkv, datt, heads, t, t,
+                                                     torch.bfloat16), 3)
+    lib_ms = sdpa_ms(gen, pairs, t, d, heads, backward=True)
+    rows = pairs * t
+    # in: qkv, datt; out: att, dqkv
+    nbytes = rows * (3 * d + d + d + 3 * d) * 2
+    flops = 12 * pairs * heads * t * t * (d // heads)
+    bound = max(nbytes / PEAK_BYTES, flops / PEAK_BF16) * 1e3
+    hmma = sass_count("encoder_layer_bwd", "attention_bwd_mma_kernel", "HMMA")
+    print(f"  kernel {ms:.4f} ms ({nbytes / ms / 1e6:.0f} GB/s), forward only "
+          f"{fwd_ms:.4f} ms, plain {plain_ms:.3f} ms, SDPA backward with the key "
+          f"mask {lib_ms:.3f} ms (which writes no att); {nbytes / 1e9:.3f} GB, "
+          f"{flops / 1e12:.4f} TFLOP -> bound {bound:.4f} ms (bytes); "
+          f"{hmma} HMMA instructions in its SASS")
+    if hmma == 0:
+        raise AssertionError("attention_bwd_mma_kernel has no HMMA in its SASS")
+    release()
+    return dict(ms=ms, bound_ms=bound)
+
+
+def ln_bwd_bound_ms(rows, d, bytes_per_element) -> float:
+    return rows * d * bytes_per_element / PEAK_BYTES * 1e3
+
+
+def phase_encoder_bwd(gen, pairs=12288, d=576):
+    """B2a (FFN backward) and B2b (attention backward) against their plain
+    versions on the same inputs, at the PredCls train shape; their pieces'
+    device times by ``torch.profiler``."""
+    from veto_tpu_torch.ops import fused_encoder as fe
+    from veto_tpu_torch.tools.profile_eval import trace
+
     t, heads = 19, 6
+    attention = phase_attention_alone(gen, pairs, d, heads, t)
     print(f"[encoder bwd] kernels vs plain, {pairs} pairs x {t} tokens x {d}")
     params = enc_params(gen, d)
     f = params.w1.shape[1]
@@ -564,6 +700,30 @@ def phase_encoder_bwd(gen, pairs=12288, d=576):
         plain_a = cuda_ms(lambda: fe.reference_ffn_bwd(x1, dy, params), 2, 1)
         plain_b = cuda_ms(lambda: fe.reference_att_bwd(x, qkv, dx1, params,
                                                        heads, t, t), 2, 1)
+        # the pieces of each pass: device time by kernel under
+        # torch.profiler over 5 calls, per call
+        calls = 5
+        own = ("attention_bwd_mma_kernel", "ln_backward_kernel<2",
+               "ln_backward_kernel<4", "gemm_sm90_kernel", "layernorm_kernel",
+               "splitk_reduce_kernel", "colsum_reduce_kernel")
+        pieces = {}
+        for name, fn in (("B2a", lambda: fe._launch_ffn_bwd(x1, dy, params)),
+                         ("B2b", lambda: fe._launch_att_bwd(
+                             x, qkv, dx1, dx1b, params, heads, t, t))):
+            got = trace(lambda: [fn() for _ in range(calls)], own,
+                        log=lambda s: None)["own_kernel_ms"]
+            pieces[name] = {k: v / calls for k, v in got.items() if v}
+            print(f"  {name} per call by kernel (torch.profiler): " + ", ".join(
+                f"{k} {v:.3f} ms" for k, v in pieces[name].items()))
+    rows = pairs * t
+    # LN1 backward: x (bf16), dh1, dx1 (f32) in, dx (bf16) out; LN2
+    # backward: x1, dy (bf16), dh2 (f32) in, dx1 (f32 and bf16) out
+    ln1_bound, ln2_bound = ln_bwd_bound_ms(rows, d, 12), ln_bwd_bound_ms(rows, d, 14)
+    print(f"  B2b's attention backward {attention['ms']:.4f} ms (bound "
+          f"{attention['bound_ms']:.4f}), LN1 backward "
+          f"{pieces['B2b']['ln_backward_kernel<2']:.4f} ms (bound {ln1_bound:.4f}); "
+          f"B2a's LN2 backward {pieces['B2a']['ln_backward_kernel<4']:.4f} ms "
+          f"(bound {ln2_bound:.4f})")
     # yardstick: autograd through torch's own layer, one sub-block at a time
     layer = library_layer(params, heads)
     # clones: tensors made under inference_mode cannot enter autograd
@@ -576,7 +736,6 @@ def phase_encoder_bwd(gen, pairs=12288, d=576):
     lib_b = cuda_ms(lambda: att.backward(dy3, retain_graph=True), 5)
     del ffn, att, layer
 
-    rows = pairs * t
     p = params
     # f1 recompute, dg, dh2, dW1, dW2: five products of 2 R D F
     flops_a = 5 * 2 * rows * d * f
@@ -710,22 +869,8 @@ def phase_pair_attention(gen, d=576, heads=6):
                         q, k, v, do, heads, t), 3))
     # yardstick: SDPA with the key mask on the same strided (P, heads, T, dh)
     # views; the forward at the eval shape, the backward at the train shape
-    # (timed only, the port never calls it)
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    mask = (torch.arange(t, device=DEVICE) < t).expand(t, t)
-
-    def heads_of(a):
-        return a.unflatten(-1, (heads, dh)).transpose(1, 2)
-
-    qkv, _, _ = inputs(16384, t)
-    with torch.inference_mode():
-        q4, k4, v4 = (heads_of(a) for a in qkv.chunk(3, dim=-1))
-        lib_fwd = cuda_ms(lambda: sdpa(q4, k4, v4, attn_mask=mask), 20)
-    qkv, _, do = inputs(12288, t)
-    q4, k4, v4 = (heads_of(a) for a in qkv.requires_grad_().chunk(3, dim=-1))
-    o4 = sdpa(q4, k4, v4, attn_mask=mask)
-    lib_bwd = cuda_ms(lambda: o4.backward(heads_of(do), retain_graph=True), 20)
-    del o4, q4, k4, v4, qkv
+    lib_fwd = sdpa_ms(gen, 16384, t, d, heads, backward=False)
+    lib_bwd = sdpa_ms(gen, 12288, t, d, heads, backward=True)
 
     out = []
     # B4a: q, k, v in, o out; QK^T and PV.  B4b: q, k, v, do in, dq, dk,
@@ -793,6 +938,9 @@ def phase_mono_bwd(gen, pairs=12288, d=576):
                     check_scaled(name, g_, r_, **tol)
                     err = max(err, float((g_.float() - r_.float()).abs().max()))
             runs[stash] = got
+        # not expected: without the stash B5 recomputes att with the
+        # backward's tensor-core attention, whose sums run in another order
+        # than B1's, so x1 and what follows may differ in a rounding
         same = all(torch.equal(runs[True][k], runs[False][k]) for k in runs[True])
         print(f"  B5 with and without the stash bit-equal: {same}")
         # B5 against the split backward on the same input

@@ -11,6 +11,11 @@ the host before any launch.
   before loading any library, every shape, dtype and alignment the GEMM
   core cannot take (TMA reads 16-byte aligned rows whose strides are
   multiples of 16 bytes; whole 64-deep k-tiles; at most 65,535 row tiles).
+- The backward wrappers and the attention kernel alone refuse, before
+  loading any library, a t_pad over ``ATT_TMAX`` and a head dim that is not
+  a multiple of 8 (the tensor-core attention's tiles), and the LayerNorm
+  backward a row wider than ``LN_BWD_MAX_D``; the mirror of the
+  attention's shared memory lets two blocks share an SM at 19 tokens.
 - ``fused_encoder.splitk_count`` mirrors the C code's split count of the
   weight-gradient products; at the main path's shapes on a 132-SM H100 it
   gives the counts the card reported.
@@ -153,6 +158,78 @@ def test_backward_wrappers_refuse_a_misaligned_operand(which):
                                _misaligned(dy), p, heads, t, t)
         else:
             fe._launch_mono_bwd(x, qkv, _misaligned(x), dy, p, heads, t, t)
+
+
+def _attention_case(case):
+    """(d, f, heads, t_pad) that the attention backward kernel refuses."""
+    if case == "t_pad_over_limit":
+        return 64, 128, 2, fe.ATT_TMAX + 1
+    if case == "head_dim_not_8":
+        return 192, 128, 16, 3  # head dim 12
+    raise AssertionError(case)
+
+
+@pytest.fixture
+def no_library(monkeypatch):
+    """Loading a kernel library fails the test: refusals come first."""
+    def library(name):
+        raise AssertionError(f"library {name} loaded before the refusal")
+    monkeypatch.setattr(cuda_lib, "library", library)
+
+
+@pytest.mark.parametrize("case", ("t_pad_over_limit", "head_dim_not_8"))
+@pytest.mark.parametrize("which", ("att", "mono", "attention"))
+def test_attention_backward_wrappers_refuse_what_the_kernel_cannot_take(
+        no_library, which, case):
+    """B2b, B5 and the attention kernel alone take t_pad up to ATT_TMAX (two
+    16-row tiles) and head dims in whole 8-column slices: anything else is
+    a ValueError before any library is loaded, with no fallback."""
+    d, f, heads, t_pad = _attention_case(case)
+    rows, t_valid = 2 * t_pad, min(t_pad, 3)
+    p = _params(d, f)
+    x = torch.zeros(rows, d, dtype=torch.bfloat16)
+    qkv = torch.zeros(rows, 3 * d, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="t_pad|head dim"):
+        if which == "att":
+            fe._launch_att_bwd(x, qkv, torch.zeros(rows, d), x, p, heads, t_pad,
+                               t_valid)
+        elif which == "mono":
+            fe._launch_mono_bwd(x, qkv, x, x, p, heads, t_pad, t_valid)
+        else:
+            fe._launch_attention_bwd(qkv, x, heads, t_pad, t_valid)
+
+
+def test_attention_backward_takes_the_main_path_shapes(no_library):
+    """At D 576 and 6 heads every t_pad up to ATT_TMAX fits a block, and at
+    the main path's 19 tokens two blocks share an SM (228 KB, 1 KB of it
+    reserved per block); the mirror of the C code's shared memory gives
+    the bytes the card reported."""
+    assert fe.attention_bwd_smem_bytes(19, 576) == 112864
+    assert 2 * (fe.attention_bwd_smem_bytes(19, 576) + 1024) <= 228 * 1024
+    assert fe.attention_bwd_smem_bytes(24, 576) == 136064
+    for t_pad in range(1, fe.ATT_TMAX + 1):
+        fe._check_attention(576, 6, t_pad)
+
+
+def test_attention_kernel_alone_refuses_cpu_tensors(no_library):
+    """The raw launch has no plain fallback: a CPU tensor is a TypeError."""
+    qkv = torch.zeros(2 * 19, 3 * 96, dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="CUDA"):
+        fe._launch_attention_bwd(qkv, None, 6, 19, 19)
+
+
+def test_ln_backward_refuses_a_row_wider_than_its_registers(no_library):
+    """The LayerNorm backward keeps a row's columns in a warp's registers:
+    D over LN_BWD_MAX_D is refused by both passes before any launch."""
+    d, f, heads, t = fe.LN_BWD_MAX_D + 64, 128, 2, 3
+    p = fe.EncoderLayerParams(*[t_.to("meta") for t_ in _params(d, f)])
+    x = torch.empty(2 * t, d, dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match="LayerNorm"):
+        fe._launch_ffn_bwd(x, x, p)
+    with pytest.raises(ValueError, match="LayerNorm"):
+        fe._launch_att_bwd(x, torch.empty(2 * t, 3 * d, dtype=torch.bfloat16,
+                                          device="meta"),
+                           torch.empty(2 * t, d, device="meta"), x, p, heads, t, t)
 
 
 # (M, N, K): the weight gradients of the main train step (233,472 rows) and

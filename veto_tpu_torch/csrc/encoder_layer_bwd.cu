@@ -41,8 +41,9 @@
 // Each pass is a fixed sequence of launches: LayerNorm recompute, the
 // Hopper GEMM core of gemm_sm90.cuh (wgmma fed by TMA through an mbarrier
 // ring) with either operand read K-major or MN-major as it lies in its
-// row-major storage, the per-(pair, head) attention backward from shared
-// memory, and a row-wise LayerNorm backward.  Pass A's first product is
+// row-major storage, the per-pair attention backward on the tensor cores
+// (mma.sync on the pair's rows staged by bulk copies), and a row-wise
+// LayerNorm backward that reads each row once.  Pass A's first product is
 // dual: one launch computes f1 = h2 W1 + b1 and dg = dy W2^T for the same
 // (rows x F) tile and writes only g = bf16(gelu f1), df1 = bf16(dg
 // gelu'(f1)) and the tile's column sums of df1, so f1 never reaches device
@@ -56,9 +57,6 @@
 // atomics, so two runs give bit-equal gradients.
 
 #include "gemm_sm90.cuh"
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
 
 // ----------------------------------------------------------------------------
 // LayerNorm forward recompute: one warp per row, f32 statistics, bf16 out
@@ -130,176 +128,413 @@ __global__ void colsum_reduce_kernel(const float* __restrict__ part, int nblk,
 }
 
 // ----------------------------------------------------------------------------
-// LayerNorm backward: one warp per row, 4 warps and LNB_ROWS rows a block.
+// LayerNorm backward: one warp per row, LNB_WARPS warps and LNB_ROWS rows a
+// block.
 //   out = resid + inv (dxhat - mean(dxhat) - xhat mean(dxhat xhat)),
 //   dxhat = dh * scale,
 // with the block's column sums of dh * xhat, dh (and, NQ = 4, of out and
 // resid) written to part[blockIdx.x] for colsum_reduce_kernel.
+//
+// Bound: bytes.  B2b's LN1 backward (NQ = 2) reads x (bf16), dh1 and dx1
+// (f32) and writes dx (bf16): 12 bytes an element, 1.61 GB at 233,472 rows
+// x 576, 0.48 ms at 3.35 TB/s.  So each row is read once: a lane loads its
+// NP column pairs (2 (lane + 32 i) + {0, 1}) of x, dh and resid with one
+// coalesced vector load each and keeps them, its columns' scale and its
+// columns' partial sums over all its rows in registers; the block's warps
+// meet once, at the end, to sum their partials in a fixed order.
 // ----------------------------------------------------------------------------
-constexpr int LNB_WARPS = 4, LNB_ROWS = 256;
+constexpr int LNB_WARPS = 8, LNB_ROWS = 256, LNB_MAX_D = 768;
 
-template <int NQ, typename RES>
+__device__ __forceinline__ float2 load2(const float* p, size_t i) {
+  return reinterpret_cast<const float2*>(p)[i];
+}
+__device__ __forceinline__ float2 load2(const bf16* p, size_t i) {
+  return __bfloat1622float2(reinterpret_cast<const __nv_bfloat162*>(p)[i]);
+}
+
+template <int NQ, typename RES, int NP>
 __global__ void __launch_bounds__(LNB_WARPS * 32)
     ln_backward_kernel(const bf16* __restrict__ x, const float* __restrict__ dh,
                        const RES* __restrict__ resid,
                        const float* __restrict__ scale, float* __restrict__ out_f32,
                        bf16* __restrict__ out_bf16, float* __restrict__ part,
-                       int rows, int d, float eps) {
-  extern __shared__ float acc[];  // [LNB_WARPS][NQ][d]
+                       int rows, float eps) {
+  constexpr int D = 64 * NP;
+  extern __shared__ float red[];  // [LNB_WARPS][NQ][D]
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int i = threadIdx.x; i < LNB_WARPS * NQ * d; i += blockDim.x) acc[i] = 0.f;
-  __syncthreads();
-  float* my = acc + (size_t)warp * NQ * d;
-  const int r0 = blockIdx.x * LNB_ROWS;
-  const int r1 = min(rows, r0 + LNB_ROWS);
-  const int d2 = d >> 1;
-  for (int row = r0 + warp; row < r1; row += LNB_WARPS) {
-    const __nv_bfloat162* xr =
-        reinterpret_cast<const __nv_bfloat162*>(x + (size_t)row * d);
-    const float* dr = dh + (size_t)row * d;
-    float s = 0.f;
-    for (int c = lane; c < d2; c += 32) {
-      const float2 v = __bfloat1622float2(xr[c]);
-      s += v.x + v.y;
+  float2 sc[NP], acc[NQ][NP];
+#pragma unroll
+  for (int i = 0; i < NP; ++i) {
+    sc[i] = load2(scale, lane + 32 * i);
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) acc[q][i] = make_float2(0.f, 0.f);
+  }
+  const int r1 = min(rows, (int)(blockIdx.x + 1) * LNB_ROWS);
+  for (int row = blockIdx.x * LNB_ROWS + warp; row < r1; row += LNB_WARPS) {
+    const size_t o = (size_t)row * (D / 2) + lane;  // this lane's first pair
+    float2 xv[NP], g[NP], rs[NP];
+#pragma unroll
+    for (int i = 0; i < NP; ++i) {
+      xv[i] = load2(x, o + 32 * i);
+      g[i] = load2(dh, o + 32 * i);
+      rs[i] = load2(resid, o + 32 * i);
     }
-    const float mean = warp_sum(s) / (float)d;
+    float s = 0.f;
+#pragma unroll
+    for (int i = 0; i < NP; ++i) s += xv[i].x + xv[i].y;
+    const float mean = warp_sum(s) / (float)D;
     float var = 0.f;
-    for (int c = lane; c < d2; c += 32) {
-      const float2 v = __bfloat1622float2(xr[c]);
-      const float a = v.x - mean, b = v.y - mean;
+#pragma unroll
+    for (int i = 0; i < NP; ++i) {
+      const float a = xv[i].x - mean, b = xv[i].y - mean;
       var += a * a + b * b;
     }
-    const float inv = rsqrtf(warp_sum(var) / (float)d + eps);
+    const float inv = rsqrtf(warp_sum(var) / (float)D + eps);
     float s1 = 0.f, s2 = 0.f;
-    for (int c = lane; c < d2; c += 32) {
-      const float2 v = __bfloat1622float2(xr[c]);
-      const float xa = (v.x - mean) * inv, xb = (v.y - mean) * inv;
-      const float ga = dr[2 * c] * scale[2 * c], gb = dr[2 * c + 1] * scale[2 * c + 1];
-      s1 += ga + gb;
-      s2 += ga * xa + gb * xb;
-    }
-    const float m1 = warp_sum(s1) / (float)d, m2 = warp_sum(s2) / (float)d;
-    for (int c = lane; c < d2; c += 32) {
-      const float2 v = __bfloat1622float2(xr[c]);
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int cc = 2 * c + e;
-        const float xh = ((e ? v.y : v.x) - mean) * inv;
-        const float g = dr[cc];
-        const float res = to_f32(resid[(size_t)row * d + cc]);
-        const float o = res + inv * (g * scale[cc] - m1 - xh * m2);
-        if (out_f32) out_f32[(size_t)row * d + cc] = o;
-        if (out_bf16) out_bf16[(size_t)row * d + cc] = __float2bfloat16(o);
-        my[cc] += g * xh;
-        my[d + cc] += g;
-        if (NQ == 4) {
-          my[2 * d + cc] += o;
-          my[3 * d + cc] += res;
-        }
+    for (int i = 0; i < NP; ++i) {
+      xv[i] = make_float2((xv[i].x - mean) * inv, (xv[i].y - mean) * inv);  // xhat
+      const float ga = g[i].x * sc[i].x, gb = g[i].y * sc[i].y;
+      s1 += ga + gb;
+      s2 += ga * xv[i].x + gb * xv[i].y;
+    }
+    const float m1 = warp_sum(s1) / (float)D, m2 = warp_sum(s2) / (float)D;
+#pragma unroll
+    for (int i = 0; i < NP; ++i) {
+      const float oa = rs[i].x + inv * (g[i].x * sc[i].x - m1 - xv[i].x * m2);
+      const float ob = rs[i].y + inv * (g[i].y * sc[i].y - m1 - xv[i].y * m2);
+      if (out_f32) reinterpret_cast<float2*>(out_f32)[o + 32 * i] = make_float2(oa, ob);
+      if (out_bf16)
+        reinterpret_cast<__nv_bfloat162*>(out_bf16)[o + 32 * i] =
+            __floats2bfloat162_rn(oa, ob);
+      acc[0][i].x += g[i].x * xv[i].x;
+      acc[0][i].y += g[i].y * xv[i].y;
+      acc[1][i].x += g[i].x;
+      acc[1][i].y += g[i].y;
+      if constexpr (NQ == 4) {
+        acc[2][i].x += oa;
+        acc[2][i].y += ob;
+        acc[3][i].x += rs[i].x;
+        acc[3][i].y += rs[i].y;
       }
     }
   }
+#pragma unroll
+  for (int q = 0; q < NQ; ++q)
+#pragma unroll
+    for (int i = 0; i < NP; ++i)
+      reinterpret_cast<float2*>(red + (warp * NQ + q) * D)[lane + 32 * i] = acc[q][i];
   __syncthreads();
-  for (int i = threadIdx.x; i < NQ * d; i += blockDim.x) {
+  for (int j = threadIdx.x; j < NQ * D; j += blockDim.x) {
     float t = 0.f;
 #pragma unroll
-    for (int w = 0; w < LNB_WARPS; ++w) t += acc[(size_t)w * NQ * d + i];
-    part[(size_t)blockIdx.x * NQ * d + i] = t;
+    for (int w = 0; w < LNB_WARPS; ++w) t += red[w * NQ * D + j];
+    part[(size_t)blockIdx.x * NQ * D + j] = t;
   }
 }
 
 // ----------------------------------------------------------------------------
-// Attention backward: one block per (pair, head).  Recomputes the scores and
-// probabilities from the stashed qkv, writes the recomputed head output att
-// (the forward's, bit for bit) and dq, dk, dv.  With datt null it stops
-// after att: the attention forward, for B5's recompute without the stash.
+// Attention backward on the tensor cores: one block per pair.
+//
+// Recomputes the scores and probabilities from the stashed qkv and writes
+// the head outputs att and dq, dk, dv; with datt null it stops after att
+// (the attention forward, for B5's recompute without the stash).
+//
+// The pair's qkv rows (t_pad x 3d bf16) and datt rows (t_pad x d) come into
+// shared memory by bulk copies (cp.async.bulk, one a row, completing on one
+// mbarrier), each row padded to an odd number of 16-byte units so that
+// ldmatrix reads eight rows without bank conflicts.  Six warp pairs take a
+// head each (heads beyond six loop).  Tokens are padded to 32 (two m16
+// tiles) and the head dim to a multiple of 16: a fragment row past t_pad or
+// past the head's columns is read from a 16-byte block of zeros.  Every
+// product is mma.sync m16n8k16, bf16 operands and f32 sums, fed by ldmatrix:
+//
+//   phase 1, each warp of a pair 16 query rows: S = Q K^T, scaled, keys >=
+//     t_valid masked; P = softmax(S) in registers (row max and sums by quad
+//     shuffles), bf16(P) to a 32 x 32 tile; with datt also dP = dO V^T and
+//     ds = P (dP - rowsum(dP P)), bf16(ds * scale) to a second tile;
+//   phase 2, one 8-column slice c of the head at a time: warp 0 of the pair
+//     att[:, c] = bf16(P) V[:, c] and dv[:, c] = bf16(P)^T dO[:, c], warp 1
+//     dq[:, c] = dS K[:, c] and dk[:, c] = dS^T Q[:, c] (the transposed
+//     operands by ldmatrix.trans).  Each result overwrites the slice it was
+//     computed from (att over dO, dv over V, dq over Q, dk over K), which
+//     nothing reads after phase 1 but that warp, so the staged rows become
+//     the outputs in place; without datt both warps compute att, alternate
+//     slices each, into the unused datt rows;
+//
+// then bulk stores write the rows back: att, and dqkv in qkv's layout.
+// These are the TPU kernel's rounding points: f32 scores and softmax,
+// att = bf16(bf16(P) V), dv = bf16(P)^T dO, dp = dO V^T, ds in f32,
+// dq = bf16(ds scale) K, dk = bf16(ds scale)^T Q, each output rounded to
+// bf16 once.  Masked keys have P = 0 exactly, so their dk and dv are 0;
+// padded query rows are computed as the real ones, and their zero-filled
+// fragment rows add nothing to dk and dv.  Every sum stays inside one
+// (pair, head): no atomics, two runs give the same bits.
+//
+// Bound: bytes.  At 12,288 pairs x 19 tokens x 576 it reads qkv (807 MB)
+// and datt (269 MB) and writes att (269 MB) and dqkv (807 MB), 2.15 GB,
+// 0.64 ms at 3.35 TB/s, for 0.03 TFLOP.  At t_pad 19 a block takes 110 KB
+// of shared memory, so two blocks share an SM: one computes while the
+// other's copies are in flight.
 // ----------------------------------------------------------------------------
-constexpr int ATT_THREADS = 128;
+constexpr int ATT_TMAX = 32;   // most tokens a pair: two m16 tiles
+constexpr int ATT_SLOTS = 6;   // warp pairs a block, one head each
+constexpr int ATT_THREADS = 64 * ATT_SLOTS;
+constexpr int ATT_TILE = ATT_TMAX * ATT_TMAX * 2;  // a 32 x 32 bf16 tile
+constexpr int ATT_HEAD = 128;  // the zero block and the mbarrier
+constexpr int ATT_SMEM_MAX = 232448;  // 227 KB: the most a block may take
 
-__global__ void __launch_bounds__(ATT_THREADS)
-    pair_attention_bwd_kernel(const bf16* __restrict__ qkv,
-                              const bf16* __restrict__ datt,
-                              bf16* __restrict__ att, bf16* __restrict__ dqkv,
-                              int t_pad, int t_valid, int d, int dh, float scale) {
-  extern __shared__ float sm[];
-  const int pair = blockIdx.x, h = blockIdx.y;
-  const int ld = dh + 1;  // skew: rows of dh floats would share banks
-  const int lds = t_pad + 1;
-  float* q = sm;
-  float* k = q + t_pad * ld;
-  float* v = k + t_pad * ld;
-  float* go = v + t_pad * ld;   // d att of this head
-  float* p = go + t_pad * ld;   // t_pad x lds probabilities (f32)
-  float* ds = p + t_pad * lds;  // t_pad x lds dp, then bf16(ds * scale)
-  const size_t row0 = (size_t)pair * t_pad;
+// bytes of a staged row of `cols` bf16: an odd number of 16-byte units
+static __host__ __device__ inline int att_row_bytes(int cols) {
+  return ((cols * 2 / 16) | 1) * 16;
+}
+static __host__ __device__ inline int att_smem_bytes(int t_pad, int d) {
+  return ATT_HEAD + 2 * ATT_SLOTS * ATT_TILE +
+         t_pad * (att_row_bytes(3 * d) + att_row_bytes(d));
+}
 
-  for (int e = threadIdx.x; e < t_pad * dh; e += ATT_THREADS) {
-    const int t = e / dh, c = e % dh;
-    const bf16* r = qkv + (row0 + t) * (size_t)(3 * d) + h * dh + c;
-    q[t * ld + c] = __bfloat162float(r[0]);
-    k[t * ld + c] = __bfloat162float(r[d]);
-    v[t * ld + c] = __bfloat162float(r[2 * d]);
-    if (datt) go[t * ld + c] = __bfloat162float(datt[(row0 + t) * (size_t)d + h * dh + c]);
-  }
-  __syncthreads();
-  for (int e = threadIdx.x; e < t_pad * t_valid; e += ATT_THREADS) {
-    const int i = e / t_valid, j = e % t_valid;
-    float acc = 0.f;
-    for (int c = 0; c < dh; ++c) acc += q[i * ld + c] * k[j * ld + c];
-    p[i * lds + j] = acc * scale;
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < t_pad; i += ATT_THREADS) {
-    float m = p[i * lds];  // t_valid >= 1
-    for (int j = 1; j < t_valid; ++j) m = fmaxf(m, p[i * lds + j]);
-    float sum = 0.f;
-    for (int j = 0; j < t_valid; ++j) {
-      const float e = expf(p[i * lds + j] - m);
-      p[i * lds + j] = e;
-      sum += e;
+// (row, 16-byte chunk) of a 32 x 32 bf16 tile: rows of 64 B, the chunks
+// XOR-swizzled by row pairs so that ldmatrix's eight rows hit eight bank
+// groups, whether it reads rows or columns of the tile
+__device__ __forceinline__ uint32_t tile_off(int row, int chunk) {
+  return row * 64 + ((chunk ^ ((row >> 1) & 3)) << 4);
+}
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t* r) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t addr, uint32_t* r) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+// d += a b: m16n8k16, bf16 operands, f32 accumulators
+__device__ __forceinline__ void mma16816(float* d, const uint32_t* a, uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ void st_bf16x2(uint32_t addr, float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr),
+               "r"(*reinterpret_cast<uint32_t*>(&v))
+               : "memory");
+}
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_store(void* dst, uint32_t src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst),
+               "r"(src), "r"(bytes)
+               : "memory");
+}
+// the two warps of head slot `slot` (named barriers 1-6; 0 is __syncthreads)
+__device__ __forceinline__ void pair_sync(int slot) {
+  asm volatile("bar.sync %0, 64;\n" ::"r"(1 + slot) : "memory");
+}
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// acc[j] (columns 8j..8j+7 of a 16 x 32 tile) = A B^T over the head's dh
+// columns: A rows r0..r0+15 and B rows 0..31 of staged rows (start address
+// of the head's first column, row stride); fragment rows past t_pad and
+// columns past dh come from the zero block.
+__device__ __forceinline__ void rows_times_rows(float (*acc)[4], uint32_t a,
+                                                int as, uint32_t b, int bs,
+                                                int r0, int t_pad, int dh,
+                                                uint32_t zero, int lane) {
+  const int li = lane >> 3, lr = lane & 7;  // ldmatrix: matrix li, its row lr
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  for (int k0 = 0; k0 < dh; k0 += 16) {
+    uint32_t fa[4];
+    const int ar = r0 + lr + 8 * (li & 1), ac = k0 + 8 * (li >> 1);
+    ldsm_x4(ar < t_pad && ac < dh ? a + ar * as + 2 * ac : zero, fa);
+#pragma unroll
+    for (int j = 0; j < 4; j += 2) {
+      uint32_t fb[4];
+      const int br = 8 * j + lr + 8 * (li >> 1), bc = k0 + 8 * (li & 1);
+      ldsm_x4(br < t_pad && bc < dh ? b + br * bs + 2 * bc : zero, fb);
+      mma16816(acc[j], fa, fb[0], fb[1]);
+      mma16816(acc[j + 1], fa, fb[2], fb[3]);
     }
-    for (int j = 0; j < t_valid; ++j) p[i * lds + j] = p[i * lds + j] / sum;
+  }
+}
+
+__global__ void __launch_bounds__(ATT_THREADS, 2)
+    attention_bwd_mma_kernel(const bf16* __restrict__ qkv,
+                             const bf16* __restrict__ datt,
+                             bf16* __restrict__ att, bf16* __restrict__ dqkv,
+                             int t_pad, int t_valid, int d, int heads,
+                             float scale) {
+  extern __shared__ __align__(128) unsigned char att_smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int slot = warp >> 1, half = warp & 1;
+  const int g = lane >> 2, t4 = lane & 3;   // C fragment: rows g, g + 8; columns 2 t4, + 1
+  const int li = lane >> 3, lr = lane & 7;  // ldmatrix: matrix li, its row lr
+  const int dh = d / heads;
+  const int lq = att_row_bytes(3 * d), ld = att_row_bytes(d);
+  const bool bwd = datt != nullptr;
+  const uint32_t base = smem_u32(att_smem);
+  const uint32_t zero = base, bar = base + 16;
+  const uint32_t tp = base + ATT_HEAD + slot * 2 * ATT_TILE;  // bf16(P)
+  const uint32_t ts = tp + ATT_TILE;                          // bf16(ds scale)
+  const uint32_t sq = base + ATT_HEAD + 2 * ATT_SLOTS * ATT_TILE;  // qkv rows
+  const uint32_t sd = sq + t_pad * lq;  // datt rows, then att
+  const size_t row0 = (size_t)blockIdx.x * t_pad;
+
+  if (threadIdx.x < 4) reinterpret_cast<uint32_t*>(att_smem)[threadIdx.x] = 0u;
+  if (threadIdx.x == 0) {
+    mbar_init(bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  // att = bf16(p) v, rounded; dp = g v^T
-  for (int e = threadIdx.x; e < t_pad * dh; e += ATT_THREADS) {
-    const int i = e / dh, c = e % dh;
-    float acc = 0.f;
-    for (int j = 0; j < t_valid; ++j) acc += round_bf16(p[i * lds + j]) * v[j * ld + c];
-    att[(row0 + i) * (size_t)d + h * dh + c] = __float2bfloat16(acc);
+  if (warp == 0) {
+    if (lane == 0) mbar_expect_tx(bar, (uint32_t)(t_pad * (bwd ? 4 : 3) * d * 2));
+    __syncwarp();
+    for (int r = lane; r < t_pad; r += 32) {
+      bulk_load(sq + r * lq, qkv + (row0 + r) * 3 * d, 6 * d, bar);
+      if (bwd) bulk_load(sd + r * ld, datt + (row0 + r) * d, 2 * d, bar);
+    }
   }
-  if (!datt) return;  // the same for every thread of the block
-  for (int e = threadIdx.x; e < t_pad * t_valid; e += ATT_THREADS) {
-    const int i = e / t_valid, j = e % t_valid;
-    float acc = 0.f;
-    for (int c = 0; c < dh; ++c) acc += go[i * ld + c] * v[j * ld + c];
-    ds[i * lds + j] = acc;
-  }
-  __syncthreads();
-  // ds = p (dp - sum_j dp p), rounded to bf16 after the scale
-  for (int i = threadIdx.x; i < t_pad; i += ATT_THREADS) {
-    float rd = 0.f;
-    for (int j = 0; j < t_valid; ++j) rd += ds[i * lds + j] * p[i * lds + j];
-    for (int j = 0; j < t_valid; ++j)
-      ds[i * lds + j] = round_bf16(p[i * lds + j] * (ds[i * lds + j] - rd) * scale);
-  }
-  __syncthreads();
-  bf16* out = dqkv + h * dh;
-  for (int e = threadIdx.x; e < t_pad * dh; e += ATT_THREADS) {
-    const int i = e / dh, c = e % dh;
-    float dq = 0.f;
-    for (int j = 0; j < t_valid; ++j) dq += ds[i * lds + j] * k[j * ld + c];
-    float dk = 0.f, dv = 0.f;
-    if (i < t_valid) {  // masked keys get no gradient
-      for (int r = 0; r < t_pad; ++r) {
-        dk += ds[r * lds + i] * q[r * ld + c];
-        dv += round_bf16(p[r * lds + i]) * go[r * ld + c];
+  mbar_wait(bar, 0);
+
+  for (int h = slot; h < heads; h += ATT_SLOTS) {
+    const int cq = 2 * h * dh;  // byte column of the head in a qkv or datt row
+    const uint32_t q = sq + cq, k = q + 2 * d, v = q + 4 * d, go = sd + cq;
+    const int r0 = 16 * half;
+    // ---- phase 1: this warp's 16 query rows
+    float s[4][4];
+    rows_times_rows(s, q, lq, k, lq, r0, t_pad, dh, zero, lane);
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {  // rows r0 + g + 8 e
+      float m = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          float& x = s[j][2 * e + c];
+          x = 8 * j + 2 * t4 + c < t_valid ? x * scale : -INFINITY;
+          m = fmaxf(m, x);
+        }
+      m = quad_max(m);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          float& x = s[j][2 * e + c];
+          x = expf(x - m);
+          sum += x;
+        }
+      sum = quad_sum(sum);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[j][2 * e] /= sum;
+        s[j][2 * e + 1] /= sum;
+        st_bf16x2(tp + tile_off(r0 + g + 8 * e, j) + 4 * t4, s[j][2 * e],
+                  s[j][2 * e + 1]);
       }
     }
-    bf16* row = out + (row0 + i) * (size_t)(3 * d) + c;
-    row[0] = __float2bfloat16(dq);
-    row[d] = __float2bfloat16(dk);
-    row[2 * d] = __float2bfloat16(dv);
+    if (bwd) {
+      float dp[4][4];
+      rows_times_rows(dp, go, ld, v, lq, r0, t_pad, dh, zero, lane);
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float rd = 0.f;
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          rd += dp[j][2 * e] * s[j][2 * e] + dp[j][2 * e + 1] * s[j][2 * e + 1];
+        rd = quad_sum(rd);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          st_bf16x2(ts + tile_off(r0 + g + 8 * e, j) + 4 * t4,
+                    s[j][2 * e] * (dp[j][2 * e] - rd) * scale,
+                    s[j][2 * e + 1] * (dp[j][2 * e + 1] - rd) * scale);
+      }
+    }
+    pair_sync(slot);
+    // ---- phase 2: x = A B[:, c] into X's slice c, y = A^T C[:, c] into Y's
+    // (A, B -> X; A^T, C -> Y): warp 0 (P, V -> dO; P^T, dO -> V), warp 1
+    // (dS, K -> Q; dS^T, Q -> K); without datt (P, V -> att rows) alone
+    const uint32_t ta = (bwd && half) ? ts : tp;
+    const uint32_t b = (bwd && half) ? k : v, xo = (bwd && half) ? q : go;
+    const uint32_t cc = half ? q : go, yo = half ? k : v;  // yo: qkv rows
+    const int xs = (bwd && half) ? lq : ld, cs = half ? lq : ld;
+    uint32_t fa[2][2][4], ft[2][2][4];  // [m tile][k step]: A, and A^T
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks) {
+        ldsm_x4(ta + tile_off(16 * mt + lr + 8 * (li & 1), 2 * ks + (li >> 1)),
+                fa[mt][ks]);
+        if (bwd)
+          ldsm_x4_t(ta + tile_off(16 * ks + lr + 8 * (li >> 1), 2 * mt + (li & 1)),
+                    ft[mt][ks]);
+      }
+    const int row = 8 * li + lr;  // the trans loads: rows 0..31 of a slice
+    for (int c = bwd ? 0 : half; c < dh / 8; c += bwd ? 1 : 2) {
+      uint32_t fb[4], fc[4];
+      float x[2][4] = {}, y[2][4] = {};
+      ldsm_x4_t(row < t_pad ? b + row * lq + 16 * c : zero, fb);
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        mma16816(x[mt], fa[mt][0], fb[0], fb[1]);
+        mma16816(x[mt], fa[mt][1], fb[2], fb[3]);
+      }
+      if (bwd) {
+        ldsm_x4_t(row < t_pad ? cc + row * cs + 16 * c : zero, fc);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          mma16816(y[mt], ft[mt][0], fc[0], fc[1]);
+          mma16816(y[mt], ft[mt][1], fc[2], fc[3]);
+        }
+      }
+      __syncwarp();  // the slice is read before this warp overwrites it
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int r = 16 * mt + g + 8 * e;
+          if (r >= t_pad) continue;
+          st_bf16x2(xo + r * xs + 16 * c + 4 * t4, x[mt][2 * e], x[mt][2 * e + 1]);
+          if (bwd)
+            st_bf16x2(yo + r * lq + 16 * c + 4 * t4, y[mt][2 * e], y[mt][2 * e + 1]);
+        }
+    }
+    if (h + ATT_SLOTS < heads) pair_sync(slot);  // before the tiles are reused
+  }
+
+  // the staged rows are the outputs: write them back
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+  if (warp == 0) {
+    for (int r = lane; r < t_pad; r += 32) {
+      bulk_store(att + (row0 + r) * d, sd + r * ld, 2 * d);
+      if (bwd) bulk_store(dqkv + (row0 + r) * 3 * d, sq + r * lq, 6 * d);
+    }
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
   }
 }
 
@@ -365,36 +600,69 @@ static int launch_layernorm(const bf16* x, const float* scale, const float* bias
   return (int)cudaGetLastError();
 }
 
-template <int NQ, typename RES>
+// The LN backward for d = 64 NP: the instance with NP column pairs a lane.
+template <int NQ, typename RES, int NP = 1>
 static int launch_ln_backward(const bf16* x, const float* dh, const RES* resid,
                               const float* scale, float* out_f32, bf16* out_bf16,
                               float* part, int rows, int d, cudaStream_t s) {
-  const int smem = LNB_WARPS * NQ * d * (int)sizeof(float);
-  auto kern = ln_backward_kernel<NQ, RES>;
-  if (smem > 48 * 1024)
-    cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  kern<<<(rows + LNB_ROWS - 1) / LNB_ROWS, LNB_WARPS * 32, smem, s>>>(
-      x, dh, resid, scale, out_f32, out_bf16, part, rows, d, 1e-6f);
-  return (int)cudaGetLastError();
+  if constexpr (64 * NP > LNB_MAX_D) {
+    return (int)cudaErrorInvalidValue;  // d not a multiple of 64, or too wide
+  } else {
+    if (d != 64 * NP)
+      return launch_ln_backward<NQ, RES, NP + 1>(x, dh, resid, scale, out_f32,
+                                                 out_bf16, part, rows, d, s);
+    const int smem = LNB_WARPS * NQ * d * (int)sizeof(float);
+    auto kern = ln_backward_kernel<NQ, RES, NP>;
+    if (smem > 48 * 1024)
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    kern<<<(rows + LNB_ROWS - 1) / LNB_ROWS, LNB_WARPS * 32, smem, s>>>(
+        x, dh, resid, scale, out_f32, out_bf16, part, rows, 1e-6f);
+    return (int)cudaGetLastError();
+  }
 }
 
-// Shared memory of the attention backward kernel for (t_pad, dh), in bytes.
-extern "C" int encoder_attention_bwd_smem_bytes(int t_pad, int dh) {
-  return (4 * t_pad * (dh + 1) + 2 * t_pad * (t_pad + 1)) * (int)sizeof(float);
+// Shared memory of the attention backward kernel for (t_pad, d), in bytes
+// (fused_encoder.attention_bwd_smem_bytes mirrors it).
+extern "C" int encoder_attention_bwd_smem_bytes(int t_pad, int d) {
+  return att_smem_bytes(t_pad, d);
 }
 
-// One block per (pair, head); datt null: the forward only (att).
+// One block per pair; datt null: the forward only (att).  Takes t_pad up to
+// ATT_TMAX and head dims that are multiples of 8 (the wrappers refuse the
+// rest before they get here).
 static int launch_attention(const bf16* qkv, const bf16* datt, bf16* att,
                             bf16* dqkv, int pairs, int heads, int t_pad,
                             int t_valid, int d, float scale, cudaStream_t s) {
-  const int dh = d / heads;
-  const int smem = encoder_attention_bwd_smem_bytes(t_pad, dh);
-  if (smem > 48 * 1024)
-    cudaFuncSetAttribute(pair_attention_bwd_kernel,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  pair_attention_bwd_kernel<<<dim3(pairs, heads), ATT_THREADS, smem, s>>>(
-      qkv, datt, att, dqkv, t_pad, t_valid, d, dh, scale);
+  const int smem = att_smem_bytes(t_pad, d);
+  if (t_pad > ATT_TMAX || t_valid < 1 || t_valid > t_pad || d % heads ||
+      (d / heads) % 8 || smem > ATT_SMEM_MAX)
+    return (int)cudaErrorInvalidValue;
+  int err;
+  if ((err = (int)cudaFuncSetAttribute(attention_bwd_mma_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       smem)))
+    return err;
+  // all of the SM's shared memory for blocks: two of 110 KB at t_pad 19
+  if ((err = (int)cudaFuncSetAttribute(attention_bwd_mma_kernel,
+                                       cudaFuncAttributePreferredSharedMemoryCarveout,
+                                       (int)cudaSharedmemCarveoutMaxShared)))
+    return err;
+  attention_bwd_mma_kernel<<<pairs, ATT_THREADS, smem, s>>>(
+      qkv, datt, att, dqkv, t_pad, t_valid, d, heads, scale);
   return (int)cudaGetLastError();
+}
+
+// The attention backward alone, as B2b and B5 launch it: qkv (pairs t_pad,
+// 3d) and datt (pairs t_pad, d) bf16 in, att (pairs t_pad, d) and dqkv
+// (pairs t_pad, 3d) bf16 out; datt null: the forward only (att; dqkv is
+// not written).
+extern "C" int encoder_attention_backward(const void* qkv, const void* datt,
+                                          void* att, void* dqkv, int pairs,
+                                          int heads, int t_pad, int t_valid,
+                                          int d, float scale, void* stream) {
+  return launch_attention((const bf16*)qkv, (const bf16*)datt, (bf16*)att,
+                          (bf16*)dqkv, pairs, heads, t_pad, t_valid, d, scale,
+                          (cudaStream_t)stream);
 }
 
 // workspace carving: 256-byte aligned sub-buffers

@@ -38,11 +38,14 @@ tokens, D = 576) a forward layer is 1.67 TFLOP of bf16 products, ~1.7 ms
 at 989 TFLOP/s, against ~0.2 ms for its 0.7 GB of activations; at the
 train shapes (12,288 pairs) the backward is 2.8 TFLOP a layer.  Each
 kernel is a fixed sequence of hand-written launches (LN, GEMMs with fused
-epilogues, per-(pair, head) attention); it needs no token padding (19
-tokens, where the TPU padded to 20) but honours ``t_pad > t_valid``
-(masked keys).  Every GEMM runs on one core, ``csrc/gemm_sm90.cuh``
+epilogues, attention: per (pair, head) in the forward, per pair on the
+tensor cores in the backward); it needs no token padding (19 tokens, where
+the TPU padded to 20) but honours ``t_pad > t_valid`` (masked keys); the
+backward takes ``t_pad`` up to ``ATT_TMAX`` and head dims that are
+multiples of 8.  Every GEMM runs on one core, ``csrc/gemm_sm90.cuh``
 (wgmma fed by TMA through an mbarrier ring); :func:`gemm_product` calls it
-alone, for holding it against a plain product on the card.
+alone, and :func:`_launch_attention_bwd` the backward's attention alone,
+for holding them against their plain versions on the card.
 """
 
 from __future__ import annotations
@@ -72,6 +75,13 @@ MONO_BWD_LAUNCHES = 0
 # the most rows its grid takes (65,535 row tiles)
 GEMM_BM, GEMM_BN, GEMM_BK = 128, 192, 64
 MAX_ROWS = 65535 * GEMM_BM
+# The attention backward (csrc/encoder_layer_bwd.cu: ATT_TMAX, ATT_SMEM_MAX):
+# tokens padded to two 16-row tiles, a pair's rows staged in one block's
+# shared memory; and the widest row the LayerNorm backward keeps in a
+# warp's registers (LNB_MAX_D)
+ATT_TMAX = 32
+ATT_SMEM_MAX = 232448
+LN_BWD_MAX_D = 768
 
 
 class EncoderLayerParams(NamedTuple):
@@ -371,6 +381,36 @@ def splitk_count(m: int, n: int, k: int, sms: int) -> int:
     return max(1, min(4 * sms // tiles, most))
 
 
+def attention_bwd_smem_bytes(t_pad: int, d: int) -> int:
+    """Shared memory of the attention backward kernel for ``t_pad`` tokens of
+    width ``d``: ``att_smem_bytes`` of ``csrc/encoder_layer_bwd.cu`` (the
+    zero block and mbarrier, six pairs of 32 x 32 bf16 tiles, and the pair's
+    qkv and datt rows, each padded to an odd number of 16-byte units)."""
+    def row(cols):
+        return ((cols * 2 // 16) | 1) * 16
+    return 128 + 2 * 6 * 32 * 32 * 2 + t_pad * (row(3 * d) + row(d))
+
+
+def _check_attention(d, heads, t_pad):
+    """Refuse what the attention backward kernel does not take, before any
+    library is loaded."""
+    dh = d // heads
+    if t_pad > ATT_TMAX:
+        raise ValueError(f"t_pad={t_pad}: the attention backward kernel takes "
+                         f"at most {ATT_TMAX} tokens a pair")
+    if dh % 8:
+        raise ValueError(f"head dim {dh}: the attention backward kernel takes "
+                         "multiples of 8")
+    if attention_bwd_smem_bytes(t_pad, d) > ATT_SMEM_MAX:
+        raise ValueError(f"t_pad={t_pad}, D={d}: a pair's rows exceed "
+                         f"{ATT_SMEM_MAX} bytes of shared memory")
+
+
+def _check_ln_bwd(d):
+    if d > LN_BWD_MAX_D:
+        raise ValueError(f"D={d}: the LayerNorm backward takes D <= {LN_BWD_MAX_D}")
+
+
 def _aligned(t: torch.Tensor) -> bool:
     """Contiguous with a 16-byte aligned start, as TMA reads it."""
     return t.is_contiguous() and t.data_ptr() % 16 == 0
@@ -464,6 +504,7 @@ def _launch_ffn_bwd(x1, dy, params):
     """B2a → dx1 (f32), dx1 in bf16, dW1, dW2 (bf16), vec (4, D), d b1."""
     global FFN_BWD_LAUNCHES
     rows, d, f = _check(x1, params, 1, 1)
+    _check_ln_bwd(d)
     _need_rows("dy", dy, torch.bfloat16, rows, d)
     dev = x1.device
     lib = _bwd_lib()
@@ -494,15 +535,14 @@ def _launch_att_bwd(x, qkv, dx1, dx1b, params, heads, t_pad, t_valid):
     """B2b → dx (bf16), dWqkv, dWout (bf16), vec (2, D)."""
     global ATT_BWD_LAUNCHES
     rows, d, _ = _check(x, params, heads, t_pad)
+    _check_attention(d, heads, t_pad)
+    _check_ln_bwd(d)
     _need_rows("qkv", qkv, torch.bfloat16, rows, 3 * d)
     _need_rows("dx1", dx1, torch.float32, rows, d)
     _need_rows("dx1b", dx1b, torch.bfloat16, rows, d)
     dev = x.device
     lib = _bwd_lib()
     dh = d // heads
-    if lib.encoder_attention_bwd_smem_bytes(t_pad, dh) > 200 * 1024:
-        raise ValueError(f"t_pad={t_pad}, head dim {dh}: attention backward "
-                         "tile exceeds 200 KB of shared memory")
     dx = torch.empty_like(x)
     dwqkv = torch.empty((d, 3 * d), dtype=torch.bfloat16, device=dev)
     dwout = torch.empty((d, d), dtype=torch.bfloat16, device=dev)
@@ -531,6 +571,8 @@ def _launch_mono_bwd(x, qkv, x1, dy, params, heads, t_pad, t_valid):
     (bf16); ``qkv`` and ``x1`` None: recomputed inside (no stash)."""
     global MONO_BWD_LAUNCHES
     rows, d, f = _check(x, params, heads, t_pad)
+    _check_attention(d, heads, t_pad)
+    _check_ln_bwd(d)
     stash = qkv is not None
     given = {"dy": (dy, d), **({"qkv": (qkv, 3 * d), "x1": (x1, d)} if stash else {})}
     for name, (t, cols) in given.items():
@@ -538,9 +580,6 @@ def _launch_mono_bwd(x, qkv, x1, dy, params, heads, t_pad, t_valid):
     dev = x.device
     lib = _bwd_lib()
     dh = d // heads
-    if lib.encoder_attention_bwd_smem_bytes(t_pad, dh) > 200 * 1024:
-        raise ValueError(f"t_pad={t_pad}, head dim {dh}: attention backward "
-                         "tile exceeds 200 KB of shared memory")
     dx, h2 = torch.empty_like(x), torch.empty_like(x)
     df1, g = _rows_like(x, x.dtype, f), _rows_like(x, x.dtype, f)
     vec = torch.empty((6, d), dtype=torch.float32, device=dev)
@@ -566,6 +605,42 @@ def _launch_mono_bwd(x, qkv, x1, dy, params, heads, t_pad, t_valid):
     cuda_lib.check(lib, status, "encoder_mono_backward")
     MONO_BWD_LAUNCHES += 1
     return dx, h2, df1, g, vec, db1, dwqkv, dwout
+
+
+def _launch_attention_bwd(qkv, datt, heads, t_pad, t_valid):
+    """The attention backward kernel alone, as B2b and B5 run it inside
+    their launches → (att, dqkv) bf16, the card's counterpart of
+    :func:`_attention_bwd`; ``datt`` None: the forward only → (att, None),
+    of :func:`_attention`.  Only for holding the kernel against those and
+    timing it (``chip_smoke.py``); not counted, since the main path never
+    calls it."""
+    rows, d3 = qkv.shape
+    d = d3 // 3
+    if d3 % 3 or d % heads or rows % t_pad or not 1 <= t_valid <= t_pad:
+        raise ValueError("qkv must be (pairs * t_pad, 3D) with 1 <= t_valid "
+                         "<= t_pad and heads dividing D")
+    _check_attention(d, heads, t_pad)
+    _need_rows("qkv", qkv, torch.bfloat16, rows, 3 * d)
+    if datt is not None:
+        _need_rows("datt", datt, torch.bfloat16, rows, d)
+    if not qkv.is_cuda or (datt is not None and datt.device != qkv.device):
+        raise TypeError("the attention backward kernel takes CUDA tensors on "
+                        "one device")
+    lib = _bwd_lib()
+    att = _rows_like(qkv, torch.bfloat16, d)
+    dqkv = None if datt is None else torch.empty_like(qkv)
+    if rows == 0:
+        return att, dqkv
+    fn = lib.encoder_attention_backward
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                   + [ctypes.c_float, ctypes.c_void_p])
+    status = fn(qkv.data_ptr(), None if datt is None else datt.data_ptr(),
+                att.data_ptr(), None if dqkv is None else dqkv.data_ptr(),
+                rows // t_pad, heads, t_pad, t_valid, d, float((d // heads) ** -0.5),
+                cuda_lib.stream_ptr(qkv.device))
+    cuda_lib.check(lib, status, "encoder_attention_backward")
+    return att, dqkv
 
 
 def gemm_product(a: torch.Tensor, b: torch.Tensor, mode: int) -> torch.Tensor:
