@@ -16,9 +16,11 @@ catches its own failure:
    used with, and at 12,216 rows; its ms and TFLOP/s beside
    ``torch.matmul`` in bf16; the Python mirror of the split count against
    the C code's.
-3. ROIAlign kernel vs its plain version at the PredCls eval shapes: P2-P5
-   of 8 x 800x1344 images and the 1/16 depth map, 80 rois per image with
-   edge cases, bf16 maps (and f32 maps once).
+3. ROIAlign kernel (B3) vs its plain version at the PredCls eval shapes:
+   P2-P5 of 8 x 800x1344 images and the 1/16 depth map, 80 rois per image
+   with edge cases, bf16 maps, P = 8; P2-P5 at P = 7 (the SGCls box head);
+   f32 maps once.  Its device time by ``torch.profiler`` and GB/s against
+   its bound (bytes).
 4. Encoder-layer kernel vs its plain version at 16,384 pairs x 19 tokens x
    576, and once with padded tokens (t_pad 24 > t_valid 19) and a row count
    that leaves a partial GEMM tile.
@@ -38,8 +40,11 @@ catches its own failure:
    with t_pad 24 > t_valid 19 and a partial GEMM tile); two kernel runs
    must give bit-equal gradients; each pass's kernels timed by
    ``torch.profiler`` (the LN backwards against their bounds).
-7. ROIAlign backward kernel vs autograd of the plain pooling on the 1/16
-   depth map of 12 x 800x1344 images, 80 rois each.
+7. ROIAlign backward kernel (B3-bwd) vs autograd of the plain pooling on
+   the 1/16 depth map of 12 x 800x1344 images, 80 rois each, and on every
+   level of P2-P5 of 2 images at P = 7 with 512 rois each; two kernel runs
+   bit-equal in both; the C tile plan against its Python mirror; device
+   time and GB/s against the bound.
 8. Pair-attention kernels B4a and B4b vs their plain versions, q/k/v the
    strided thirds of a packed qkv, at 16,384 and 12,288 pairs x 19 x 576
    and at 509 pairs with t_pad 24 > t_valid 19; SDPA with the key mask as
@@ -53,7 +58,8 @@ catches its own failure:
     (B1, B2a, B2b 6 each, B3 2, B3-bwd 1, B4a, B4b, B5 0), finite losses,
     every trainable tensor changed and the frozen detector bit-unchanged;
     then one step's gradients through the kernels against the same step
-    through the plain versions.
+    through the plain versions, and the floor of that check: what two
+    kernel runs of the step differ by (0, or the tensors that vary).
 11. The ``veto.encoder_impl=pair_attn`` path: 2 eval batches (B4a 6, B3 2
     per batch), 3 train steps (B4a 6, B4b 6, B3 2, B3-bwd 1 per step) and
     one step's gradients against the plain versions.
@@ -105,6 +111,33 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, kernel: str, calls: int) -> float:
+    """Device milliseconds per launch of the kernels whose name holds
+    ``kernel``, by ``torch.profiler`` over ``calls`` calls of ``fn`` (a
+    wrapper's time by CUDA events also counts the host's work between its
+    launches, when the card waits for it).  Divided by the launches the
+    trace holds, not by ``calls``: a trace that misses launches would
+    otherwise read short."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us, n = 0.0, 0
+    for e in prof.key_averages():
+        if (kernel in e.key and e.device_type == torch.autograd.DeviceType.CUDA
+                and (getattr(e, "self_device_time_total", 0) or 0) > 0):
+            us += e.self_device_time_total
+            n += e.count
+    if n == 0:
+        raise AssertionError(f"the trace holds no launch of {kernel}")
+    if n != calls:
+        print(f"  ({kernel}: the trace holds {n} launches of {calls})")
+    return us / n / 1e3
+
+
 def card() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -122,8 +155,9 @@ def check_close(name, got, ref, atol, rtol, mean_tol=None) -> float:
     err = (got - ref).abs()
     bad = err > atol + rtol * ref.abs()
     max_err, mean_err = float(err.max()), float(err.mean())
+    atol_s = atol if isinstance(atol, float) else "per element"
     print(f"  {name}: max |err| {max_err:.3e}, mean |err| {mean_err:.3e} "
-          f"(atol {atol}, rtol {rtol}, mean tol {mean_tol})")
+          f"(atol {atol_s}, rtol {rtol}, mean tol {mean_tol})")
     if bad.any() or (mean_tol is not None and mean_err > mean_tol):
         raise AssertionError(f"{name}: {int(bad.sum())} elements outside "
                              f"tolerance, max err {max_err}, mean {mean_err}")
@@ -271,6 +305,14 @@ def eval_rois(gen, b=8, r=80, h=800, w=1344):
     return rois
 
 
+def corpus_rois(b):
+    """The train split's first ``b`` images' boxes as the main path pools
+    them: 4 to 80 an image, padded with zero boxes to 80."""
+    from veto_tpu_torch.tools.profile_roi_align import corpus_rois as boxes
+
+    return boxes(torch, b, True, os.path.join(ROOT, "configs", "veto_vg_predcls.yaml"))
+
+
 def roi_tap_bytes(feats, rois, levels, scales, p=8, s=2) -> int:
     """Bytes of the distinct map pixels that the rois' in-range bilinear
     samples read: what this run's data needs from the maps."""
@@ -312,16 +354,20 @@ def phase_roi_align(gen, b=8, h=800, w=1344, c=256):
     rois = eval_rois(gen, b, 80, h, w)
     calls = [(feats, SCALES), ([depth], (0.0625,))]
     errs = []
-    for (fs, sc), what in zip(calls, ("P2-P5 bf16", "depth 1/16 bf16")):
-        got = rw.multilevel_roi_align_batched(fs, rois, sc, p, 2)
-        ref = rw.reference_multilevel_roi_align_batched(fs, rois, sc, p, 2)
-        # both take f32 weights and f32 sums of the same bf16 taps; only
-        # the order of the 16 products differs
+    # both take f32 weights and f32 sums of the same taps; only the order of
+    # the 16 products differs
+    for (fs, sc, p_), what in zip(((feats, SCALES, p), ([depth], (0.0625,), p),
+                                   (feats, SCALES, 7)),
+                                  ("P2-P5 bf16", "depth 1/16 bf16",
+                                   "P2-P5 bf16, P = 7 (SGCls box head)")):
+        got = rw.multilevel_roi_align_batched(fs, rois, sc, p_, 2)
+        ref = rw.reference_multilevel_roi_align_batched(fs, rois, sc, p_, 2)
         errs.append(check_close(what, got, ref, atol=1e-5, rtol=1e-5))
     f32 = [f[:2].float() for f in feats]
     got = rw.multilevel_roi_align_batched(f32, rois[:2], SCALES, p, 2)
     ref = rw.reference_multilevel_roi_align_batched(f32, rois[:2], SCALES, p, 2)
     errs.append(check_close("P2-P5 f32", got, ref, atol=1e-5, rtol=1e-5))
+    del got, ref, f32
 
     def kernel():
         for fs, sc in calls:
@@ -331,9 +377,10 @@ def phase_roi_align(gen, b=8, h=800, w=1344, c=256):
         for fs, sc in calls:
             rw.reference_multilevel_roi_align_batched(fs, rois, sc, p, 2)
 
-    per_call = [cuda_ms(lambda fs=fs, sc=sc: rw.multilevel_roi_align_batched(
-        fs, rois, sc, p, 2), 50) for fs, sc in calls]
-    ms, plain_ms = cuda_ms(kernel, 50), cuda_ms(plain, 3)
+    per_call = [device_ms(lambda fs=fs, sc=sc: rw.multilevel_roi_align_batched(
+        fs, rois, sc, p, 2), "roi_align_fwd_kernel", 20) for fs, sc in calls]
+    ms = sum(per_call)
+    wrapper_ms, plain_ms = cuda_ms(kernel, 50), cuda_ms(plain, 3)
     out_bytes = 2 * b * rois.shape[1] * p * p * c * 4
     in_bytes = (roi_tap_bytes(feats, rois, rw.fpn_level_assignment(rois), SCALES)
                 + roi_tap_bytes([depth], rois, torch.zeros_like(rois[..., 0]), (0.0625,))
@@ -341,8 +388,11 @@ def phase_roi_align(gen, b=8, h=800, w=1344, c=256):
     flops = 2 * b * rois.shape[1] * p * p * c * 16 * 2  # 16 FMAs per output
     t_bytes = (in_bytes + out_bytes) / PEAK_BYTES * 1e3
     t_ops = flops / PEAK_F32 * 1e3
-    print(f"  per batch (P2-P5 + depth): kernel {ms:.4f} ms "
-          f"({per_call[0]:.4f} + {per_call[1]:.4f}), plain {plain_ms:.3f} ms; "
+    print(f"  per batch (P2-P5 + depth): kernel {ms:.4f} ms on the device "
+          f"({per_call[0]:.4f} + {per_call[1]:.4f}), "
+          f"{(in_bytes + out_bytes) / ms / 1e6:.0f} GB/s of "
+          f"{PEAK_BYTES / 1e9:.0f}; the wrappers by CUDA events {wrapper_ms:.4f} "
+          f"ms [the design before: 0.332], plain {plain_ms:.3f} ms; "
           f"moves {in_bytes / 1e6:.1f} MB of taps and rois + "
           f"{out_bytes / 1e6:.1f} MB out -> bound {max(t_bytes, t_ops):.4f} ms")
     return dict(name="multilevel_roi_align", route="cuda",
@@ -774,39 +824,76 @@ def phase_encoder_bwd(gen, pairs=12288, d=576):
 # ------------------------------------------------------------------ phase 7
 def phase_roi_align_bwd(gen, b=12, h=800, w=1344, c=256):
     """B3-bwd against autograd of the plain pooling: the depth map's
-    gradient at the PredCls train shape."""
+    gradient at the PredCls train shape, and every FPN level's at P = 7 with
+    512 rois an image (detector pretraining's shape); two kernel runs
+    bit-equal in both; the C tile plan against its Python mirror."""
+    from veto_tpu_torch.ops import cuda_lib
     from veto_tpu_torch.ops import roi_align_windowed as rw
 
+    lib = cuda_lib.library("roi_align")
+    for ch, dt in ((c, torch.bfloat16), (c, torch.float32)):
+        c_rows = lib.roi_align_bwd_tile_rows(ch, int(dt == torch.bfloat16))
+        if c_rows != rw.bwd_tile_rows(ch, dt):
+            raise AssertionError(f"backward tile rows {c_rows} in C, "
+                                 f"{rw.bwd_tile_rows(ch, dt)} in Python ({ch}, {dt})")
     p, s, scale = 8, 2, 0.0625
     print(f"[roi_align bwd] kernel vs plain, {b} x {h // 16}x{w // 16}x{c} "
-          "depth map, 80 rois an image")
+          f"depth map, 80 rois an image; tiles {rw.BWD_TILE_W} x "
+          f"{rw.bwd_tile_rows(c, torch.bfloat16)} pixels (C and Python agree)")
     depth = torch.randn(b, h // 16, w // 16, c, generator=gen,
                         device=DEVICE).bfloat16()
-    rois = eval_rois(gen, b, 80, h, w)
+    dense = eval_rois(gen, b, 80, h, w)
     g = torch.randn(b, 80, p, p, c, generator=gen, device=DEVICE)
+    # the rois as chip_smoke draws them (edge cases, few zero boxes), and the
+    # train split's first batch as the main path pools it: 4 to 80 boxes an
+    # image padded with zero boxes, which all reach the map's corner
+    cases = (("edge and dense rois", dense), ("the train split's boxes", corpus_rois(b)))
+    err, ms = 0.0, {}
+    for what, rois in cases:
+        def kernel(rois=rois):
+            return rw._launch_backward([depth], [True], rois, g, (scale,), p, s)[0]
 
-    def kernel():
-        return rw._launch_backward([depth], [True], rois, g, (scale,), p, s)[0]
+        def plain(rois=rois):
+            return rw.reference_multilevel_roi_align_backward(
+                [depth], [True], rois, g, (scale,), p, s)[0]
 
-    def plain():
-        return rw.reference_multilevel_roi_align_backward(
-            [depth], [True], rois, g, (scale,), p, s)[0]
-
-    got, ref = kernel(), plain()
-    if got.dtype != depth.dtype or ref.dtype != depth.dtype:
-        raise AssertionError(f"grad dtypes {got.dtype}, {ref.dtype}; map {depth.dtype}")
-    # both sum the same f32 products in f32 (the atomics in an order that
-    # varies from run to run) and round once to bf16: where the two f32
-    # sums straddle a rounding boundary they differ by one bf16 ulp, at most
-    # 2^-7 of the value
-    err = check_close("depth grad bf16", got, ref, atol=1e-5, rtol=2 ** -7)
-    ms, plain_ms = cuda_ms(kernel, 50), cuda_ms(plain, 3)
+        got, again, ref = kernel(), kernel(), plain()
+        if got.dtype != depth.dtype or ref.dtype != depth.dtype:
+            raise AssertionError(f"grad dtypes {got.dtype}, {ref.dtype}; map {depth.dtype}")
+        if not torch.equal(got, again):
+            raise AssertionError(f"depth grad, {what}: two kernel runs differ")
+        # both sum the same f32 products in f32, in another order, and round
+        # once to bf16: where the two f32 sums straddle a rounding boundary
+        # they differ by one bf16 ulp, at most 2^-7 of the value.  Under the
+        # train split's zero boxes the corner pixels sum ~17,000 terms, and
+        # the two f32 sums differ by a few ulps of the sum of |terms| times
+        # the root of their count: 2^-16 of that sum (the gradient of |g|)
+        atol = 1e-5
+        if rois is not dense:
+            mag = rw.reference_multilevel_roi_align_backward(
+                [depth.float()], [True], rois, g.abs(), (scale,), p, s)[0]
+            atol = 1e-5 + 2.0 ** -16 * mag
+            del mag
+        err = max(err, check_close(f"depth grad bf16, {what} (two kernel runs "
+                                   "bit-equal)", got, ref, atol=atol, rtol=2 ** -7))
+        del got, again, ref
+        ms[what] = device_ms(kernel, "roi_align_bwd_kernel", 20)
+    # the main path's boxes
+    wrapper_ms, plain_ms = cuda_ms(kernel, 50), cuda_ms(plain, 3)
     # in: the f32 gradient and the rois; out: the bf16 map gradient
     nbytes = g.numel() * 4 + rois.numel() * 4 + depth.numel() * 2
     flops = g.numel() * 4 * 4 * 2  # 4 samples x 4 taps, one FMA each
     t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_F32 * 1e3
-    print(f"  kernel {ms:.4f} ms, plain {plain_ms:.3f} ms; {nbytes / 1e6:.1f} MB "
-          f"-> bound {max(t_bytes, t_ops):.4f} ms")
+    for what, t in ms.items():
+        print(f"  {what}: kernel {t:.4f} ms on the device, {nbytes / t / 1e6:.0f} GB/s of "
+              f"{PEAK_BYTES / 1e9:.0f}")
+    print(f"  the train split's boxes: the wrapper by CUDA events {wrapper_ms:.4f} ms "
+          f"[the atomic design before: 0.650 on the dense rois], plain {plain_ms:.3f} ms; "
+          f"{nbytes / 1e6:.1f} MB -> bound {max(t_bytes, t_ops):.4f} ms")
+    ms = ms[cases[-1][0]]
+    del depth, g
+    err = max(err, roi_align_bwd_levels(gen))
+    release()
     return dict(name="roi_align_backward", route="cuda",
                 source="veto_tpu_torch/csrc/roi_align.cu",
                 replaces="veto_tpu/ops/roi_align.py:175",
@@ -814,6 +901,40 @@ def phase_roi_align_bwd(gen, b=12, h=800, w=1344, c=256):
                 bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 library_ms=None)
+
+
+def roi_align_bwd_levels(gen, b=2, r=512, h=800, w=1344, c=256, p=7, s=2):
+    """B3-bwd over P2-P5, every level needing its gradient, at P = 7 and
+    ``r`` rois an image: against the plain backward, two runs bit-equal.
+    Returns the max abs error."""
+    from veto_tpu_torch.ops import roi_align_windowed as rw
+
+    print(f"  P2-P5 of {b} x {h}x{w} images, {r} rois an image, P = {p}, every "
+          "level's gradient")
+    feats = [torch.randn(b, h // k, w // k, c, generator=gen, device=DEVICE)
+             .bfloat16() for k in (4, 8, 16, 32)]
+    rois = eval_rois(gen, b, r, h, w)
+    g = torch.randn(b, r, p, p, c, generator=gen, device=DEVICE)
+    need = [True] * len(feats)
+
+    def kernel():
+        return rw._launch_backward(feats, need, rois, g, SCALES, p, s)
+
+    got, again = kernel(), kernel()
+    ref = rw.reference_multilevel_roi_align_backward(feats, need, rois, g,
+                                                     SCALES, p, s)
+    err = 0.0
+    for lvl, (a, a2, r_) in enumerate(zip(got, again, ref)):
+        if not torch.equal(a, a2):
+            raise AssertionError(f"P{lvl + 2} grad: two kernel runs differ")
+        err = max(err, check_close(f"P{lvl + 2} grad bf16 (two kernel runs "
+                                   "bit-equal)", a, r_, atol=1e-5, rtol=2 ** -7))
+    del got, again, ref
+    ms = device_ms(kernel, "roi_align_bwd_kernel", 10)
+    nbytes = g.numel() * 4 + rois.numel() * 4 + sum(f.numel() * 2 for f in feats)
+    print(f"  kernel {ms:.4f} ms on the device, {nbytes / ms / 1e6:.0f} GB/s; "
+          f"{nbytes / 1e6:.1f} MB -> bound {nbytes / PEAK_BYTES * 1e3:.4f} ms")
+    return err
 
 
 # ------------------------------------------------------------------ phase 8
@@ -1148,16 +1269,26 @@ def phase_train_grads(state, opts=(), what="main path"):
         ref_loss, ref = grads()
     state.optimizer.zero_grad()
     print(f"  loss {float(loss):.6f} (kernels), {float(ref_loss):.6f} (plain)")
-    # The floor: two kernel runs differ only where the ROIAlign backward's
-    # atomics added in another order (the last f32 bits of the depth map's
-    # gradient).  Back through the depth ResNet-18 in bf16 those bits grow
-    # to a few % in its first layers' gradients, whose sums over every
-    # pixel nearly cancel.  Kernels vs plain versions add the encoder's
-    # bf16 rounding flips on top.  Each tensor is held to 10% (L2) and 25%
-    # (largest element) of its plain version; a dropped or misplaced term
-    # is off by about 100%.
+    # The floor: what two kernel runs of one step differ by.  Every kernel
+    # of the port sums in a fixed order (B3-bwd has no atomics),
+    # so what is left comes from PyTorch's own ops (cuDNN's convolution
+    # backwards of the depth ResNet-18 may pick algorithms that add in
+    # another order); back through that network in bf16 a last-bit
+    # difference grows to a few % in its first layers' gradients, whose
+    # sums over every pixel nearly cancel.  Kernels vs plain versions add
+    # the encoder's bf16 rounding flips on top.  Each tensor is held to 10%
+    # (L2) and 25% (largest element) of its plain version; a dropped or
+    # misplaced term is off by about 100%.
     floor = compare(again, got)[0]
-    print(f"  two kernel runs: worst |err| / |ref| {floor[0]:.3e} ({floor[2]})")
+    # in parameter order from the last (nearest the loss) back
+    varies = [n for n, _ in reversed(params) if not torch.equal(got[n], again[n])]
+    if not varies:
+        print("  two kernel runs: floor 0, every gradient tensor bit-equal")
+    else:
+        print(f"  two kernel runs: worst |err| / |ref| {floor[0]:.3e} ({floor[2]}); "
+              f"{len(varies)} of {len(params)} tensors vary, the one nearest the "
+              f"loss in parameter order {varies[0]} (|err| / |ref| "
+              f"{next(r[0] for r in compare(again, got) if r[2] == varies[0]):.3e})")
     rows = compare(got, ref)
     for rel_l2, rel_max, n, _ in rows[:4]:
         print(f"  {n}: |err| / |ref| {rel_l2:.3e}, max |err| {rel_max:.3e} of max |ref|")

@@ -132,6 +132,12 @@ def build_model(cfg, device=None, seed: int = None) -> SGGModel:
         raise NotImplementedError(
             f"backbone {cfg.model.backbone!r}: this slice ports the ResNet-FPN "
             "bodies without deformable convs")
+    heads = [k for k in ("attribute_on", "mask_on", "keypoint_on")
+             if getattr(cfg.model, k)]
+    if heads:
+        raise NotImplementedError(
+            f"model.{', model.'.join(heads)}: the attribute, mask and keypoint "
+            "heads come with slice A14")
     model = SGGModel(
         num_obj_classes=cfg.model.num_obj_classes,
         num_rel_classes=cfg.relation.num_classes,

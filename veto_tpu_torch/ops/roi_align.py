@@ -26,11 +26,17 @@ from .box_ops import box_area
 
 def _sample_coords(rois: torch.Tensor, scale: float, p: int, s: int):
     """Per-bin sample coordinates (R, p, s) along y and x, in the JAX
-    package's arithmetic order: ``y1 + (bin + (iy + 0.5) / s) * bin_h``."""
+    package's arithmetic order: ``y1 + (bin + (iy + 0.5) / s) * bin_h``.
+
+    The divisors are tensors: PyTorch's CUDA division by a Python scalar
+    multiplies by its rounded reciprocal, which for p = 7 moves bin sizes
+    by an ulp; a tensor divisor divides on every device, as the JAX package
+    and the kernels do."""
     x1, y1, x2, y2 = (rois.float() * scale).unbind(-1)
-    bin_w = torch.clamp(x2 - x1, min=1.0) / p
-    bin_h = torch.clamp(y2 - y1, min=1.0) / p
-    off = (torch.arange(s, dtype=torch.float32, device=rois.device) + 0.5) / s
+    p_, s_ = (torch.tensor(float(v), device=rois.device) for v in (p, s))
+    bin_w = torch.clamp(x2 - x1, min=1.0) / p_
+    bin_h = torch.clamp(y2 - y1, min=1.0) / p_
+    off = (torch.arange(s, dtype=torch.float32, device=rois.device) + 0.5) / s_
     bins = torch.arange(p, dtype=torch.float32, device=rois.device)
     grid = bins[:, None] + off[None, :]                        # (p, s)
     ys = y1[:, None, None] + grid[None] * bin_h[:, None, None]

@@ -12,14 +12,17 @@ split is the synthetic corpus at the eval input shape: images of
 ``min_size_test`` x ``max_size_test`` rounded up to ``size_divisibility``
 (800 x 1344 for Visual Genome), ``data.max_boxes`` objects at most.
 
-Not yet ported (they raise): the Visual Genome loader, checkpoints,
-SGCls/SGDet, MEET, other predictors, multi-device evaluation.
+Not yet ported (they raise): the Visual Genome loader, restoring a
+checkpoint (a non-empty ``output_dir/ckpt`` raises rather than being
+ignored), loading ``test.zeroshot_file``, SGCls/SGDet, MEET, other
+predictors, multi-device evaluation.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import time
 
 
@@ -45,6 +48,10 @@ def make_sgg_evaluator(cfg):
 
     if cfg.test.stagewise_eval:
         raise NotImplementedError("stage-wise recall is not ported yet")
+    if cfg.test.zeroshot_eval and cfg.test.zeroshot_file:
+        raise NotImplementedError(
+            f"test.zeroshot_file={cfg.test.zeroshot_file!r}: loading the "
+            "zero-shot triplets comes with slice A8b; leave it empty")
     parts = None
     if (cfg.test.longtail_eval and cfg.relation.num_classes == 51
             and "GQA" not in cfg.data.dataset):
@@ -70,6 +77,12 @@ def evaluate(cfg, device=None, max_batches: int = 0, log=print, model=None):
         raise NotImplementedError("the Visual Genome loader comes in a later "
                                   "slice; leave data.data_dir empty")
     if model is None:
+        ckpt = os.path.join(cfg.output_dir, "ckpt")
+        if os.path.isdir(ckpt) and os.listdir(ckpt):
+            raise NotImplementedError(
+                f"{ckpt} holds a checkpoint: restoring it comes with slice "
+                "A8c, and evaluating seeded random weights in its place would "
+                "report the wrong model")
         model = build_model(cfg, device)
     dev = next(model.parameters()).device
     step = make_eval_step(model, max_pairs=cfg.relation.max_proposal_pairs,

@@ -15,8 +15,10 @@ Each step logs the loss, the gradient norm, the LR scale and its seconds.
 
 Not yet ported (they raise): validation and the plateau decay it drives,
 checkpoints and resume (so ``solver.max_iter`` must stay below
-``solver.val_period`` and ``solver.checkpoint_period``), the Visual Genome
-loader, SGCls/SGDet, MEET, the other loss variants, multi-device training.
+``solver.val_period`` and ``solver.checkpoint_period``), importing
+``model.pretrained_detector_ckpt``, the Visual Genome loader, SGCls/SGDet,
+MEET, the attribute/mask/keypoint heads, the other loss variants,
+multi-device training.
 """
 
 from __future__ import annotations
@@ -81,6 +83,11 @@ def train(cfg, device=None, log=print, model=None):
     if cfg.data.data_dir:
         raise NotImplementedError("the Visual Genome loader comes in a later "
                                   "slice; leave data.data_dir empty")
+    if cfg.model.pretrained_detector_ckpt:
+        raise NotImplementedError(
+            "model.pretrained_detector_ckpt: importing the detector checkpoint "
+            "comes with slice A8a; leave it empty (the detector is then the "
+            "seeded random one)")
     period = min(cfg.solver.val_period, cfg.solver.checkpoint_period)
     if cfg.solver.max_iter >= period:
         raise NotImplementedError(
