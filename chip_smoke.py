@@ -46,9 +46,14 @@ catches its own failure:
    bit-equal in both; the C tile plan against its Python mirror; device
    time and GB/s against the bound.
 8. Pair-attention kernels B4a and B4b vs their plain versions, q/k/v the
-   strided thirds of a packed qkv, at 16,384 and 12,288 pairs x 19 x 576
-   and at 509 pairs with t_pad 24 > t_valid 19; SDPA with the key mask as
-   the yardstick.
+   thirds of a packed qkv: on the tensor-core route (the attention of
+   ``csrc/pair_attention_sm90.cuh`` that B2b and B5 run) at 16,384 and
+   12,288 pairs x 19 x 576 and at 509 pairs with t_pad 24 > t_valid 19, on
+   the CUDA-core route at 509 pairs x 67 tokens; two runs bit-equal each;
+   the route rule and shared memory in C against their Python mirrors;
+   HMMA in the SASS.  Device times by ``torch.profiler`` on the same
+   inputs: the tensor-core route, the CUDA-core route called directly
+   (which it must beat) and SDPA with the key mask, each against the bound.
 9. Monolithic encoder backward B5 vs its plain version at 12,288 pairs,
    with and without the qkv/x1 stash; two kernel runs bit-equal; B5 vs
    B2a + B2b on the same input; the two external dW ``torch.matmul``s
@@ -61,8 +66,9 @@ catches its own failure:
     through the plain versions, and the floor of that check: what two
     kernel runs of the step differ by (0, or the tensors that vary).
 11. The ``veto.encoder_impl=pair_attn`` path: 2 eval batches (B4a 6, B3 2
-    per batch), 3 train steps (B4a 6, B4b 6, B3 2, B3-bwd 1 per step) and
-    one step's gradients against the plain versions.
+    per batch), 3 train steps (B4a 6, B4b 6, B3 2, B3-bwd 1 per step), all
+    on the tensor-core route (the CUDA-core route 0), and one step's
+    gradients against the plain versions.
 12. The monolithic-backward path: 3 train steps with
     ``fused_encoder.FUSED_SPLIT = False`` (B1 6, B5 6, B3 2, B3-bwd 1 per
     step), 3 more with ``FUSED_STASH = False`` too, and one step's
@@ -79,6 +85,7 @@ exits 2 before printing any result.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import os
 import subprocess
@@ -597,10 +604,11 @@ def sass_count(lib_name, kernel, opcode) -> int:
     return n
 
 
-def sdpa_ms(gen, pairs, t, d, heads, backward) -> float:
-    """SDPA with the key mask on the strided (P, heads, T, dh) views of a
-    packed qkv, as the pair-attention path lays them out: the forward, or
-    its backward (timed only; the port never calls it)."""
+def sdpa_call(gen, pairs, t, d, heads, backward):
+    """A call of SDPA with the key mask on the strided (P, heads, T, dh) views
+    of a packed qkv, as the pair-attention path lays them out: the forward,
+    or its backward to dq, dk, dv (``torch.autograd.grad``, so nothing
+    accumulates into a leaf).  A yardstick only; the port never calls it."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
     mask = (torch.arange(t, device=DEVICE) < t).expand(t, t)
     qkv = torch.randn(pairs, t, 3 * d, generator=gen, device=DEVICE).bfloat16()
@@ -610,12 +618,18 @@ def sdpa_ms(gen, pairs, t, d, heads, backward) -> float:
         return a.unflatten(-1, (heads, d // heads)).transpose(1, 2)
 
     if not backward:
-        with torch.inference_mode():
-            q4, k4, v4 = (heads_of(a) for a in qkv.chunk(3, dim=-1))
-            return cuda_ms(lambda: sdpa(q4, k4, v4, attn_mask=mask), 20)
+        q4, k4, v4 = (heads_of(a) for a in qkv.chunk(3, dim=-1))
+        return lambda: sdpa(q4, k4, v4, attn_mask=mask)
+    # outside inference mode: the graph of one forward, its backward timed
     q4, k4, v4 = (heads_of(a) for a in qkv.requires_grad_().chunk(3, dim=-1))
     o4 = sdpa(q4, k4, v4, attn_mask=mask)
-    return cuda_ms(lambda: o4.backward(heads_of(do), retain_graph=True), 20)
+    do4 = heads_of(do)
+    return lambda: torch.autograd.grad(o4, (q4, k4, v4), do4, retain_graph=True)
+
+
+def sdpa_ms(gen, pairs, t, d, heads, backward) -> float:
+    """ms per call of :func:`sdpa_call`'s call by CUDA events."""
+    return cuda_ms(sdpa_call(gen, pairs, t, d, heads, backward), 20)
 
 
 def phase_attention_alone(gen, pairs=12288, d=576, heads=6, t=19):
@@ -938,16 +952,58 @@ def roi_align_bwd_levels(gen, b=2, r=512, h=800, w=1344, c=256, p=7, s=2):
 
 
 # ------------------------------------------------------------------ phase 8
+def busy_ms(fn, calls: int) -> float:
+    """Device milliseconds per call of ``fn``: every kernel it launches, by
+    ``torch.profiler`` over ``calls`` calls after one warm-up call."""
+    from veto_tpu_torch.tools.profile_eval import trace
+
+    fn()
+    got = trace(lambda: [fn() for _ in range(calls)], (), log=lambda s: None)
+    return got["device_busy_ms"] / calls
+
+
+# (T, D, heads) at which the C route rule is held against its Python mirror:
+# the main path's pairs, padded tokens, ATT_TMAX and one past it,
+# veto.patch_size 1's 67 tokens, a head dim of 12, and rows past ATT_SMEM_MAX
+ROUTE_SHAPES = ((19, 576, 6), (24, 576, 6), (32, 576, 6), (33, 576, 6),
+                (67, 576, 6), (19, 72, 6), (32, 1024, 8))
+
+
 def phase_pair_attention(gen, d=576, heads=6):
-    """B4a and B4b against their plain versions, q/k/v the strided thirds of
-    one packed qkv as ``_xla_layer`` passes them: at the eval (16,384
-    pairs) and train (12,288) shapes and once at an odd pair count with
-    t_pad 24 > t_valid 19; then their times, bounds and SDPA's."""
+    """B4a and B4b against their plain versions, q/k/v the thirds of one
+    packed qkv as ``_xla_layer`` passes them.  The tensor-core route (the
+    attention of ``csrc/pair_attention_sm90.cuh``) at the eval (16,384
+    pairs) and train (12,288) shapes and at 509 pairs with t_pad 24 >
+    t_valid 19; the CUDA-core route at 509 pairs x 67 tokens (veto.patch_size
+    1); two runs bit-equal each; the route rule and shared memory in C
+    against their Python mirrors; HMMA in the tensor-core kernel's SASS.
+    Then, by ``torch.profiler`` device time on the same inputs, the
+    tensor-core route, the CUDA-core route called directly, and SDPA with
+    the key mask, each against the bound."""
+    from veto_tpu_torch.ops import cuda_lib
+    from veto_tpu_torch.ops import fused_encoder as fe
     from veto_tpu_torch.ops import pair_attention as pa
 
     t, dh = 19, d // heads
-    print(f"[pair attention] B4a/B4b vs plain, q/k/v slices of a packed qkv, "
+    print(f"[pair attention] B4a/B4b vs plain, q/k/v thirds of a packed qkv, "
           f"x {t} tokens x {d}, {heads} heads")
+    lib = cuda_lib.library("pair_attention")
+    lib.pair_attention_route.argtypes = [ctypes.c_int] * 3
+    lib.pair_attention_smem_bytes.argtypes = [ctypes.c_int] * 2
+    lib.pair_attention_cuda_core_smem_bytes.argtypes = [ctypes.c_int] * 3
+    for shape in ROUTE_SHAPES:
+        c_route = "tensor_cores" if lib.pair_attention_route(*shape) else "cuda_cores"
+        if c_route != pa.kernel_route(*shape):
+            raise AssertionError(f"T, D, heads {shape}: route {c_route} in C, "
+                                 f"{pa.kernel_route(*shape)} in Python")
+    for c_smem, py_smem in (
+            (lib.pair_attention_smem_bytes(t, d), fe.attention_bwd_smem_bytes(t, d)),
+            (lib.pair_attention_cuda_core_smem_bytes(67, dh, 1),
+             pa.cuda_core_smem_bytes(67, dh, True))):
+        if c_smem != py_smem:
+            raise AssertionError(f"shared memory {c_smem} in C, {py_smem} in Python")
+    print(f"  route rule and shared memory: C and Python agree at "
+          f"{len(ROUTE_SHAPES)} shapes")
     # same rounding points (bf16 probabilities, bf16(ds * scale), each
     # output once); an f32 sum in another order can flip one bf16 rounding,
     # one ulp (2^-8) of that value: 1% of the largest |value| everywhere,
@@ -958,66 +1014,102 @@ def phase_pair_attention(gen, d=576, heads=6):
     def inputs(pairs, t_pad):
         qkv = torch.randn(pairs, t_pad, 3 * d, generator=gen, device=DEVICE).bfloat16()
         do = torch.randn(pairs, t_pad, d, generator=gen, device=DEVICE).bfloat16()
-        return qkv, qkv.chunk(3, dim=-1), do
+        return qkv.chunk(3, dim=-1), do
 
-    def bwd(q, k, v, do):
+    def fwd(q, k, v, t_valid, route=None):
+        return pa._launch_forward(q, k, v, heads, t_valid, route)
+
+    def bwd(q, k, v, do, t_valid, route=None):
         """B4b writing dq, dk, dv packed, as ``pair_attention_qkv`` has it"""
         dqkv = torch.empty(*q.shape[:2], 3 * d, dtype=q.dtype, device=DEVICE)
-        pa._launch_backward(q, k, v, do, heads, t, dqkv.chunk(3, dim=-1))
+        pa._launch_backward(q, k, v, do, heads, t_valid, dqkv.chunk(3, dim=-1), route)
         return dqkv.chunk(3, dim=-1)
-
-    def compare(which, names, got, ref):
-        for name, g_, r_ in zip(names, got, ref):
-            check_scaled(name, g_, r_, **tol)
-            errs[which] = max(errs[which], float((g_.float() - r_.float()).abs().max()))
 
     times = {}
     with torch.inference_mode():
-        for pairs, t_pad in ((16384, t), (12288, t), (509, 24)):
-            _, (q, k, v), do = inputs(pairs, t_pad)
-            print(f"  {pairs} pairs, t_pad {t_pad}, t_valid {t}")
-            compare("fwd", ["B4a out"], [pa._launch_forward(q, k, v, heads, t)],
-                    [pa.reference_pair_attention_forward(q, k, v, heads, t)])
-            compare("bwd", ["B4b dq", "B4b dk", "B4b dv"], bwd(q, k, v, do),
-                    pa.reference_pair_attention_backward(q, k, v, do, heads, t))
+        for pairs, t_pad, t_valid in ((16384, t, t), (12288, t, t), (509, 24, t),
+                                      (509, 67, 67)):
+            route = pa.kernel_route(t_pad, d, heads)
+            if route != ("cuda_cores" if t_pad > fe.ATT_TMAX else "tensor_cores"):
+                raise AssertionError(f"T={t_pad}: route {route}")
+            (q, k, v), do = inputs(pairs, t_pad)
+            got = [fwd(q, k, v, t_valid) for _ in range(2)]
+            gotb = [bwd(q, k, v, do, t_valid) for _ in range(2)]
+            if not (torch.equal(*got)
+                    and all(torch.equal(a, b) for a, b in zip(*gotb))):
+                raise AssertionError(f"{pairs} x {t_pad}: two kernel runs differ")
+            print(f"  {pairs} pairs, t_pad {t_pad}, t_valid {t_valid}: {route} "
+                  "(two kernel runs bit-equal)")
+            for which, names, g_, r_ in (
+                    ("fwd", ["B4a out"], got[:1],
+                     [pa.reference_pair_attention_forward(q, k, v, heads, t_valid)]),
+                    ("bwd", ["B4b dq", "B4b dk", "B4b dv"], gotb[0],
+                     pa.reference_pair_attention_backward(q, k, v, do, heads, t_valid))):
+                for name, a, b in zip(names, g_, r_):
+                    check_scaled(name, a, b, **tol)
+                    if route == "tensor_cores":
+                        errs[which] = max(errs[which],
+                                          float((a.float() - b.float()).abs().max()))
+            del got, gotb
             if t_pad == t:
                 times[pairs] = dict(
-                    fwd=cuda_ms(lambda: pa._launch_forward(q, k, v, heads, t), 20),
-                    bwd=cuda_ms(lambda: bwd(q, k, v, do), 20),
+                    fwd=device_ms(lambda: fwd(q, k, v, t), "attention_bwd_mma_kernel", 20),
+                    bwd=device_ms(lambda: bwd(q, k, v, do, t), "attention_bwd_mma_kernel",
+                                  20),
+                    cc_fwd=device_ms(lambda: fwd(q, k, v, t, "cuda_cores"),
+                                     "pair_attn_fwd_kernel", 10),
+                    cc_bwd=device_ms(lambda: bwd(q, k, v, do, t, "cuda_cores"),
+                                     "pair_attn_bwd_kernel", 10),
                     plain_fwd=cuda_ms(lambda: pa.reference_pair_attention_forward(
                         q, k, v, heads, t), 3),
                     plain_bwd=cuda_ms(lambda: pa.reference_pair_attention_backward(
                         q, k, v, do, heads, t), 3))
-    # yardstick: SDPA with the key mask on the same strided (P, heads, T, dh)
-    # views; the forward at the eval shape, the backward at the train shape
-    lib_fwd = sdpa_ms(gen, 16384, t, d, heads, backward=False)
-    lib_bwd = sdpa_ms(gen, 12288, t, d, heads, backward=True)
+            del q, k, v, do
+        for pairs in times:
+            times[pairs].update(
+                lib_fwd=busy_ms(sdpa_call(gen, pairs, t, d, heads, False), 20))
+    for pairs in times:
+        times[pairs]["lib_bwd"] = busy_ms(sdpa_call(gen, pairs, t, d, heads, True), 20)
+    hmma = sass_count("pair_attention", "attention_bwd_mma_kernel", "HMMA")
+    print(f"  {hmma} HMMA instructions in the pair-attention library's "
+          "attention_bwd_mma_kernel")
+    if hmma == 0:
+        raise AssertionError("the pair-attention library's tensor-core kernel has "
+                             "no HMMA in its SASS")
 
     out = []
-    # B4a: q, k, v in, o out; QK^T and PV.  B4b: q, k, v, do in, dq, dk,
-    # dv out; QK^T again, dP, dV, dQ, dK
-    for name, key, line, tensors, products, pairs, lib_ms in (
-            ("pair_attention", "fwd", 156, 4, 2, 16384, lib_fwd),
-            ("pair_attention_backward", "bwd", 176, 7, 5, 12288, lib_bwd)):
+    # B4a: qkv in, att out; QK^T and PV.  B4b: qkv, do in, dqkv out; QK^T
+    # again, dP, dV, dQ, dK
+    for name, key, line, tensors, products, pairs in (
+            ("pair_attention", "fwd", 156, 4, 2, 16384),
+            ("pair_attention_backward", "bwd", 176, 7, 5, 12288)):
         for p_ in sorted(times):
+            tm = times[p_]
             nbytes = tensors * p_ * t * d * 2
             t_ops = 2 * products * p_ * heads * t * t * dh / PEAK_BF16 * 1e3
             t_bytes = nbytes / PEAK_BYTES * 1e3
-            print(f"  {name} at {p_} pairs: kernel {times[p_][key]:.3f} ms, plain "
-                  f"{times[p_]['plain_' + key]:.3f} ms; {nbytes / 1e9:.3f} GB -> "
-                  f"bound {max(t_ops, t_bytes):.3f} ms")
+            bound = max(t_ops, t_bytes)
+            print(f"  {name} at {p_} pairs (device ms, torch.profiler): tensor cores "
+                  f"{tm[key]:.4f} ({100 * bound / tm[key]:.0f}% of the bound, "
+                  f"{nbytes / tm[key] / 1e6:.0f} GB/s), CUDA cores "
+                  f"{tm['cc_' + key]:.4f} ({100 * bound / tm['cc_' + key]:.0f}%), "
+                  f"SDPA with the key mask {tm['lib_' + key]:.4f} "
+                  f"({100 * bound / tm['lib_' + key]:.0f}%); plain "
+                  f"{tm['plain_' + key]:.3f} ms by CUDA events; {nbytes / 1e9:.3f} GB "
+                  f"-> bound {bound:.4f} ms (bytes)")
+            if tm[key] >= tm["cc_" + key]:
+                raise AssertionError(f"{name} at {p_} pairs: the tensor-core route "
+                                     "is not faster than the CUDA-core one")
             if p_ == pairs:
                 row = dict(name=name, route="cuda",
                            source="veto_tpu_torch/csrc/pair_attention.cu",
                            replaces=f"veto_tpu/ops/pair_attention.py:{line}",
-                           max_abs_err=errs[key], ms=times[p_][key],
-                           plain_ms=times[p_]["plain_" + key],
-                           bound_ms=max(t_ops, t_bytes),
+                           max_abs_err=errs[key], ms=tm[key],
+                           plain_ms=tm["plain_" + key], bound_ms=bound,
                            bound_by="operations" if t_ops >= t_bytes else "bytes",
-                           library_ms=lib_ms)
+                           library_ms=tm["lib_" + key])
         out.append(row)
-    print(f"  SDPA with the key mask: forward {lib_fwd:.3f} ms at 16384 pairs, "
-          f"backward {lib_bwd:.3f} ms at 12288 pairs")
+    release()
     return out
 
 
@@ -1135,6 +1227,9 @@ COUNTERS = {
     "roi_align_backward": ("roi_align_windowed", "BWD_LAUNCHES"),       # B3-bwd
     "pair_attention": ("pair_attention", "KERNEL_LAUNCHES"),            # B4a
     "pair_attention_backward": ("pair_attention", "BWD_LAUNCHES"),      # B4b
+    # B4a and B4b on their CUDA-core route (T > 32): 0 on every path here
+    "pair_attention_cuda_cores": ("pair_attention", "CUDA_CORE_LAUNCHES"),
+    "pair_attention_backward_cuda_cores": ("pair_attention", "CUDA_CORE_BWD_LAUNCHES"),
     "encoder_mono_bwd": ("fused_encoder", "MONO_BWD_LAUNCHES"),         # B5
 }
 

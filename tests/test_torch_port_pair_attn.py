@@ -167,8 +167,9 @@ def test_pair_attention_oracle_matches_jax():
 
 def test_pair_attention_kernel_refuses_what_it_cannot_take():
     """The raw launches raise before they reach the card on inputs the
-    kernels do not take: f32, mixed row strides, a head split that does not
-    divide D, tensors that are not on a CUDA device."""
+    kernels do not take: f32, q, k, v that are not the thirds of one packed
+    qkv (mixed row strides), a head split that does not divide D, tensors
+    that are not on a CUDA device."""
     x = torch.zeros(4, T, D, dtype=torch.bfloat16)
     with pytest.raises(TypeError, match="bf16"):
         tpa._launch_forward(x.float(), x.float(), x.float(), H, T)
@@ -181,7 +182,7 @@ def test_pair_attention_kernel_refuses_what_it_cannot_take():
     with pytest.raises(ValueError, match="heads"):
         tpa._launch_forward(x, x, x, 7, T)
     with pytest.raises(TypeError, match="CUDA"):
-        tpa._launch_forward(x, x, x, H, T)
+        tpa._launch_forward(*packed.chunk(3, dim=-1), H, T)
     with pytest.raises(ValueError, match="t_valid"):
         tpa.pair_attention(x, x, x, H, t_valid=T + 1)
 

@@ -9,38 +9,52 @@
 //
 // They serve the encoder's 'pair_attn' implementation, where the
 // projections, LayerNorms and FFN are plain PyTorch and only the attention
-// core is a kernel.  q, k, v are (pairs * t_pad, D) row blocks with a row
-// stride of their own (3D when they are the thirds of a packed qkv, so the
-// slices are read in place), D = heads * dh.  Keys at index >= t_valid of
-// a pair are masked; the TPU kernels padded 19 tokens to 20 and packed
+// core is a kernel.  The layout is the one the encoder has: one packed
+// (pairs * T, 3D) qkv whose thirds are q, k and v, D = heads * dh; the
+// forward writes att (pairs * T, D), the backward reads dO (pairs * T, D)
+// and writes dq, dk, dv packed as dqkv (pairs * T, 3D), which autograd
+// takes as qkv's gradient without a copy.  Keys at index >= t_valid of a
+// pair are masked; the TPU kernels padded 19 tokens to 20 and packed
 // 4-pair blocks under a block-diagonal mask only for Mosaic's sake, so
-// here a block holds one (pair, head) and never mixes pairs.
+// here a block never mixes pairs.
 //
 // Rounding points are the TPU kernels': scores and softmax in f32, the
 // probabilities rounded to bf16 before P.V, o rounded to bf16; in the
 // backward p recomputed in f32, bf16(p) for dv = bf16(p)^T do, f32 p for
 // ds = p (dp - rowsum(dp p)), bf16(ds * scale) for dq = ds k and
-// dk = ds^T q; every gradient rounded to bf16 once.  Every sum stays inside
-// one (pair, head): no atomics, deterministic.
+// dk = ds^T q; every gradient rounded to bf16 once; a masked key has p = 0
+// exactly, so its dk and dv are 0.  Every sum stays inside one (pair,
+// head): no atomics, two runs give the same bits.
 //
-// Bound: memory.  At the PredCls train shape (12,288 pairs x 19 tokens,
-// D = 576) the forward reads q, k, v and writes o, 1.08 GB, ~0.32 ms at
-// 3.35 TB/s, for ~10 GFLOP; the backward moves 7 such tensors, ~0.56 ms.
-// This first version is one 128-thread block per (pair, head) with q, k, v
-// (and do) of the head in shared memory as f32 and the scores next to them:
-// the operands are read once from device memory, coalesced along the head
-// dimension; the products run on the CUDA cores.
+// Bound: bytes.  At the PredCls eval shape (16,384 pairs x 19 tokens,
+// D = 576) B4a reads qkv (1.08 GB) and writes att (0.36 GB), 1.43 GB, 0.428
+// ms at 3.35 TB/s, for 0.02 TFLOP; at the train shape (12,288 pairs) 1.08
+// GB, 0.321 ms.  B4b at the train shape reads qkv (0.81 GB) and dO (0.27
+// GB) and writes dqkv (0.81 GB), 1.88 GB, 0.562 ms, for 0.05 TFLOP.
+//
+// Two routes, chosen by the shape alone (pair_attention_route below; the
+// wrappers' Python mirror, ops/pair_attention.py kernel_route, chooses
+// before any launch, and no route is taken because another failed):
+//
+//   the tensor cores, for T <= ATT_TMAX (32), head dims in whole 8-column
+//     slices and a pair's rows within ATT_SMEM_MAX: attention_bwd_mma_kernel
+//     of pair_attention_sm90.cuh, the kernel that B2b and B5 run, a block
+//     per pair with its rows staged by bulk copies and every product on
+//     mma.sync.  B4a is its forward mode (datt null); B4b its backward mode
+//     with att null, which skips the P V product and the att write;
+//   the CUDA cores, for every other shape (veto.patch_size 1 gives 67
+//     tokens): pair_attn_fwd_kernel and pair_attn_bwd_kernel below, one
+//     128-thread block per (pair, head) with q, k, v (and dO) of the head
+//     in shared memory as f32 and the scores next to them; the operands are
+//     read once from device memory, the products run serially in f32.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "pair_attention_sm90.cuh"
 
-typedef __nv_bfloat16 bf16;
-
+// ----------------------------------------------------------------------------
+// The CUDA-core route: B4a's and B4b's first kernels, kept for the shapes
+// the tensor-core kernel does not take.
+// ----------------------------------------------------------------------------
 constexpr int PA_THREADS = 128;
-
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16(v));
-}
 
 // Loads rows [row0, row0 + t_pad) of columns [col0, col0 + dh) of a
 // (rows, ld) bf16 matrix into a t_pad x (dh + 1) f32 tile.
@@ -174,55 +188,94 @@ extern "C" const char* veto_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// Shared memory of one block for (t_pad, dh), in bytes.
-extern "C" int pair_attention_smem_bytes(int t_pad, int dh, int backward) {
-  const int tiles = backward ? 4 : 3, scores = backward ? 2 : 1;
-  return (tiles * t_pad * (dh + 1) + scores * t_pad * (t_pad + 1)) *
-         (int)sizeof(float);
+// 1 if the tensor-core kernel takes pairs of t tokens of width d in `heads`
+// heads, else 0 (the CUDA-core route): ops/pair_attention.py kernel_route
+// mirrors it.
+extern "C" int pair_attention_route(int t, int d, int heads) {
+  return attention_takes(t, d, heads) ? 1 : 0;
 }
 
-static int launch_smem(const void* kern, int smem) {
-  if (smem > 48 * 1024)
+// Shared memory of one block of the tensor-core kernel (att_smem_bytes).
+extern "C" int pair_attention_smem_bytes(int t, int d) {
+  return att_smem_bytes(t, d);
+}
+
+// Shared memory of one block of the CUDA-core kernels for (t, dh), in bytes
+// (ops/pair_attention.py cuda_core_smem_bytes mirrors it).
+extern "C" int pair_attention_cuda_core_smem_bytes(int t, int dh, int backward) {
+  const int tiles = backward ? 4 : 3, scores = backward ? 2 : 1;
+  return (tiles * t * (dh + 1) + scores * t * (t + 1)) * (int)sizeof(float);
+}
+constexpr int CC_SMEM_MAX = 200 * 1024;
+
+static int cuda_core_args(int t, int t_valid, int heads, int d, int backward,
+                          const void* kern, int* smem) {
+  if (heads < 1 || d % heads || t_valid < 1 || t_valid > t)
+    return (int)cudaErrorInvalidValue;
+  *smem = pair_attention_cuda_core_smem_bytes(t, d / heads, backward);
+  if (*smem > CC_SMEM_MAX) return (int)cudaErrorInvalidValue;
+  if (*smem > 48 * 1024)
     return (int)cudaFuncSetAttribute(kern,
                                      cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                     smem);
+                                     *smem);
   return 0;
 }
 
-// B4a.  q, k, v: (pairs * t_pad) rows of ld_in bf16 each, the head block at
-// columns [h dh, (h + 1) dh); out: rows of ld_out.  scale = dh**-0.5 rounded
-// once to f32.  Returns cudaGetLastError() after the launch.
-extern "C" int pair_attention_forward(const void* q, const void* k,
-                                      const void* v, int ld_in, void* out,
-                                      int ld_out, int pairs, int t_pad,
-                                      int t_valid, int heads, int dh,
+// B4a on the tensor cores.  qkv (pairs t, 3d) bf16 in, att (pairs t, d)
+// bf16 out, both 16-byte aligned; scale = dh**-0.5 rounded once to f32.
+// Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue
+// for a shape that pair_attention_route gives to the CUDA cores.
+extern "C" int pair_attention_forward(const void* qkv, void* att, int pairs,
+                                      int t, int t_valid, int heads, int d,
                                       float scale, void* stream) {
-  const int smem = pair_attention_smem_bytes(t_pad, dh, 0);
-  int err = launch_smem((const void*)pair_attn_fwd_kernel, smem);
-  if (err) return err;
+  return launch_attention((const bf16*)qkv, nullptr, (bf16*)att, nullptr, pairs,
+                          heads, t, t_valid, d, scale, (cudaStream_t)stream);
+}
+
+// B4b on the tensor cores.  As above, with dout (pairs t, d) in and dqkv
+// (pairs t, 3d: dq, dk, dv) out; no att is written.
+extern "C" int pair_attention_backward(const void* qkv, const void* dout,
+                                       void* dqkv, int pairs, int t,
+                                       int t_valid, int heads, int d,
+                                       float scale, void* stream) {
+  return launch_attention((const bf16*)qkv, (const bf16*)dout, nullptr,
+                          (bf16*)dqkv, pairs, heads, t, t_valid, d, scale,
+                          (cudaStream_t)stream);
+}
+
+// B4a on the CUDA cores: the arguments of pair_attention_forward, for any
+// t whose block fits CC_SMEM_MAX.
+extern "C" int pair_attention_forward_cuda_cores(const void* qkv, void* att,
+                                                 int pairs, int t, int t_valid,
+                                                 int heads, int d, float scale,
+                                                 void* stream) {
+  int smem, err;
+  if ((err = cuda_core_args(t, t_valid, heads, d, 0,
+                            (const void*)pair_attn_fwd_kernel, &smem)))
+    return err;
+  const bf16* q = (const bf16*)qkv;
   pair_attn_fwd_kernel<<<dim3(pairs, heads), PA_THREADS, smem,
-                         (cudaStream_t)stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, ld_in, (bf16*)out,
-      ld_out, t_pad, t_valid, dh, scale);
+                         (cudaStream_t)stream>>>(q, q + d, q + 2 * d, 3 * d,
+                                                 (bf16*)att, d, t, t_valid,
+                                                 d / heads, scale);
   return (int)cudaGetLastError();
 }
 
-// B4b.  As above, with dout (rows of ld_do) in and dq, dk, dv (rows of
-// ld_out each; the thirds of one packed buffer when ld_out = 3 D) out.
-extern "C" int pair_attention_backward(const void* q, const void* k,
-                                       const void* v, int ld_in,
-                                       const void* dout, int ld_do, void* dq,
-                                       void* dk, void* dv, int ld_out,
-                                       int pairs, int t_pad, int t_valid,
-                                       int heads, int dh, float scale,
-                                       void* stream) {
-  const int smem = pair_attention_smem_bytes(t_pad, dh, 1);
-  int err = launch_smem((const void*)pair_attn_bwd_kernel, smem);
-  if (err) return err;
+// B4b on the CUDA cores: the arguments of pair_attention_backward.
+extern "C" int pair_attention_backward_cuda_cores(const void* qkv,
+                                                  const void* dout, void* dqkv,
+                                                  int pairs, int t, int t_valid,
+                                                  int heads, int d, float scale,
+                                                  void* stream) {
+  int smem, err;
+  if ((err = cuda_core_args(t, t_valid, heads, d, 1,
+                            (const void*)pair_attn_bwd_kernel, &smem)))
+    return err;
+  const bf16* q = (const bf16*)qkv;
+  bf16* g = (bf16*)dqkv;
   pair_attn_bwd_kernel<<<dim3(pairs, heads), PA_THREADS, smem,
                          (cudaStream_t)stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, ld_in,
-      (const bf16*)dout, ld_do, (bf16*)dq, (bf16*)dk, (bf16*)dv, ld_out,
-      t_pad, t_valid, dh, scale);
+      q, q + d, q + 2 * d, 3 * d, (const bf16*)dout, d, g, g + d, g + 2 * d,
+      3 * d, t, t_valid, d / heads, scale);
   return (int)cudaGetLastError();
 }

@@ -75,7 +75,7 @@ MONO_BWD_LAUNCHES = 0
 # the most rows its grid takes (65,535 row tiles)
 GEMM_BM, GEMM_BN, GEMM_BK = 128, 192, 64
 MAX_ROWS = 65535 * GEMM_BM
-# The attention backward (csrc/encoder_layer_bwd.cu: ATT_TMAX, ATT_SMEM_MAX):
+# The attention backward (csrc/pair_attention_sm90.cuh: ATT_TMAX, ATT_SMEM_MAX):
 # tokens padded to two 16-row tiles, a pair's rows staged in one block's
 # shared memory; and the widest row the LayerNorm backward keeps in a
 # warp's registers (LNB_MAX_D)
@@ -383,7 +383,7 @@ def splitk_count(m: int, n: int, k: int, sms: int) -> int:
 
 def attention_bwd_smem_bytes(t_pad: int, d: int) -> int:
     """Shared memory of the attention backward kernel for ``t_pad`` tokens of
-    width ``d``: ``att_smem_bytes`` of ``csrc/encoder_layer_bwd.cu`` (the
+    width ``d``: ``att_smem_bytes`` of ``csrc/pair_attention_sm90.cuh`` (the
     zero block and mbarrier, six pairs of 32 x 32 bf16 tiles, and the pair's
     qkv and datt rows, each padded to an odd number of 16-byte units)."""
     def row(cols):

@@ -19,13 +19,35 @@ is B4a and whose backward is B4b on the card (bf16), and the plain versions
 :func:`reference_pair_attention_forward` /
 :func:`reference_pair_attention_backward` on the CPU.  It is the form the
 encoder uses: q, k, v are the thirds of one packed (P, T, 3D) qkv, which
-the kernels read in place with a row stride of 3D, and whose gradient B4b
-writes packed, so autograd takes it without a copy.  :func:`pair_attention`
-keeps the JAX package's signature (q, k, v apart).
+the kernels read in place, and whose gradient B4b writes packed, so
+autograd takes it without a copy.  :func:`pair_attention` keeps the JAX
+package's signature (q, k, v apart) and packs them with one copy.
 
-Bound on the H100: memory.  At the PredCls train shape (12,288 pairs x 19
-tokens x 576) B4a moves 1.08 GB (~0.32 ms at 3.35 TB/s) and B4b 1.88 GB
-(~0.56 ms), against ~10 and ~30 GFLOP.
+On the card two routes, chosen by :func:`kernel_route` from (T, D, heads)
+alone before any launch (``pair_attention_route`` of the C code holds the
+same rule):
+
+- ``"tensor_cores"`` for T <= 32 with head dims in whole 8-column slices:
+  the tensor-core attention of ``csrc/pair_attention_sm90.cuh`` that B2b and
+  B5 run, a block per pair whose rows are staged by bulk copies, every
+  product on ``mma.sync``; B4a is its forward mode, B4b its backward mode
+  without the att write.  Counted in ``KERNEL_LAUNCHES`` / ``BWD_LAUNCHES``.
+- ``"cuda_cores"`` for every other shape (``veto.patch_size`` 1 gives 67
+  tokens): a block per (pair, head), f32 tiles and serial products on the
+  CUDA cores.  Counted in ``CUDA_CORE_LAUNCHES`` /
+  ``CUDA_CORE_BWD_LAUNCHES``.
+
+No route is taken because another failed to build or launch: a launch
+error raises.  Both take the layout above only: the thirds of one
+contiguous bf16 (P, T, 3D) qkv, a contiguous dO and the thirds of one
+(P, T, 3D) dqkv, each 16-byte aligned (the bulk copies'); anything else is
+a ``ValueError`` or ``TypeError`` before any library is loaded.
+
+Bound on the H100: bytes.  B4a reads qkv and writes att: 1.43 GB at the
+PredCls eval shape (16,384 pairs x 19 tokens x 576), 0.428 ms at 3.35
+TB/s, and 1.08 GB (0.321 ms) at the train shape (12,288 pairs).  B4b reads
+qkv and dO and writes dqkv: 1.88 GB, 0.562 ms at the train shape.  Their
+operations (~0.02 and ~0.05 TFLOP) are far below either.
 """
 
 from __future__ import annotations
@@ -35,11 +57,18 @@ import ctypes
 import torch
 
 from . import cuda_lib
+from .fused_encoder import ATT_SMEM_MAX, ATT_TMAX, attention_bwd_smem_bytes
 
 _NEG = -1e9
-# CUDA kernel launches since the last reset: B4a (forward), B4b (backward)
+# CUDA kernel launches since the last reset: B4a (forward) and B4b
+# (backward) on the tensor cores, and on the CUDA cores
 KERNEL_LAUNCHES = 0
 BWD_LAUNCHES = 0
+CUDA_CORE_LAUNCHES = 0
+CUDA_CORE_BWD_LAUNCHES = 0
+# the most shared memory a block of the CUDA-core kernels may take
+# (csrc/pair_attention.cu: CC_SMEM_MAX)
+CUDA_CORE_SMEM_MAX = 200 * 1024
 
 
 def _split_heads(x: torch.Tensor, heads: int) -> torch.Tensor:
@@ -147,81 +176,146 @@ def pair_attention_qkv(qkv: torch.Tensor, heads: int = 6, *,
 
 
 # ------------------------------------------------------------------ kernels
-def _row_stride(name: str, a: torch.Tensor, like: torch.Tensor) -> int:
-    """The row stride of a (P, T, D) operand whose rows are pairs * T
-    evenly spaced rows of contiguous D; raises on anything else."""
-    p, t, d = like.shape
-    if a.dim() != 3 or tuple(a.shape) != (p, t, d):
-        raise ValueError(f"{name}: need shape {(p, t, d)}, got {tuple(a.shape)}")
-    if a.dtype != torch.bfloat16 or a.device != like.device:
-        raise TypeError(f"{name}: the kernel takes bf16 on {like.device}, "
-                        f"got {a.dtype} on {a.device}")
-    ld = a.stride(1)
-    if a.stride(2) != 1 or a.stride(0) != t * ld or ld < d:
-        raise ValueError(f"{name}: need rows of contiguous D spaced evenly over "
-                         f"pairs and tokens, got strides {a.stride()}")
-    return ld
+def cuda_core_smem_bytes(t: int, dh: int, backward: bool) -> int:
+    """Shared memory of a block of the CUDA-core kernels: the head's q, k, v
+    (and dO) as f32 tiles of t x (dh + 1) and one (two) t x (t + 1) score
+    tiles (``pair_attention_cuda_core_smem_bytes`` of the C code)."""
+    tiles, scores = (4, 2) if backward else (3, 1)
+    return (tiles * t * (dh + 1) + scores * t * (t + 1)) * 4
 
 
-def _check(q, k, v, heads):
-    ld = _row_stride("q", q, q)
-    if _row_stride("k", k, q) != ld or _row_stride("v", v, q) != ld:
-        raise ValueError("q, k and v must share one row stride")
-    d = q.shape[-1]
+def kernel_route(t: int, d: int, heads: int) -> str:
+    """The kernel that takes pairs of ``t`` tokens of width ``d`` in
+    ``heads`` heads on the card: ``"tensor_cores"`` for t up to
+    ``ATT_TMAX`` (32) with head dims in whole 8-column slices and a pair's
+    rows within ``ATT_SMEM_MAX`` of shared memory, else ``"cuda_cores"``.
+    A function of the shape alone, so a path takes one route on every
+    call."""
+    dh = d // heads
+    if t <= ATT_TMAX and dh % 8 == 0 and attention_bwd_smem_bytes(t, d) <= ATT_SMEM_MAX:
+        return "tensor_cores"
+    return "cuda_cores"
+
+
+def _packed(name: str, thirds, p: int, t: int, d: int) -> torch.Tensor:
+    """The first third of ``thirds`` when they are the three (P, T, D)
+    thirds of one contiguous bf16 (P, T, 3D) buffer, 16-byte aligned;
+    raises on anything else."""
+    for a in thirds:
+        if a.dim() != 3 or tuple(a.shape) != (p, t, d):
+            raise ValueError(f"{name}: need thirds of shape {(p, t, d)}, got "
+                             f"{tuple(a.shape)}")
+        if a.dtype != torch.bfloat16:
+            raise TypeError(f"{name}: the kernels take bf16, got {a.dtype}")
+    base = thirds[0]
+    want = (t * 3 * d, 3 * d, 1)
+    for i, a in enumerate(thirds):
+        strides_ok = all(n == 1 or s == w for n, s, w in zip(a.shape, a.stride(), want))
+        if (not strides_ok or a.device != base.device
+                or a.untyped_storage().data_ptr() != base.untyped_storage().data_ptr()
+                or a.data_ptr() != base.data_ptr() + 2 * d * i):
+            raise ValueError(
+                f"{name}: need the thirds of one contiguous (P, T, 3D) buffer "
+                f"(row stride 3D = {3 * d}), got strides "
+                f"{[tuple(x.stride()) for x in thirds]} at offsets "
+                f"{[x.data_ptr() - base.data_ptr() for x in thirds]} bytes")
+    if base.data_ptr() % 16:
+        raise ValueError(f"{name}: the base must be 16-byte aligned (the bulk "
+                         "copies'), got an address of "
+                         f"{base.data_ptr() % 16} mod 16")
+    return base
+
+
+def _check(q, k, v, heads, t_valid, route):
+    """Refuse a layout or shape the kernels do not take, before any library
+    is loaded; returns (qkv base, route).  A CUDA-core shape must fit both
+    directions' blocks, so that a path that trains never meets a refusal in
+    its backward only."""
+    if q.dim() != 3:
+        raise ValueError(f"q: need (P, T, D), got {tuple(q.shape)}")
+    p, t, d = q.shape
     if d % heads:
         raise ValueError(f"D={d} does not split into {heads} heads")
+    base = _packed("q, k, v", (q, k, v), p, t, d)
+    if not 1 <= t_valid <= t:
+        raise ValueError(f"t_valid={t_valid} outside 1..{t}")
+    best = kernel_route(t, d, heads)
+    route = best if route is None else route
+    if route not in ("tensor_cores", "cuda_cores") or (
+            route == "tensor_cores" and best != route):
+        raise ValueError(f"route {route!r}: T={t}, D={d}, {heads} heads take "
+                         f"{best!r}")
+    if route == "cuda_cores" and cuda_core_smem_bytes(
+            t, d // heads, True) > CUDA_CORE_SMEM_MAX:
+        raise ValueError(f"T={t}, head dim {d // heads}: the CUDA-core kernels' "
+                         f"tiles exceed {CUDA_CORE_SMEM_MAX} bytes of shared memory")
+    return base, route
+
+
+def _need_cuda(q):
+    """Last of the checks, so that the CPU tests reach every other one."""
     if not q.is_cuda:
         raise TypeError("the pair-attention kernels take CUDA tensors")
+
+
+def _entry(route: str, which: str):
+    """The C entry point of ``which`` ("forward" or "backward") on
+    ``route``, with its argument types."""
     lib = cuda_lib.library("pair_attention")
-    lib.pair_attention_smem_bytes.restype = ctypes.c_int
-    lib.pair_attention_smem_bytes.argtypes = [ctypes.c_int] * 3
-    if lib.pair_attention_smem_bytes(q.shape[1], d // heads, 1) > 200 * 1024:
-        raise ValueError(f"T={q.shape[1]}, head dim {d // heads}: the tile "
-                         "exceeds 200 KB of shared memory")
-    return lib, ld
+    fn = getattr(lib, f"pair_attention_{which}"
+                 + ("_cuda_cores" if route == "cuda_cores" else ""))
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * (2 if which == "forward" else 3)
+                   + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p])
+    return lib, fn
 
 
-def _launch_forward(q, k, v, heads, t_valid):
-    """B4a → (P, T, D) bf16."""
-    global KERNEL_LAUNCHES
-    lib, ld = _check(q, k, v, heads)
+def _launch_forward(q, k, v, heads, t_valid, route=None):
+    """B4a on ``route`` (default :func:`kernel_route`'s) → (P, T, D) bf16."""
+    global KERNEL_LAUNCHES, CUDA_CORE_LAUNCHES
+    base, route = _check(q, k, v, heads, t_valid, route)
+    _need_cuda(q)
     p, t, d = q.shape
     out = torch.empty((p, t, d), dtype=q.dtype, device=q.device)
     if p == 0:
         return out
-    fn = lib.pair_attention_forward
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
-                   + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p])
-    status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), ld, out.data_ptr(), d,
-                p, t, t_valid, heads, d // heads, float((d // heads) ** -0.5),
-                cuda_lib.stream_ptr(q.device))
-    cuda_lib.check(lib, status, "pair_attention_forward")
-    KERNEL_LAUNCHES += 1
+    lib, fn = _entry(route, "forward")
+    status = fn(base.data_ptr(), out.data_ptr(), p, t, t_valid, heads, d,
+                float((d // heads) ** -0.5), cuda_lib.stream_ptr(q.device))
+    cuda_lib.check(lib, status, f"pair_attention_forward ({route})")
+    if route == "tensor_cores":
+        KERNEL_LAUNCHES += 1
+    else:
+        CUDA_CORE_LAUNCHES += 1
     return out
 
 
-def _launch_backward(q, k, v, do, heads, t_valid, out):
-    """B4b: dq, dk, dv (bf16, one row stride) into ``out``."""
-    global BWD_LAUNCHES
-    lib, ld = _check(q, k, v, heads)
-    ld_do = _row_stride("do", do, q)
-    dq, dk, dv = out
-    ld_out = _row_stride("dq", dq, q)
-    if _row_stride("dk", dk, q) != ld_out or _row_stride("dv", dv, q) != ld_out:
-        raise ValueError("dq, dk and dv must share one row stride")
+def _launch_backward(q, k, v, do, heads, t_valid, out, route=None):
+    """B4b on ``route`` (default :func:`kernel_route`'s): dq, dk, dv into
+    ``out``, the thirds of one (P, T, 3D) bf16 buffer."""
+    global BWD_LAUNCHES, CUDA_CORE_BWD_LAUNCHES
+    base, route = _check(q, k, v, heads, t_valid, route)
     p, t, d = q.shape
+    if do.dtype != torch.bfloat16:
+        raise TypeError(f"do: the kernels take bf16, got {do.dtype}")
+    if tuple(do.shape) != (p, t, d) or do.device != q.device:
+        raise ValueError(f"do: need {(p, t, d)} on {q.device}, got "
+                         f"{tuple(do.shape)} on {do.device}")
+    if not do.is_contiguous() or do.data_ptr() % 16:
+        raise ValueError("do: need a contiguous (P, T, D) tensor, 16-byte "
+                         f"aligned, got strides {do.stride()}")
+    grad = _packed("dq, dk, dv", out, p, t, d)
+    if grad.device != q.device:
+        raise ValueError(f"dq, dk, dv on {grad.device}, q on {q.device}")
+    _need_cuda(q)
     if p == 0:
         return
-    fn = lib.pair_attention_backward
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p,
-                                            ctypes.c_int]
-                   + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
-                   + [ctypes.c_float, ctypes.c_void_p])
-    status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), ld, do.data_ptr(),
-                ld_do, dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), ld_out, p, t,
-                t_valid, heads, d // heads, float((d // heads) ** -0.5),
+    lib, fn = _entry(route, "backward")
+    status = fn(base.data_ptr(), do.data_ptr(), grad.data_ptr(), p, t, t_valid,
+                heads, d, float((d // heads) ** -0.5),
                 cuda_lib.stream_ptr(q.device))
-    cuda_lib.check(lib, status, "pair_attention_backward")
-    BWD_LAUNCHES += 1
+    cuda_lib.check(lib, status, f"pair_attention_backward ({route})")
+    if route == "tensor_cores":
+        BWD_LAUNCHES += 1
+    else:
+        CUDA_CORE_BWD_LAUNCHES += 1

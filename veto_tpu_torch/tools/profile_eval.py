@@ -33,9 +33,12 @@ import torch
 
 # kernels of veto_tpu_torch/csrc, by the name the profiler shows (the GEMM
 # core of csrc/gemm_sm90.cuh carries every encoder product, forward and
-# backward)
+# backward; attention_bwd_mma_kernel, the tensor-core attention of
+# csrc/pair_attention_sm90.cuh, is B4a on the pair_attn path and, in a
+# train step, also B4b's and B2b's attention)
 OWN_KERNELS = ("gemm_sm90_kernel", "pair_attention_kernel", "layernorm_kernel",
-               "roi_align_fwd_kernel", "pair_attn_fwd_kernel")
+               "roi_align_fwd_kernel", "attention_bwd_mma_kernel",
+               "pair_attn_fwd_kernel")
 
 
 def _stage_timer(named_modules):
