@@ -73,7 +73,29 @@ catches its own failure:
     ``fused_encoder.FUSED_SPLIT = False`` (B1 6, B5 6, B3 2, B3-bwd 1 per
     step), 3 more with ``FUSED_STASH = False`` too, and one step's
     gradients against the plain versions; both constants restored after.
-13. One JSON line ``{"kernels": [...]}`` (all eight kernels; ``launches``
+13. Training and evaluation from Visual-Genome-shaped data at full width
+    (``VGShapedDataset``: VG's image sizes, both aspects, up to 80 boxes,
+    in memory, since the card's machine has neither the VG files nor h5py):
+    the port's host ops (built by ``g++``) against the NumPy pipeline; the
+    loader's images/s; an eval batch's pinned non-blocking copy against the
+    pageable one; a reference-format detector state dict written with
+    ``torch.save`` and imported through ``model.pretrained_detector_ckpt``
+    with ``fold_bn`` false and true (every tensor equal to the reference
+    under the mapping, both pyramids equal in f32, both models' logits
+    against their plain versions, and against each other with the detector
+    in f32 and in bf16);
+    ``relation_train_net.train`` through ``SGGLoader`` and the device feeder
+    for 6 steps (both buckets, exact launch counts at every step and at the
+    validation of step 4, whose two batches are landscape and the 1344 x
+    1344 envelope; checkpoints at 3 and 6; the validation's mR@100 in the
+    plateau controller); the step-6 checkpoint restored on the CPU and by
+    ``relation_test_net.evaluate``, which reproduces the step-6 model's
+    validation exactly; a second ``train`` resumed from step 3 bit-equal to
+    3 + 3 steps on the resumed stream without a save; the step fed from
+    memory; checkpoint save and restore times; then both buckets' step
+    gradients and the three eval shapes' logits against the plain versions,
+    and B3 / B3-bwd at the portrait and envelope shapes.
+14. One JSON line ``{"kernels": [...]}`` (all eight kernels; ``launches``
     from the training path that runs each) and, last,
     ``{"ok": true, "device": {...}}``.
 
@@ -85,6 +107,7 @@ exits 2 before printing any result.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import json
 import os
@@ -124,20 +147,27 @@ def device_ms(fn, kernel: str, calls: int) -> float:
     wrapper's time by CUDA events also counts the host's work between its
     launches, when the card waits for it).  Divided by the launches the
     trace holds, not by ``calls``: a trace that misses launches would
-    otherwise read short."""
+    otherwise read short.  A trace that holds no launch at all (CUPTI
+    drops a trace's records now and then on the card) is taken again, up to
+    three times."""
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    us, n = 0.0, 0
-    for e in prof.key_averages():
-        if (kernel in e.key and e.device_type == torch.autograd.DeviceType.CUDA
-                and (getattr(e, "self_device_time_total", 0) or 0) > 0):
-            us += e.self_device_time_total
-            n += e.count
+    for attempt in range(3):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU,
+                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        us, n = 0.0, 0
+        for e in prof.key_averages():
+            if (kernel in e.key and e.device_type == torch.autograd.DeviceType.CUDA
+                    and (getattr(e, "self_device_time_total", 0) or 0) > 0):
+                us += e.self_device_time_total
+                n += e.count
+        if n:
+            break
+        print(f"  ({kernel}: trace {attempt + 1} holds no launch)")
     if n == 0:
         raise AssertionError(f"the trace holds no launch of {kernel}")
     if n != calls:
@@ -499,9 +529,7 @@ def phase_main_path(opts=(), n_batches=3, encoder="fused_encoder_layer"):
     batches; per batch exactly ``layers`` launches of the ``encoder``
     kernel, 2 of ROIAlign and none of any other kernel."""
     from veto_tpu_torch.config import load_config
-    from veto_tpu_torch.models.relation.sampling import prepare_test_pairs
     from veto_tpu_torch.models.sgg import build_model
-    from veto_tpu_torch.ops import cuda_lib
     from veto_tpu_torch.tools.relation_test_net import (
         evaluate, synthetic_eval_dataset,
     )
@@ -541,23 +569,59 @@ def phase_main_path(opts=(), n_batches=3, encoder="fused_encoder_layer"):
     # one batch through the kernels and through the plain versions
     bsz = cfg.test.ims_per_batch
     batch, _ = next(synthetic_eval_dataset(cfg, bsz).batches(bsz, cfg.data.max_boxes))
-    b = batch.to(DEVICE)
+    check_eval_batch(model, cfg, batch.to(DEVICE))
+
+
+@contextlib.contextmanager
+def f32_frozen_bn():
+    """Every FrozenBatchNorm applies its scale and bias in f32 and rounds
+    its output to the input's dtype once (a reading of the bf16 rounding of
+    the unfolded layout, not a layout of the port)."""
+    from veto_tpu_torch.models.backbone.resnet import FrozenBatchNorm
+
+    plain = FrozenBatchNorm.forward
+
+    def forward(self, x):
+        return (x.float() * self.weight.float()[:, None, None]
+                + self.bias.float()[:, None, None]).to(x.dtype)
+
+    FrozenBatchNorm.forward = forward
+    try:
+        yield
+    finally:
+        FrozenBatchNorm.forward = plain
+
+
+def eval_logits(model, cfg, b):
+    """One eval batch's ``rel_logits``, the model in eval mode."""
+    from veto_tpu_torch.models.relation.sampling import prepare_test_pairs
+
+    model.eval()
     with torch.inference_mode():
         pair_idx, pair_mask = prepare_test_pairs(
             b.box_mask, b.box_mask.float(), cfg.relation.max_proposal_pairs)
-        args = (b.images, b.depth, b.boxes, b.box_mask, b.labels,
-                b.obj_logits, pair_idx, pair_mask)
-        got = model(*args).rel_logits
-        with cuda_lib.plain_kernels():
-            ref = model(*args).rel_logits
+        return model(b.images, b.depth, b.boxes, b.box_mask, b.labels,
+                     b.obj_logits, pair_idx, pair_mask).rel_logits
+
+
+def check_eval_batch(model, cfg, b, what="rel_logits kernels vs plain"):
+    """One eval batch's ``rel_logits`` through the kernels against the same
+    model through the plain versions; returns the kernels' logits."""
+    from veto_tpu_torch.ops import cuda_lib
+
+    bsz = b.images.shape[0]
+    got = eval_logits(model, cfg, b)
+    with cuda_lib.plain_kernels():
+        ref = eval_logits(model, cfg, b)
     want = (bsz, cfg.relation.max_proposal_pairs, cfg.relation.num_classes)
     if tuple(got.shape) != want or got.dtype != torch.float32:
         raise AssertionError(f"rel_logits {tuple(got.shape)} {got.dtype}, want {want}")
     # bf16 through six layers: a rounding flip anywhere moves the logits by
     # about a bf16 ulp of their scale; hold max and mean to that scale
     scale = float(ref.abs().max())
-    check_close("rel_logits kernels vs plain", got, ref, atol=0.05 * scale,
-                rtol=0.0, mean_tol=0.01 * float(ref.abs().mean()))
+    check_close(what, got, ref, atol=0.05 * scale, rtol=0.0,
+                mean_tol=0.01 * float(ref.abs().mean()))
+    return got
 
 
 # ------------------------------------------------------------------ phase 6
@@ -1252,6 +1316,9 @@ def expected(**launches):
     return {name: launches.get(name, 0) for name in COUNTERS}
 
 
+LAST_TRAIN = {}  # the main path's training run: from-memory step times
+
+
 def phase_train(steps=5, opts=(), encoder=("fused_encoder_layer",
                                            "encoder_ffn_bwd", "encoder_att_bwd"),
                 what="main path"):
@@ -1264,7 +1331,8 @@ def phase_train(steps=5, opts=(), encoder=("fused_encoder_layer",
     from veto_tpu_torch.tools.relation_train_net import train
 
     cfg = load_config(os.path.join(ROOT, "configs", "veto_vg_predcls.yaml"),
-                      [f"solver.max_iter={steps}", *opts])
+                      [f"solver.max_iter={steps}", f"output_dir={scratch_dir()}",
+                       *opts])
     model = build_model(cfg)  # cuda, seeded weights
     layers = cfg.veto.enc_layers
     per_step = expected(**{k: layers for k in encoder}, multilevel_roi_align=2,
@@ -1284,6 +1352,9 @@ def phase_train(steps=5, opts=(), encoder=("fused_encoder_layer",
     counts = []
 
     def log(line):
+        if not line.startswith("iter "):  # the final checkpoint's line
+            print(f"  {line}")
+            return
         counts.append(read_counters(reset=True))
         print(f"  {line}  launches {json.dumps(counts[-1])}")
 
@@ -1294,9 +1365,14 @@ def phase_train(steps=5, opts=(), encoder=("fused_encoder_layer",
     peak = torch.cuda.max_memory_allocated()
     total = {k: sum(c[k] for c in counts) for k in per_step}
     ms = 1e3 * float(np.mean([r["seconds"] for r in history[1:]]))
+    fed = 1e3 * float(np.mean([r["step_seconds"] for r in history[1:]]))
+    wait = 1e3 * float(np.mean([r["wait_seconds"] for r in history[1:]]))
     print(f"  [{what}] after warm-up {ms:.1f} ms per step "
           f"({[round(1e3 * r['seconds'], 1) for r in history]}); peak memory "
-          f"{peak / 2 ** 30:.2f} GiB")
+          f"{peak / 2 ** 30:.2f} GiB; {fed:.1f} ms from one update's end to "
+          f"the next, {wait:.1f} ms of it waiting for a batch")
+    if what == "main path":
+        LAST_TRAIN.update(fed_ms=fed, wait_share=wait / fed)
     if len(history) != steps:
         raise AssertionError(f"{len(history)} steps ran, not {steps}")
     for i, c in enumerate(counts):
@@ -1322,9 +1398,11 @@ def phase_train(steps=5, opts=(), encoder=("fused_encoder_layer",
     return state, total
 
 
-def phase_train_grads(state, opts=(), what="main path"):
+def phase_train_grads(state, opts=(), what="main path", b=None):
     """One step's gradients through the kernels against the same step
-    through the plain versions, on the card, from the trained state."""
+    through the plain versions, on the card, from the trained state; on
+    the synthetic train split's first batch unless a device batch ``b`` is
+    given."""
     from veto_tpu_torch.config import load_config
     from veto_tpu_torch.engine.train import forward_backward, sample_pairs
     from veto_tpu_torch.ops import cuda_lib
@@ -1332,13 +1410,16 @@ def phase_train_grads(state, opts=(), what="main path"):
 
     cfg = load_config(os.path.join(ROOT, "configs", "veto_vg_predcls.yaml"),
                       list(opts))
-    bsz = cfg.solver.ims_per_batch
-    batch, _ = next(synthetic_train_dataset(cfg).batches(bsz, cfg.data.max_boxes))
-    b = batch.to(DEVICE)
+    if b is None:
+        bsz = cfg.solver.ims_per_batch
+        batch, _ = next(synthetic_train_dataset(cfg).batches(bsz, cfg.data.max_boxes))
+        b = batch.to(DEVICE)
+    bsz = b.images.shape[0]
     gen = torch.Generator(device=DEVICE).manual_seed(1)
     samples = sample_pairs(b, gen, cfg.relation.batch_size_per_image,
                            cfg.relation.positive_fraction)
-    print(f"[train grads, {what}] one step's gradients, kernels vs plain: {bsz} images, "
+    print(f"[train grads, {what}] one step's gradients, kernels vs plain: {bsz} "
+          f"images of {tuple(b.images.shape[1:3])}, "
           f"{cfg.relation.batch_size_per_image} pairs an image")
     params = [(n, p) for n, p in state.model.named_parameters() if p.requires_grad]
 
@@ -1429,6 +1510,525 @@ def phase_paths():
     return pa_launches, mono_launches
 
 
+# ------------------------------------------------------------------ phase 13
+class VGShapedDataset:
+    """An in-memory dataset with the Visual Genome reader's interface
+    (``get_groundtruth``, ``idx_list``, ``load_image``, ``load_image_raw``
+    and ``image_size`` for the loader's fused path, ``load_depth``, and
+    ``img_info`` / ``gt_classes`` / ``relationships`` for the zero-shot
+    triplets): raw u8 images at VG's own sizes (longest side 450-500),
+    portrait where ``portrait`` says so, 20-80 boxes at the image's scale
+    with 5-30 relations among them, and a 16-bit depth map; all drawn
+    from ``seed``.  It stands in for the VG files, which the card's machine
+    does not have (nor h5py or PIL to read them)."""
+
+    def __init__(self, portrait, seed, num_obj=151, num_rel=51, max_boxes=80):
+        rng = np.random.RandomState(seed)
+        self.img_info, self.gt_classes, self.relationships = [], [], []
+        self._images, self._depth, self._boxes = [], [], []
+        for i, tall in enumerate(portrait):
+            long, short = int(rng.randint(450, 501)), int(rng.randint(300, 376))
+            w, h = (short, long) if tall else (long, short)
+            n = int(rng.randint(20, max_boxes + 1))
+            x1, y1 = rng.uniform(0, w * 0.7, n), rng.uniform(0, h * 0.7, n)
+            x2 = np.minimum(x1 + rng.uniform(w * 0.05, w * 0.3, n), w - 1)
+            y2 = np.minimum(y1 + rng.uniform(h * 0.05, h * 0.3, n), h - 1)
+            pairs = rng.choice(n * n, size=int(rng.randint(5, 31)), replace=False)
+            subj, obj = pairs // n, pairs % n
+            keep = subj != obj
+            self.relationships.append(np.stack(
+                [subj[keep], obj[keep], rng.randint(1, num_rel, int(keep.sum()))],
+                1).astype(np.int64))
+            self.img_info.append({"image_id": 10000 + i, "width": w, "height": h})
+            self.gt_classes.append(rng.randint(1, num_obj, n).astype(np.int64))
+            self._boxes.append(np.stack([x1, y1, x2, y2], 1).astype(np.float32))
+            self._images.append(rng.randint(0, 256, (h, w, 3), dtype=np.uint8))
+            self._depth.append(rng.randint(0, 65536, (h, w)).astype(np.float32))
+        self.idx_list = list(range(len(portrait)))
+
+    def __len__(self):
+        return len(self.idx_list)
+
+    def get_groundtruth(self, index, inner_idx=True):
+        index = index if inner_idx else self.idx_list[index]
+        info, rels = self.img_info[index], self.relationships[index]
+        n = len(self._boxes[index])
+        rel_matrix = np.zeros((n, n), np.int64)
+        rel_matrix[rels[:, 0], rels[:, 1]] = rels[:, 2]
+        return {"boxes": self._boxes[index].copy(),
+                "labels": self.gt_classes[index].astype(np.int32),
+                "rel_matrix": rel_matrix, "rel_tuples": rels,
+                "size": np.array([info["width"], info["height"]], np.int32),
+                "image_id": info["image_id"]}
+
+    def load_image(self, index):
+        return self._images[index].astype(np.float32) / 255.0
+
+    def load_image_raw(self, index):
+        return self._images[index]
+
+    def image_size(self, index):
+        return self.img_info[index]["width"], self.img_info[index]["height"]
+
+    def load_depth(self, index):
+        return self._depth[index][..., None]
+
+
+def host_ms(fn, iters: int) -> float:
+    """Milliseconds per call on the host's clock, the card synchronized
+    before and after (for copies that block the host anyway)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / iters
+
+
+def reference_detector(body, gen, path):
+    """A maskrcnn-benchmark detector state dict at the shapes of the unfolded
+    port body ``body`` (seeded: LeCun-normal convs, BN weight in [0.5, 1],
+    running var in [0.5, 1.5], small biases and means), saved with
+    ``torch.save`` to ``path``.  Returns it as numpy arrays."""
+    import re
+
+    def ref_name(name):
+        name = name.replace("body.stem_conv.", "body.stem.conv1.")
+        name = name.replace("body.stem_bn.", "body.stem.bn1.")
+        name = re.sub(r"_block(\d+)\.downsample_conv\.", r".\1.downsample.0.", name)
+        name = re.sub(r"_block(\d+)\.downsample_bn\.", r".\1.downsample.1.", name)
+        return "backbone." + re.sub(r"_block(\d+)\.", r".\1.", name)
+
+    sd = {}
+    for name, t in body.state_dict().items():
+        n = ref_name(name)
+        if t.dim() == 4:
+            sd[n] = torch.randn(t.shape, generator=gen) * t[0].numel() ** -0.5
+        elif name.startswith("fpn."):
+            sd[n] = 0.1 * torch.randn(t.shape, generator=gen)
+        elif n.endswith(".weight"):  # a BatchNorm's affine and statistics
+            base = n[: -len(".weight")]
+            sd[n] = 0.5 + 0.5 * torch.rand(t.shape, generator=gen)
+            sd[base + ".running_mean"] = 0.1 * torch.randn(t.shape, generator=gen)
+            sd[base + ".running_var"] = 0.5 + torch.rand(t.shape, generator=gen)
+        else:
+            sd[n] = 0.1 * torch.randn(t.shape, generator=gen)
+    torch.save({"model": sd}, path)
+    return {k: v.numpy() for k, v in sd.items()}
+
+
+def check_detector_import(model, ref, fold_bn) -> int:
+    """Every tensor of ``model``'s detector equals the reference state dict
+    ``ref`` under the import's mapping, computed here in numpy: convs and
+    the FPN renamed, each BatchNorm folded without eps (``scale = w /
+    sqrt(var)``, ``bias = b - mean * scale``) into a FrozenBatchNorm or,
+    with ``fold_bn``, into its conv.  Returns the tensors checked."""
+    import re
+
+    bn_of = {"stem_conv": "stem_bn", "conv1": "bn1", "conv2": "bn2",
+             "conv3": "bn3", "downsample_conv": "downsample_bn"}
+
+    def ref_prefix(mod):
+        mod = mod.replace("body.stem_conv", "body.stem.conv1")
+        mod = mod.replace("body.stem_bn", "body.stem.bn1")
+        mod = re.sub(r"_block(\d+)\.downsample_conv$", r".\1.downsample.0", mod)
+        mod = re.sub(r"_block(\d+)\.downsample_bn$", r".\1.downsample.1", mod)
+        return "backbone." + re.sub(r"_block(\d+)\.", r".\1.", mod)
+
+    def fold(bn_mod):
+        p = ref_prefix(bn_mod)
+        scale = ref[p + ".weight"] / np.sqrt(ref[p + ".running_var"])
+        return scale, ref[p + ".bias"] - ref[p + ".running_mean"] * scale
+
+    state = model.backbone.state_dict()
+    for name, t in state.items():
+        mod, leaf = name.rsplit(".", 1)
+        last = mod.rsplit(".", 1)[-1]
+        if name.startswith("fpn."):
+            want = ref["backbone." + name]
+        elif last in bn_of.values():  # unfolded: FrozenBatchNorm
+            want = fold(mod)[0 if leaf == "weight" else 1]
+        else:  # a conv of the body
+            w = ref[ref_prefix(mod) + ".weight"]
+            if not fold_bn:
+                want = w
+            else:
+                scale, bias = fold(mod[: -len(last)] + bn_of[last])
+                want = w * scale[:, None, None, None] if leaf == "weight" else bias
+        if not np.array_equal(t.cpu().numpy(), want):
+            raise AssertionError(f"fold_bn={fold_bn}: backbone.{name} is not the "
+                                 "imported tensor")
+    return len(state)
+
+
+def train_counts(events, per_step, per_val):
+    """The launch counts read at each log line of a ``train`` run, held to
+    ``per_step`` at every step and ``per_val`` at every validation."""
+    for i, (kind, counts) in enumerate(events):
+        want = per_step if kind == "iter" else per_val
+        if counts != want:
+            raise AssertionError(f"{kind} (line {i}): launches {counts}, want {want}")
+
+
+def same_train_state(a, b, what):
+    """Parameters, BatchNorm statistics, Adam's moments and steps, and the
+    sampler's generator bit-equal."""
+    sa, sb = a.model.state_dict(), b.model.state_dict()
+    diff = [k for k in sa if not torch.equal(sa[k], sb[k])]
+    oa, ob = a.optimizer.adam.state_dict()["state"], b.optimizer.adam.state_dict()["state"]
+    diff += [f"adam {i} {k}" for i in oa for k in ("step", "exp_avg", "exp_avg_sq")
+             if oa[i][k].device != ob[i][k].device
+             or not torch.equal(oa[i][k], ob[i][k])]
+    if not torch.equal(a.generator.get_state(), b.generator.get_state()):
+        diff.append("generator")
+    if diff or a.step != b.step:
+        raise AssertionError(f"{what}: steps {a.step}/{b.step}, differ: {diff[:8]}")
+    print(f"  {what}: {len(sa)} model tensors, {len(oa)} Adam states and the "
+          f"generator bit-equal at step {a.step}")
+
+
+def phase_data_path(gen):
+    """Training and evaluation from Visual-Genome-shaped data, at full width:
+    the host ops, the reference detector import, ``train`` through
+    ``SGGLoader`` and the device feeder with validation, checkpoints and
+    resume, ``evaluate`` restoring the last checkpoint, and the kernels on
+    the portrait bucket and the envelope shape against their plain
+    versions."""
+    import shutil
+
+    from veto_tpu_torch import native
+    from veto_tpu_torch.config import load_config
+    from veto_tpu_torch.data import transforms
+    from veto_tpu_torch.data.loader import SGGLoader
+    from veto_tpu_torch.engine.batch import DeviceFeeder
+    from veto_tpu_torch.engine.evaluate import make_eval_step
+    from veto_tpu_torch.engine.train import create_train_state, train_step
+    from veto_tpu_torch.models.sgg import build_model
+    from veto_tpu_torch.solver.optim import LRController
+    from veto_tpu_torch.tools import relation_test_net
+    from veto_tpu_torch.tools import relation_train_net as rtn
+    from veto_tpu_torch.utils.checkpoint import CheckpointManager
+
+    yaml = os.path.join(ROOT, "configs", "veto_vg_predcls.yaml")
+    name = card()
+    t0 = time.perf_counter()
+    if not native.available() or native.PATH_TAKEN not in ("built", "loaded"):
+        raise AssertionError(f"host ops: {native.PATH_TAKEN}; the fused path "
+                             "needs the library")
+    print(f"[data path] host ops {native.PATH_TAKEN} ({native.library_path().name}) "
+          f"in {time.perf_counter() - t0:.2f} s")
+
+    # 1. the fused u8 path against the NumPy pipeline, at VG sizes
+    cfg = load_config(yaml, [f"output_dir={scratch_dir()}"])
+    probe = VGShapedDataset([False, True], seed=11)
+    pads = SGGLoader(probe, 1, min_size=cfg.data.min_size_train,
+                     max_size=cfg.data.max_size_train,
+                     size_divisibility=cfg.data.size_divisibility).pad_shapes
+    val_pads = SGGLoader(probe, 1, min_size=cfg.data.min_size_test,
+                         max_size=cfg.data.max_size_test,
+                         size_divisibility=cfg.data.size_divisibility).pad_shapes
+    for i in range(2):
+        w0, h0 = probe.image_size(i)
+        oh, ow = transforms.resize_shape(w0, h0, cfg.data.min_size_train,
+                                         cfg.data.max_size_train)
+        ph, pw = pads["portrait" if oh > ow else "landscape"]
+        img = np.empty((ph, pw, 3), np.float32)
+        dep = np.empty((ph, pw, 1), np.float32)
+        native.resize_normalize_u8_into(probe.load_image_raw(i), oh, ow, img,
+                                        cfg.data.pixel_mean, cfg.data.pixel_std)
+        native.resize_standardize_into(probe.load_depth(i), oh, ow, dep)
+        ref = transforms.pad_to(transforms.normalize_image(
+            transforms.resize_image(probe.load_image(i), oh, ow),
+            cfg.data.pixel_mean, cfg.data.pixel_std), ph, pw)
+        dref = transforms.pad_to(transforms.normalize_depth(
+            transforms.resize_image(probe.load_depth(i), oh, ow)), ph, pw)
+        e_img, e_dep = float(np.abs(img - ref).max()), float(np.abs(dep - dref).max())
+        print(f"  fused u8 path {h0}x{w0} -> {oh}x{ow} in {ph}x{pw} (HxW): max |err| "
+              f"image {e_img:.2e} (tol 2e-3), depth {e_dep:.2e} (tol 1e-4)")
+        if e_img > 2e-3 or e_dep > 1e-4:
+            raise AssertionError("the fused host path disagrees with NumPy")
+
+    # 2. the loader alone, and the eval batch's copy to the card
+    portrait = [i % 2 == 1 for i in range(48)]
+    train_ds = VGShapedDataset(portrait, seed=1)
+    val_ds = VGShapedDataset([False] * 12 + [True] * 4, seed=2)
+    loader = SGGLoader(train_ds, cfg.solver.ims_per_batch, cfg.data.max_boxes,
+                       cfg.model.num_obj_classes, cfg.data.min_size_train,
+                       cfg.data.max_size_train, seed=cfg.solver.seed)
+    if not loader.fast_capable():
+        raise AssertionError("the loader does not take its fused path")
+    t0 = time.perf_counter()
+    n_img = sum(len(recs) for _, recs in loader.iterations(8))
+    ips = n_img / (time.perf_counter() - t0)
+    land, tall_shape = pads["landscape"], pads["portrait"]  # 800x1344, 1344x800
+    vl, vp = val_pads["landscape"], val_pads["portrait"]
+    envelope = (max(vl[0], vp[0]), max(vl[1], vp[1]))  # 1344x1344
+    val_batches = list(rtn.batches_for(cfg, val_ds, "val")(0))
+    shapes = [tuple(b.images.shape[1:3]) for b, _ in val_batches]
+    if shapes != [vl, envelope]:
+        raise AssertionError(f"val batch shapes {shapes}, want {[vl, envelope]}")
+    host = val_batches[0][0]
+    pageable = host_ms(lambda: host.to(DEVICE), 10)
+    pinned = {f: torch.from_numpy(np.ascontiguousarray(getattr(host, f))).pin_memory()
+              for f in vars(host)}
+    pinned_ms = host_ms(lambda: [t.to(DEVICE, non_blocking=True)
+                                 for t in pinned.values()], 10)
+    mb = sum(t.numel() * t.element_size() for t in pinned.values()) / 1e6
+    print(f"  loader: {ips:.1f} images/s with {loader.num_workers} workers (fused "
+          f"path); eval batch of {host.images.shape[0]} x {shapes[0]} ({mb:.0f} MB) "
+          f"to the card: pinned non-blocking {pinned_ms:.2f} ms, pageable "
+          f"{pageable:.2f} ms")
+    del pinned
+
+    # 3. the reference detector, imported with fold_bn false and true
+    ckpt_dir = scratch_dir()
+    path = os.path.join(ckpt_dir, "model_final.pth")
+    from veto_tpu_torch.models.backbone.resnet import ResNetFPNBackbone
+
+    with torch.device("meta"):  # the unfolded body's names and shapes
+        unfolded = ResNetFPNBackbone(cfg.model.stage_blocks, cfg.model.resnet_groups,
+                                     cfg.model.resnet_width_per_group,
+                                     cfg.model.fpn_channels, fold_bn=False)
+    ref_sd = reference_detector(unfolded, torch.Generator().manual_seed(3), path)
+    del unfolded
+    b_eval = val_batches[0][0].to(DEVICE)
+    logits, pyramids = {}, {}
+    for fold in (False, True):
+        c = load_config(yaml, [f"model.fold_bn={fold}",
+                               f"model.pretrained_detector_ckpt={path}"])
+        m = build_model(c)
+        lines = []
+        loaded, skipped = rtn.load_pretrained_detector(c, m, lines.append)
+        n = check_detector_import(m, ref_sd, fold)
+        if len(loaded) != n or skipped:
+            raise AssertionError(f"fold_bn={fold}: {len(loaded)} loaded of {n}, "
+                                 f"skipped {skipped[:4]}")
+        print(f"  detector import fold_bn={fold}: {lines[0]}; all {n} tensors "
+              "equal the reference under the mapping")
+        logits[fold] = check_eval_batch(m, c, b_eval,
+                                        f"rel_logits fold_bn={fold} kernels vs plain")
+        if not fold:  # the same model, its FrozenBatchNorms' affine in f32
+            with f32_frozen_bn():
+                logits["f32 bn"] = eval_logits(m, c, b_eval)
+        m.backbone.dtype = torch.float32  # the detector in f32, the rest bf16
+        with torch.no_grad():
+            pyramids[fold] = m.backbone(b_eval.images)
+        logits[fold, "f32 body"] = eval_logits(m, c, b_eval)
+        del m
+        release()
+    # The two layouts are one function: in f32 their pyramids agree to f32
+    # rounding (a misplaced scale or bias is off by its size), and with the
+    # detector in f32 the two models' logits (trunk and kernels in bf16) are
+    # held to the main path's whole bf16 tolerance, max and mean.  With the
+    # detector in bf16 the layouts round differently in every one of its
+    # ~100 convolutions: those logits are held to the max bound and their
+    # mean error reported, beside the unfolded model's with its
+    # FrozenBatchNorms' scale and bias in f32 (not the cause: PERF.md).
+    for lvl, (a, b) in enumerate(zip(pyramids[True], pyramids[False])):
+        scale = float(b.abs().max())
+        check_close(f"P{lvl + 2} f32 fold_bn=True vs fold_bn=False", a, b,
+                    atol=1e-3 * scale, rtol=0.0,
+                    mean_tol=1e-4 * float(b.abs().mean()))
+    for got, ref, what in (
+            (logits[True, "f32 body"], logits[False, "f32 body"],
+             "detector in f32"),
+            (logits[True], logits[False], "detector in bf16"),
+            (logits[True], logits["f32 bn"],
+             "detector in bf16, unfolded FrozenBatchNorms in f32")):
+        mean_ref = float(ref.abs().mean())
+        gated = what == "detector in f32"
+        check_close(f"rel_logits fold_bn=True vs fold_bn=False, {what}", got,
+                    ref, atol=0.05 * float(ref.abs().max()), rtol=0.0,
+                    mean_tol=0.01 * mean_ref if gated else None)
+        mean_err = float((got - ref).abs().mean())
+        print(f"  (mean |err| {mean_err:.4f}, {mean_err / mean_ref:.2%} of the "
+              f"mean |logit|, {what})")
+    shutil.rmtree(ckpt_dir)
+    del logits, pyramids, b_eval
+
+    # 4. train: 6 steps, a checkpoint every 3, validation at 4
+    layers = cfg.veto.enc_layers
+    per_step = expected(fused_encoder_layer=layers, encoder_ffn_bwd=layers,
+                        encoder_att_bwd=layers, multilevel_roi_align=2,
+                        roi_align_backward=1)
+    per_val = expected(fused_encoder_layer=layers * len(val_batches),
+                       multilevel_roi_align=2 * len(val_batches))
+    solver = ["solver.max_iter=6", "solver.val_period=4", "solver.checkpoint_period=3"]
+    out_a = scratch_dir()
+    cfg_a = load_config(yaml, [f"output_dir={out_a}", *solver])
+    events = []
+
+    def log(line):
+        kind = line.split(" ", 1)[0]
+        if kind in ("iter", "validation"):
+            events.append((kind, read_counters(reset=True)))
+
+    print(f"[data path, train] 6 steps of {cfg_a.solver.ims_per_batch} VG-shaped "
+          f"images through SGGLoader and the device feeder, checkpoints every 3, "
+          f"validation at 4 on {len(val_ds)} images")
+    read_counters(reset=True)
+    state, history = rtn.train(cfg_a, model=build_model(cfg_a), log=log,
+                               datasets=(train_ds, val_ds))
+    train_counts(events, per_step, per_val)
+    buckets = [r["image_shape"] for r in history]
+    if len(history) != 6 or set(buckets) != {land, tall_shape}:
+        raise AssertionError(f"{len(history)} steps on {buckets}")
+    steps = CheckpointManager(os.path.join(out_a, "ckpt")).steps()
+    if steps != [3, 6]:
+        raise AssertionError(f"checkpoints {steps}, want [3, 6]")
+    mr = history[3]["val_mR100"]
+    ctrl = LRController(cfg_a.solver)
+    ctrl.report_validation(mr)
+    extra = CheckpointManager(os.path.join(out_a, "ckpt")).load(6, "cpu")["extra"]
+    if extra != {k: getattr(ctrl, k) for k in extra}:
+        raise AssertionError(f"LRController {extra} after validation mR@100 {mr}")
+    fed = [r["step_seconds"] for r in history[1:]]
+    wait = [r["wait_seconds"] for r in history[1:]]
+    dev_ms = 1e3 * float(np.mean([r["seconds"] for r in history[1:]]))
+    print(f"  buckets {buckets}; launches exact at every step ({per_step['fused_encoder_layer']} "
+          f"B1, B2a, B2b, 2 B3, 1 B3-bwd) and at the validation ({len(val_batches)} "
+          f"batches {shapes}); checkpoints {steps}; validation mR@100 {mr:.6f} -> "
+          f"LRController {extra}")
+    print(f"  train step fed by the loader: {1e3 * np.mean(fed):.1f} ms from one update's "
+          f"end to the next ({[round(1e3 * x, 1) for x in fed]}), "
+          f"{1e3 * np.mean(wait):.1f} ms of it ({np.sum(wait) / np.sum(fed):.1%}) "
+          f"waiting for a batch; {dev_ms:.1f} ms from the batch on the card")
+
+    # 5. the checkpoint of step 6 on the CPU, and evaluate restoring it
+    payload = CheckpointManager(os.path.join(out_a, "ckpt")).load(6, "cpu")
+    cpu_model = build_model(cfg_a, "cpu")
+    cpu_model.load_state_dict(payload["model"])
+    for k, v in state.model.state_dict().items():
+        if not torch.equal(v.cpu(), cpu_model.state_dict()[k]):
+            raise AssertionError(f"{k} differs restored on the CPU")
+    del payload, cpu_model
+    evaluator = relation_test_net.make_sgg_evaluator(cfg_a, train_ds, val_ds)
+    read_counters(reset=True)
+    agg, _ = rtn.run_validation(state.model, make_eval_step(
+        state.model, cfg_a.relation.max_proposal_pairs), rtn.batches_for(
+            cfg_a, val_ds, "val")(0), evaluator, DEVICE)
+    train_counts([("validation", read_counters(reset=True))], per_step, per_val)
+    lines = []
+    restored, _ = relation_test_net.evaluate(cfg_a, split="val", dataset=val_ds,
+                                             train_dataset=train_ds, log=lines.append)
+    if "evaluating the checkpoint of step 6" not in lines:
+        raise AssertionError(f"evaluate did not restore step 6: {lines[:2]}")
+    bad = [k for k in agg if restored.get(k) != agg[k]]
+    if bad:
+        raise AssertionError(f"restored evaluation differs in {bad}")
+    print(f"  checkpoint of step 6 restored on the CPU bit-equal; evaluate "
+          f"restoring it reproduces the validation of the step-6 model exactly "
+          f"(mR@100 {agg['mR'][100]:.6f}, R@100 {agg['R'][100]:.6f}, zero-shot "
+          f"triplets {len(evaluator.zeroshot_triplets)})")
+    del state, evaluator
+    release()
+
+    # 6. resume from step 3 against the same stream without a save
+    out_b = scratch_dir()
+    os.makedirs(os.path.join(out_b, "ckpt"))
+    shutil.copy(os.path.join(out_a, "ckpt", "model_0000003.pth"),
+                os.path.join(out_b, "ckpt"))
+    cfg_b = load_config(yaml, [f"output_dir={out_b}", *solver])
+    events.clear()
+    read_counters(reset=True)
+    resumed, hist_b = rtn.train(cfg_b, model=build_model(cfg_b), log=log,
+                                datasets=(train_ds, val_ds))
+    train_counts(events, per_step, per_val)
+    if len(hist_b) != 3 or resumed.step != 6:
+        raise AssertionError(f"resumed run: {len(hist_b)} steps to {resumed.step}")
+    ref = create_train_state(build_model(cfg_b), cfg_b.solver,
+                             rtn.rel_class_weights(cfg_b))
+    ref.generator = torch.Generator(device=DEVICE).manual_seed(cfg_b.solver.seed)
+    ctrl = LRController(cfg_b.solver)
+    for lo, hi in ((0, 3), (3, 6)):
+        stream = rtn.batches_for(cfg_b, train_ds, "train")(hi, lo)
+        for it, (b, _) in enumerate(DeviceFeeder(stream, DEVICE), start=lo):
+            train_step(ref, b, ref.generator, ctrl.scale(it),
+                       cfg_b.relation.batch_size_per_image,
+                       cfg_b.relation.positive_fraction)
+    same_train_state(resumed, ref, "resumed at 3 vs 3 + 3 steps on the resumed "
+                     "stream without a save")
+    # the same step fed from memory: host batches built before, through
+    # the feeder (its pinned copies overlapping the step before)
+    held = [hb for hb, _ in rtn.batches_for(cfg_b, train_ds, "train")(6)]
+    feeder = DeviceFeeder(((hb, []) for hb in held), DEVICE)
+    felt, t_prev = [], None
+    for it, (b, _) in enumerate(feeder, start=6):
+        train_step(ref, b, ref.generator, ctrl.scale(it),
+                   cfg_b.relation.batch_size_per_image,
+                   cfg_b.relation.positive_fraction)
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        if t_prev is not None:
+            felt.append(now - t_prev)
+        t_prev = now
+    mem_ms, mem_wait = 1e3 * float(np.mean(felt)), sum(feeder.waits[1:]) / sum(felt)
+    print(f"  train step fed from memory through the feeder: {mem_ms:.1f} ms "
+          f"from one update's end to the next "
+          f"({[round(1e3 * x, 1) for x in felt]}), {mem_wait:.1%} waiting")
+    del held, feeder, b
+    mgr = CheckpointManager(scratch_dir())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ckpt_file = mgr.save(6, resumed)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mgr.restore(resumed)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    size = os.path.getsize(ckpt_file)
+    del resumed
+    release()
+
+    # 7. the kernels on both buckets and the envelope, against the plain versions
+    landscape, portrait_b = None, None
+    for hb, _ in rtn.batches_for(cfg_b, train_ds, "train")(6):
+        if hb.images.shape[1] > hb.images.shape[2] and portrait_b is None:
+            portrait_b = hb
+        elif hb.images.shape[1] < hb.images.shape[2] and landscape is None:
+            landscape = hb
+    for hb in (landscape, portrait_b):
+        phase_train_grads(ref, (), f"VG-shaped {tuple(hb.images.shape[1:3])} bucket",
+                          b=hb.to(DEVICE))
+    tall = VGShapedDataset([True] * 8, seed=4)
+    eval_b = [val_batches[0][0], next(rtn.batches_for(cfg_b, tall, "val")(0))[0],
+              val_batches[1][0]]
+    for hb in eval_b:
+        check_eval_batch(ref.model, cfg_b, hb.to(DEVICE), "rel_logits "
+                         f"{tuple(hb.images.shape[1:3])} kernels vs plain")
+    del ref
+    release()
+    phase_roi_align(gen, h=1344, w=800)
+    phase_roi_align(gen, h=1344, w=1344)
+    phase_roi_align_bwd(gen, h=1344, w=800)
+    print(f"[data path numbers] {name}: loader {ips:.1f} images/s with "
+          f"{loader.num_workers} workers; train step fed by the loader "
+          f"{1e3 * np.mean(fed):.1f} ms ({np.sum(wait) / np.sum(fed):.1%} waiting), "
+          f"fed from memory {mem_ms:.1f} ms ({mem_wait:.1%} waiting), fed by the "
+          f"synthetic corpus (phase 10, which draws its images per batch) "
+          f"{LAST_TRAIN['fed_ms']:.1f} ms ({LAST_TRAIN['wait_share']:.1%} "
+          f"waiting); eval batch copy pinned "
+          f"{pinned_ms:.2f} ms, pageable {pageable:.2f} ms; checkpoint save "
+          f"{save_s:.2f} s, restore {restore_s:.2f} s, {size / 2 ** 20:.0f} MiB")
+
+
+_SCRATCH = []
+
+
+def scratch_dir() -> str:
+    """A fresh temporary directory (an ``output_dir`` of the tools), removed
+    when the script ends."""
+    import atexit
+    import shutil
+    import tempfile
+
+    if not _SCRATCH:
+        _SCRATCH.append(tempfile.mkdtemp(prefix="chip_smoke_"))
+        atexit.register(shutil.rmtree, _SCRATCH[0], True)
+    return tempfile.mkdtemp(dir=_SCRATCH[0])
+
+
 def release():
     """Give the freed memory of a finished phase back before the next."""
     import gc
@@ -1462,6 +2062,7 @@ def main() -> int:
     del state
     release()
     pa_launches, mono_launches = phase_paths()
+    phase_data_path(gen)
     # each kernel's launches on the training path that runs it
     launches.update(pair_attention=pa_launches["pair_attention"],
                     pair_attention_backward=pa_launches["pair_attention_backward"],

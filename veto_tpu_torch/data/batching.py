@@ -13,23 +13,30 @@ from ..engine.batch import SGGBatch
 
 
 def make_sgg_batch(records: Sequence[Dict], image_shape: tuple, max_boxes: int,
-                   num_obj_classes: int = 151) -> SGGBatch:
+                   num_obj_classes: int = 151, pixel_arrays=None) -> SGGBatch:
     """Each record: image (H, W, 3), depth (H, W, 1) or None, boxes (n, 4),
-    labels (n,), rel_matrix (n, n), size (2,) = (w, h)."""
+    labels (n,), rel_matrix (n, n), size (2,) = (w, h).
+
+    ``pixel_arrays``: (images, depth), (B, H, W, C) arrays that the loader's
+    fused path has already filled; the records then carry no pixels."""
     b = len(records)
     h, w = image_shape
-    images = np.zeros((b, h, w, 3), np.float32)
-    depth = np.zeros((b, h, w, 1), np.float32)
+    if pixel_arrays is not None:
+        images, depth = pixel_arrays
+    else:
+        images = np.zeros((b, h, w, 3), np.float32)
+        depth = np.zeros((b, h, w, 1), np.float32)
     boxes = np.zeros((b, max_boxes, 4), np.float32)
     box_mask = np.zeros((b, max_boxes), bool)
     labels = np.zeros((b, max_boxes), np.int32)
     rel_matrix = np.zeros((b, max_boxes, max_boxes), np.int32)
     sizes = np.zeros((b, 2), np.int32)
     for i, rec in enumerate(records):
-        ih, iw = rec["image"].shape[:2]
-        images[i, :ih, :iw] = rec["image"]
-        if rec.get("depth") is not None:
-            depth[i, :ih, :iw] = rec["depth"]
+        if pixel_arrays is None:
+            ih, iw = rec["image"].shape[:2]
+            images[i, :ih, :iw] = rec["image"]
+            if rec.get("depth") is not None:
+                depth[i, :ih, :iw] = rec["depth"]
         n = min(len(rec["boxes"]), max_boxes)
         boxes[i, :n] = rec["boxes"][:n]
         box_mask[i, :n] = True

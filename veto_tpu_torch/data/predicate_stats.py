@@ -1,7 +1,8 @@
 """Predicate statistics of Visual Genome and GQA-200
-(``veto_tpu/data/predicate_stats.py``), as far as the evaluator and the
-Rwt loss need them: the frequency-rank reordering and the training counts
-per frequency-ranked predicate (index 0 = background)."""
+(``veto_tpu/data/predicate_stats.py``), as far as the evaluator, the Rwt
+loss and the VG reader need them: the frequency-rank reordering, the
+predicate names in that order, and the training counts per
+frequency-ranked predicate (index 0 = background)."""
 
 import numpy as np
 
@@ -18,6 +19,19 @@ VG_PREDICATE_COUNTS = [
     6712, 5086, 4810, 3757, 4260, 3167, 2273, 1829, 1603, 1413, 1225, 793,
     809, 676, 352, 663, 752, 565, 504, 644, 601, 551, 460, 394, 379, 397,
     429, 364, 333, 299, 270, 234, 171, 208, 163, 157, 151, 71, 114, 44, 4,
+]
+
+# frequency-ranked predicate names
+VG_PREDICATE_NAMES = [
+    "__background__", "on", "has", "wearing", "of", "in", "near", "behind",
+    "with", "holding", "above", "sitting on", "wears", "under", "riding",
+    "in front of", "standing on", "at", "carrying", "attached to",
+    "walking on", "over", "for", "looking at", "watching", "hanging from",
+    "laying on", "eating", "and", "belonging to", "parked on", "using",
+    "covering", "between", "along", "covered in", "part of", "lying on",
+    "on back of", "to", "walking in", "mounted on", "across", "against",
+    "from", "growing on", "painted on", "playing", "made of", "says",
+    "flying in",
 ]
 
 GQA_PREDICATE_COUNTS = [
@@ -38,3 +52,9 @@ def predicate_counts(dataset: str) -> np.ndarray:
         {"VG": VG_PREDICATE_COUNTS, "GQA": GQA_PREDICATE_COUNTS}[dataset],
         dtype=np.int64,
     )
+
+
+def reorder_predicates(predicates: np.ndarray) -> np.ndarray:
+    """Map VG predicate ids to frequency-rank ids (the reader's
+    ``data.reorder_freq_based`` path)."""
+    return np.asarray(VG_PREDICATE_NEW_ORDER, dtype=np.int64)[predicates]

@@ -36,6 +36,8 @@ class TrainState:
     model: nn.Module
     optimizer: Optimizer
     class_weights: Optional[torch.Tensor] = None  # (num_rel,) or None
+    step: int = 0  # updates applied so far
+    generator: Optional[torch.Generator] = None  # the pair sampler's
 
 
 def create_train_state(model: nn.Module, solver_cfg, class_weights=None,
@@ -91,6 +93,7 @@ def train_on_pairs(state: TrainState, batch, samples: RelSample,
     """Forward, loss, backward and update on the given pairs."""
     rel_loss = loss = forward_backward(state, batch, samples)
     grad_norm = state.optimizer.step(lr_scale)
+    state.step += 1
     return {"loss": loss, "rel_loss": rel_loss, "grad_norm": grad_norm.detach(),
             "batch_stats": batch_stats(state.model)}
 

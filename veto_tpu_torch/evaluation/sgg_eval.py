@@ -3,8 +3,10 @@
 The port's own copy of ``veto_tpu/evaluation/sgg_eval.py``
 (``SGGEvaluator`` and its helpers): the same metric math — R@K, mR@K,
 ngR@K, ng-mR@K, zR@K, aR@K, A@K and the VG head/body/tail split — on
-numpy arrays, so the port never imports the JAX package.  The stage-wise
-diagnostics (``StagewiseEvaluator``) are not ported in this slice.
+numpy arrays, so the port never imports the JAX package, and the
+zero-shot triplet set (from a reference ``zeroshot_triplet.pytorch`` file,
+or derived from a train and an eval split).  The stage-wise diagnostics
+(``StagewiseEvaluator``) are not ported in this slice.
 
 Matching semantics:
   * predictions must arrive sorted by triple score (the relation
@@ -398,3 +400,33 @@ class SGGEvaluator:
                     f"tail: {parts['t']:.4f}"
                 )
         return "\n".join(lines)
+
+
+def load_zeroshot_triplets_file(path: str) -> np.ndarray:
+    """The reference's serialized zero-shot triplets
+    (``zeroshot_triplet.pytorch``, rows (s_cls, o_cls, predicate) in the
+    ORIGINAL VG predicate order: usable only with
+    ``data.reorder_freq_based`` off; with it on, derive them with
+    :func:`compute_zeroshot_triplets`)."""
+    import torch
+
+    t = torch.load(path, map_location="cpu", weights_only=False)
+    return np.asarray(t, dtype=np.int64).reshape(-1, 3)
+
+
+def compute_zeroshot_triplets(train_dataset, eval_dataset) -> np.ndarray:
+    """The unseen-triplet set for zero-shot recall: the (subject class,
+    object class, predicate) triples of the eval split's ground truth that
+    never occur in the train split's, sorted.  Each dataset exposes
+    ``img_info``, ``gt_classes`` and ``relationships``."""
+
+    def triplet_set(ds):
+        out = set()
+        for i in range(len(ds.img_info)):
+            cls = ds.gt_classes[i]
+            for s, o, p in ds.relationships[i]:
+                out.add((int(cls[int(s)]), int(cls[int(o)]), int(p)))
+        return out
+
+    unseen = sorted(triplet_set(eval_dataset) - triplet_set(train_dataset))
+    return np.asarray(unseen, dtype=np.int64).reshape(-1, 3)

@@ -25,9 +25,11 @@ from ..layers import Conv2d
 
 
 class FrozenBatchNorm(nn.Module):
-    """Per-channel affine ``y = x * scale + bias`` — inference BatchNorm
-    folded (``scale = gamma / sqrt(var + eps)``, ``bias = beta - mean *
-    scale``); the detector is frozen, so the fold is exact."""
+    """Per-channel affine ``y = x * scale + bias``: the detector's frozen
+    BatchNorm, folded when its weights are imported as the reference folds
+    it (``layers/batch_norm.py:28-30``, ``utils/torch_import.py``):
+    ``scale = gamma / sqrt(running_var)`` with no eps, ``bias = beta -
+    running_mean * scale``.  The detector is frozen, so the fold is exact."""
 
     def __init__(self, features: int):
         super().__init__()

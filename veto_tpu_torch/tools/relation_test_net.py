@@ -2,20 +2,23 @@
 
     python -m veto_tpu_torch.tools.relation_test_net \\
         --config configs/veto_vg_predcls.yaml [--device cpu] \\
-        [--max-batches N] [opts ...]
+        [--split val|test] [--max-batches N] [opts ...]
 
 Reads the YAML with the port's config loader, builds the PredCls model on
-the card (or the CPU when asked) with weights drawn from
-``solver.seed``, evaluates the test split through the eval step and the
-SGG evaluator, and prints R@K / mR@K.  With ``data.data_dir`` empty the
-split is the synthetic corpus at the eval input shape: images of
-``min_size_test`` x ``max_size_test`` rounded up to ``size_divisibility``
-(800 x 1344 for Visual Genome), ``data.max_boxes`` objects at most.
+the card (or the CPU when asked), restores the latest checkpoint in
+``output_dir/ckpt`` when there is one (else the weights stay the seeded
+random ones of ``solver.seed``), evaluates the split through the eval step
+and the SGG evaluator, prints R@K / mR@K and writes ``eval_results.json``
+to ``output_dir``.  The split is read from ``data.data_dir`` (VG or GQA-200
+files, through :class:`SGGLoader`); with ``data.data_dir`` empty it is the
+synthetic corpus at the eval input shape: images of ``min_size_test`` x
+``max_size_test`` rounded up to ``size_divisibility`` (800 x 1344 for
+Visual Genome), ``data.max_boxes`` objects at most.  Zero-shot recall uses
+``test.zeroshot_file`` or, from files, the triplets of the split that the
+train split never has.
 
-Not yet ported (they raise): the Visual Genome loader, restoring a
-checkpoint (a non-empty ``output_dir/ckpt`` raises rather than being
-ignored), loading ``test.zeroshot_file``, SGCls/SGDet, MEET, other
-predictors, multi-device evaluation.
+Not yet ported (they raise): SGCls/SGDet, MEET, other predictors,
+stage-wise recall, multi-device evaluation.
 """
 
 from __future__ import annotations
@@ -23,7 +26,8 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import time
+
+import numpy as np
 
 
 def synthetic_eval_dataset(cfg, num_images: int = 16):
@@ -43,62 +47,81 @@ def synthetic_eval_dataset(cfg, num_images: int = 16):
         max_objects=cfg.data.max_boxes, seed=cfg.solver.seed + 7)
 
 
-def make_sgg_evaluator(cfg):
-    from ..evaluation.sgg_eval import SGGEvaluator, vg_longtail_parts
+def make_sgg_evaluator(cfg, train_ds=None, eval_ds=None):
+    """The SGG evaluator of the config.  Zero-shot triplets come from
+    ``test.zeroshot_file``, else from the two splits' annotations (cached
+    as ``output_dir/zeroshot_triplets.npy``), else there are none (the
+    synthetic corpus defines no triplet vocabulary)."""
+    from ..evaluation.sgg_eval import (
+        SGGEvaluator, compute_zeroshot_triplets, load_zeroshot_triplets_file,
+        vg_longtail_parts,
+    )
 
     if cfg.test.stagewise_eval:
         raise NotImplementedError("stage-wise recall is not ported yet")
+    zs = None
     if cfg.test.zeroshot_eval and cfg.test.zeroshot_file:
-        raise NotImplementedError(
-            f"test.zeroshot_file={cfg.test.zeroshot_file!r}: loading the "
-            "zero-shot triplets comes with slice A8b; leave it empty")
+        zs = load_zeroshot_triplets_file(cfg.test.zeroshot_file)
+    elif (cfg.test.zeroshot_eval and hasattr(train_ds, "relationships")
+          and hasattr(eval_ds, "relationships")):
+        cache = os.path.join(cfg.output_dir, "zeroshot_triplets.npy")
+        if os.path.exists(cache):
+            zs = np.load(cache)
+        else:
+            zs = compute_zeroshot_triplets(train_ds, eval_ds)
+            os.makedirs(cfg.output_dir, exist_ok=True)
+            np.save(cache, zs)
     parts = None
     if (cfg.test.longtail_eval and cfg.relation.num_classes == 51
             and "GQA" not in cfg.data.dataset):
         parts = vg_longtail_parts(reordered=cfg.data.reorder_freq_based)
-    # zero-shot recall needs the training split's triplets, which the
-    # synthetic corpus does not define
     return SGGEvaluator(mode=cfg.relation.mode,
                         num_rel_classes=cfg.relation.num_classes,
-                        iou_thres=cfg.test.iou_threshold, longtail_parts=parts)
+                        iou_thres=cfg.test.iou_threshold, zeroshot_triplets=zs,
+                        longtail_parts=parts)
 
 
-def evaluate(cfg, device=None, max_batches: int = 0, log=print, model=None):
-    """Evaluate the synthetic test split (``max_batches`` batches of it, or
-    16 images).  Returns the evaluator's aggregate and the seconds each
-    batch took from its host arrays to its predictions back on the host.
+def evaluate(cfg, device=None, max_batches: int = 0, log=print, model=None,
+             split: str = "test", dataset=None, train_dataset=None):
+    """Evaluate ``split`` (``max_batches`` batches of it, or all of it; the
+    synthetic split has 16 images, or ``max_batches`` batches' worth).
+    Returns the evaluator's aggregate and the seconds each batch took from
+    its hand-out by the device feeder to its predictions back on the host
+    (:func:`run_validation`).
 
-    ``model`` is an already built :class:`SGGModel`; by default one is
-    built from ``cfg`` on ``device``."""
-    from ..engine.evaluate import accumulate_eval, make_eval_step, to_numpy
+    ``model`` is an already built :class:`SGGModel`, evaluated as it is; by
+    default one is built from ``cfg`` on ``device`` and the latest
+    checkpoint of ``output_dir/ckpt`` restored into it.  ``dataset`` (and
+    ``train_dataset``, for the zero-shot triplets) stand in for the files."""
+    from ..engine.evaluate import make_eval_step
     from ..models.sgg import build_model
+    from ..utils.checkpoint import CheckpointManager
+    from .relation_train_net import batches_for, build_dataset, run_validation
 
-    if cfg.data.data_dir:
-        raise NotImplementedError("the Visual Genome loader comes in a later "
-                                  "slice; leave data.data_dir empty")
     if model is None:
-        ckpt = os.path.join(cfg.output_dir, "ckpt")
-        if os.path.isdir(ckpt) and os.listdir(ckpt):
-            raise NotImplementedError(
-                f"{ckpt} holds a checkpoint: restoring it comes with slice "
-                "A8c, and evaluating seeded random weights in its place would "
-                "report the wrong model")
         model = build_model(cfg, device)
+        dev = next(model.parameters()).device
+        payload = CheckpointManager(os.path.join(cfg.output_dir, "ckpt")).load(
+            map_location=dev)
+        if payload is not None:
+            model.load_state_dict(payload["model"])
+            log(f"evaluating the checkpoint of step {payload['step']}")
     dev = next(model.parameters()).device
+    bsz = cfg.test.ims_per_batch
+    if dataset is None:
+        dataset = (build_dataset(cfg, split) if cfg.data.data_dir else
+                   synthetic_eval_dataset(cfg, max_batches * bsz or 16))
+    if (train_dataset is None and cfg.test.zeroshot_eval and cfg.data.data_dir
+            and not cfg.test.zeroshot_file):
+        train_dataset = build_dataset(cfg, "train")
     step = make_eval_step(model, max_pairs=cfg.relation.max_proposal_pairs,
                           mode=cfg.relation.mode)
-    evaluator = make_sgg_evaluator(cfg)
-    bsz = cfg.test.ims_per_batch
-    ds = synthetic_eval_dataset(cfg, max_batches * bsz if max_batches else 16)
-    seconds = []
-    for i, (batch, recs) in enumerate(ds.batches(bsz, cfg.data.max_boxes)):
-        t0 = time.perf_counter()
-        preds = to_numpy(step(batch.to(dev)))
-        seconds.append(time.perf_counter() - t0)
-        log(f"batch {i}: {len(recs)} images, {seconds[-1]:.3f} s on {dev}")
-        accumulate_eval(preds, recs, evaluator)
+    evaluator = make_sgg_evaluator(cfg, train_dataset, dataset)
+    agg, seconds = run_validation(model, step,
+                                  batches_for(cfg, dataset, split)(0),
+                                  evaluator, dev, max_batches, log)
     log(evaluator.summary_string())
-    return evaluator.aggregate(), seconds
+    return agg, seconds
 
 
 def main(argv=None):
@@ -109,14 +132,19 @@ def main(argv=None):
     parser.add_argument("--config", default=None)
     parser.add_argument("--device", default=None,
                         help="cuda (default) or cpu")
+    parser.add_argument("--split", default="test", choices=["val", "test"])
     parser.add_argument("--max-batches", type=int, default=0,
                         help="stop after this many batches (0 = whole split)")
     parser.add_argument("opts", nargs="*", default=[])
     args = parser.parse_args(argv)
     cfg = load_config(args.config, args.opts)
-    agg, _ = evaluate(cfg, args.device, args.max_batches)
-    print(json.dumps({m: {str(k): v for k, v in agg[m].items()}
-                      for m in ("R", "mR")}))
+    agg, _ = evaluate(cfg, args.device, args.max_batches, split=args.split)
+    out = {m: {str(k): v for k, v in vals.items()} for m, vals in agg.items()
+           if m != "mR_per_class" and isinstance(vals, dict)}
+    os.makedirs(cfg.output_dir, exist_ok=True)
+    with open(os.path.join(cfg.output_dir, "eval_results.json"), "w") as f:
+        json.dump(out, f, indent=2)
+    print(json.dumps({m: out[m] for m in ("R", "mR")}))
     return agg
 
 
