@@ -95,9 +95,25 @@ catches its own failure:
     memory; checkpoint save and restore times; then both buckets' step
     gradients and the three eval shapes' logits against the plain versions,
     and B3 / B3-bwd at the portrait and envelope shapes.
-14. One JSON line ``{"kernels": [...]}`` (all eight kernels; ``launches``
-    from the training path that runs each) and, last,
-    ``{"ok": true, "device": {...}}``.
+    The reference detector also carries a box head (fc6 in the reference's
+    NCHW order): imported into an SGCls model with ``fold_bn`` false and
+    true, every tensor equals the reference's (fc6 permuted to NHWC) and
+    the box logits equal the unpermuted fc6 on the NCHW flatten of the same
+    pooled map; the PredCls models report the box head as skipped.
+14. SGCls at full width (``configs/veto_vg_sgcls.yaml``): ``evaluate`` over
+    3 batches of 8 images (B1 6, B3 3 per batch: the box head's own 7x7
+    pool), one batch's ``rel_logits`` and ``predict_logits`` against the plain
+    versions and the card's ``pred_labels`` bit-equal to
+    ``obj_prediction_nms`` on the CPU on the card's logits; ``train`` for 5
+    steps (B1, B2a, B2b 6, B3 3, B3-bwd 1 per step; finite ``rel_loss`` and
+    ``obj_loss``, every trainable tensor changed, the detector and its box
+    head bit-unchanged) and one step's gradients against the plain
+    versions, two kernel runs bit-equal; the box head's and
+    ``obj_prediction_nms``'s device ms and the NMS's launches per batch
+    (it must not synchronise); one eval batch of ``configs/gqa_sgcls.yaml``.
+15. One JSON line ``{"kernels": [...]}`` (all eight kernels; ``launches``
+    from the main path's training run, or the path that runs each) and,
+    last, ``{"ok": true, "device": {...}}``.
 
 Every f32 comparison runs with TF32 off (``torch.backends.cudnn.allow_tf32``
 and ``torch.backends.cuda.matmul.allow_tf32`` are set False below), so the
@@ -119,6 +135,8 @@ import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+PREDCLS = "veto_vg_predcls.yaml"  # the main path's configuration
+SGCLS = "veto_vg_sgcls.yaml"
 PEAK_BF16 = 989e12   # H100 SXM dense bf16 tensor-core FLOP/s (data sheet)
 PEAK_F32 = 67e12     # H100 SXM f32 FLOP/s outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
@@ -524,21 +542,30 @@ def phase_encoder(gen, pairs=16384, d=576):
 
 
 # ------------------------------------------------------------------ phase 5
-def phase_main_path(opts=(), n_batches=3, encoder="fused_encoder_layer"):
+def roi_launches(cfg) -> int:
+    """B3 launches of one forward: the relation pool and the depth pool,
+    and in SGCls the box head's own 7x7 pool."""
+    return 3 if cfg.relation.mode == "sgcls" else 2
+
+
+def phase_main_path(opts=(), n_batches=3, encoder="fused_encoder_layer",
+                    config=PREDCLS):
     """The eval entry point's ``evaluate`` over ``n_batches`` full-width
     batches; per batch exactly ``layers`` launches of the ``encoder``
-    kernel, 2 of ROIAlign and none of any other kernel."""
+    kernel, 2 of ROIAlign (3 in SGCls) and none of any other kernel.
+    Returns the model, the config and the ms per batch after warm-up."""
     from veto_tpu_torch.config import load_config
     from veto_tpu_torch.models.sgg import build_model
     from veto_tpu_torch.tools.relation_test_net import (
         evaluate, synthetic_eval_dataset,
     )
 
-    cfg = load_config(os.path.join(ROOT, "configs", "veto_vg_predcls.yaml"),
-                      list(opts))
+    cfg = load_config(os.path.join(ROOT, "configs", config), list(opts))
     model = build_model(cfg)  # cuda, seeded weights, eval mode
     layers = cfg.veto.enc_layers
-    print(f"[main{' ' + ' '.join(opts) if opts else ''}] VETO PredCls, "
+    print(f"[main{' ' + ' '.join(opts) if opts else ''}] VETO "
+          f"{cfg.relation.mode} ({config}, {cfg.model.num_obj_classes} object / "
+          f"{cfg.relation.num_classes} predicate classes), "
           f"{cfg.model.backbone} "
           f"{cfg.model.resnet_groups}x{cfg.model.resnet_width_per_group}d "
           f"blocks {tuple(cfg.model.stage_blocks)}, trunk {cfg.veto.t_input_dim} "
@@ -546,7 +573,7 @@ def phase_main_path(opts=(), n_batches=3, encoder="fused_encoder_layer"):
           f"{n_batches} batches of {cfg.test.ims_per_batch}, "
           f"{cfg.data.max_boxes} boxes, {cfg.relation.max_proposal_pairs} pairs")
     want = expected(**{encoder: layers * n_batches,
-                       "multilevel_roi_align": 2 * n_batches})
+                       "multilevel_roi_align": roi_launches(cfg) * n_batches})
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     read_counters(reset=True)
@@ -554,8 +581,9 @@ def phase_main_path(opts=(), n_batches=3, encoder="fused_encoder_layer"):
                             log=lambda s: print("  " + s))
     launches = read_counters()
     peak = torch.cuda.max_memory_allocated()
+    ms = 1e3 * float(np.mean(seconds[1:] or seconds))
     print(f"  launches {json.dumps(launches)}; after warm-up "
-          f"{1e3 * float(np.mean(seconds[1:])):.1f} ms per batch "
+          f"{ms:.1f} ms per batch "
           f"({[round(1e3 * s, 1) for s in seconds]}); peak memory "
           f"{peak / 2 ** 30:.2f} GiB")
     if len(seconds) != n_batches:
@@ -570,6 +598,7 @@ def phase_main_path(opts=(), n_batches=3, encoder="fused_encoder_layer"):
     bsz = cfg.test.ims_per_batch
     batch, _ = next(synthetic_eval_dataset(cfg, bsz).batches(bsz, cfg.data.max_boxes))
     check_eval_batch(model, cfg, batch.to(DEVICE))
+    return model, cfg, ms
 
 
 @contextlib.contextmanager
@@ -1319,31 +1348,42 @@ def expected(**launches):
 LAST_TRAIN = {}  # the main path's training run: from-memory step times
 
 
+def frozen_state(model):
+    """Copies of the frozen detector's tensors (the body, and in SGCls the
+    box head)."""
+    from veto_tpu_torch.solver.optim import FROZEN_DETECTOR
+
+    return {k: v.clone() for k, v in model.state_dict().items()
+            if k.startswith(FROZEN_DETECTOR)}
+
+
 def phase_train(steps=5, opts=(), encoder=("fused_encoder_layer",
                                            "encoder_ffn_bwd", "encoder_att_bwd"),
-                what="main path"):
+                what="main path", config=PREDCLS):
     """A training path: ``relation_train_net.train`` for a few full-width
     steps from seeded weights, with the launch counts read after every step:
-    exactly ``layers`` launches of each ``encoder`` kernel, 2 of ROIAlign,
-    1 of its backward and none of any other kernel."""
+    exactly ``layers`` launches of each ``encoder`` kernel, 2 of ROIAlign
+    (3 in SGCls), 1 of its backward and none of any other kernel."""
     from veto_tpu_torch.config import load_config
     from veto_tpu_torch.models.sgg import build_model
     from veto_tpu_torch.tools.relation_train_net import train
 
-    cfg = load_config(os.path.join(ROOT, "configs", "veto_vg_predcls.yaml"),
+    cfg = load_config(os.path.join(ROOT, "configs", config),
                       [f"solver.max_iter={steps}", f"output_dir={scratch_dir()}",
                        *opts])
     model = build_model(cfg)  # cuda, seeded weights
     layers = cfg.veto.enc_layers
-    per_step = expected(**{k: layers for k in encoder}, multilevel_roi_align=2,
+    per_step = expected(**{k: layers for k in encoder},
+                        multilevel_roi_align=roi_launches(cfg),
                         roi_align_backward=1)
-    print(f"[train, {what}] VETO PredCls training, {cfg.model.backbone} "
+    print(f"[train, {what}] VETO {cfg.relation.mode} training ({config}), "
+          f"{cfg.model.backbone} "
           f"{cfg.model.resnet_groups}x{cfg.model.resnet_width_per_group}d frozen, "
           f"depth ResNet-18 + trunk {cfg.veto.t_input_dim} x {layers} layers "
           f"({cfg.veto.encoder_impl}) trained, {cfg.dtype}; {steps} steps of "
           f"{cfg.solver.ims_per_batch} "
           f"images, {cfg.relation.batch_size_per_image} pairs an image")
-    frozen = {k: v.clone() for k, v in model.backbone.state_dict().items()}
+    frozen = frozen_state(model)
     before = {n: p.detach().clone() for n, p in model.named_parameters()
               if p.requires_grad}
     stats0 = {n: b.clone() for n, b in model.named_buffers()
@@ -1378,12 +1418,16 @@ def phase_train(steps=5, opts=(), encoder=("fused_encoder_layer",
     for i, c in enumerate(counts):
         if c != per_step:
             raise AssertionError(f"step {i}: launches {c}, want {per_step}")
-    if not all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])
-               for r in history):
-        raise AssertionError(f"non-finite loss or grad norm: {history}")
-    for k, v in model.backbone.state_dict().items():
+    losses = ["loss", "rel_loss", "grad_norm"] + (
+        ["obj_loss"] if cfg.relation.mode == "sgcls" else [])
+    if not all(np.isfinite(r[k]) for r in history for k in losses):
+        raise AssertionError(f"non-finite {losses}: {history}")
+    if "obj_loss" in losses:
+        print(f"  rel_loss {[round(r['rel_loss'], 4) for r in history]}, "
+              f"obj_loss {[round(r['obj_loss'], 4) for r in history]}")
+    for k, v in frozen_state(model).items():
         if not torch.equal(v, frozen[k]):
-            raise AssertionError(f"frozen detector changed: backbone.{k}")
+            raise AssertionError(f"frozen detector changed: {k}")
     still = [n for n, p in model.named_parameters()
              if p.requires_grad and torch.equal(p, before[n])]
     if still:
@@ -1398,18 +1442,19 @@ def phase_train(steps=5, opts=(), encoder=("fused_encoder_layer",
     return state, total
 
 
-def phase_train_grads(state, opts=(), what="main path", b=None):
+def phase_train_grads(state, opts=(), what="main path", b=None, config=PREDCLS,
+                      exact_floor=False):
     """One step's gradients through the kernels against the same step
     through the plain versions, on the card, from the trained state; on
     the synthetic train split's first batch unless a device batch ``b`` is
-    given."""
+    given.  ``exact_floor``: two kernel runs of the step must give
+    bit-equal gradients."""
     from veto_tpu_torch.config import load_config
     from veto_tpu_torch.engine.train import forward_backward, sample_pairs
     from veto_tpu_torch.ops import cuda_lib
     from veto_tpu_torch.tools.relation_train_net import synthetic_train_dataset
 
-    cfg = load_config(os.path.join(ROOT, "configs", "veto_vg_predcls.yaml"),
-                      list(opts))
+    cfg = load_config(os.path.join(ROOT, "configs", config), list(opts))
     if b is None:
         bsz = cfg.solver.ims_per_batch
         batch, _ = next(synthetic_train_dataset(cfg).batches(bsz, cfg.data.max_boxes))
@@ -1424,7 +1469,7 @@ def phase_train_grads(state, opts=(), what="main path", b=None):
     params = [(n, p) for n, p in state.model.named_parameters() if p.requires_grad]
 
     def grads():
-        loss = forward_backward(state, b, samples)
+        loss = forward_backward(state, b, samples)["loss"]
         return loss, {n: p.grad.detach().clone() for n, p in params}
 
     def compare(got, ref):
@@ -1460,6 +1505,8 @@ def phase_train_grads(state, opts=(), what="main path", b=None):
     varies = [n for n, _ in reversed(params) if not torch.equal(got[n], again[n])]
     if not varies:
         print("  two kernel runs: floor 0, every gradient tensor bit-equal")
+    elif exact_floor:
+        raise AssertionError(f"two kernel runs differ in {varies}")
     else:
         print(f"  two kernel runs: worst |err| / |ref| {floor[0]:.3e} ({floor[2]}); "
               f"{len(varies)} of {len(params)} tensors vary, the one nearest the "
@@ -1586,11 +1633,13 @@ def host_ms(fn, iters: int) -> float:
     return 1e3 * (time.perf_counter() - t0) / iters
 
 
-def reference_detector(body, gen, path):
+def reference_detector(body, gen, path, box_head=None):
     """A maskrcnn-benchmark detector state dict at the shapes of the unfolded
     port body ``body`` (seeded: LeCun-normal convs, BN weight in [0.5, 1],
-    running var in [0.5, 1.5], small biases and means), saved with
-    ``torch.save`` to ``path``.  Returns it as numpy arrays."""
+    running var in [0.5, 1.5], small biases and means) and, for ``box_head``
+    = (P, MLP width, classes), a box head whose fc6 eats the reference's
+    NCHW flatten of a P x P pool; saved with ``torch.save`` to ``path``.
+    Returns it as numpy arrays."""
     import re
 
     def ref_name(name):
@@ -1614,8 +1663,83 @@ def reference_detector(body, gen, path):
             sd[base + ".running_var"] = 0.5 + torch.rand(t.shape, generator=gen)
         else:
             sd[n] = 0.1 * torch.randn(t.shape, generator=gen)
+    if box_head is not None:
+        p, mlp, classes = box_head
+        c = body.fpn.fpn_layer1.out_channels
+        for name, shape in (("feature_extractor.fc6", (mlp, c * p * p)),
+                            ("feature_extractor.fc7", (mlp, mlp)),
+                            ("predictor.cls_score", (classes, mlp)),
+                            ("predictor.bbox_pred", (4 * classes, mlp))):
+            sd[f"roi_heads.box.{name}.weight"] = (
+                torch.randn(shape, generator=gen) * shape[1] ** -0.5)
+            sd[f"roi_heads.box.{name}.bias"] = 0.1 * torch.randn(shape[0],
+                                                                 generator=gen)
     torch.save({"model": sd}, path)
     return {k: v.numpy() for k, v in sd.items()}
+
+
+def check_box_head_import(path, ref, fold_bn, b):
+    """The reference detector at ``path`` imported into an SGCls model
+    (``fold_bn`` as given): the body and all eight box-head tensors load,
+    fc6 is the reference's with its input axis permuted from the NCHW
+    flatten to NHWC, and on the pooled map of batch ``b``'s boxes the box
+    logits equal the reference's computation on the NCHW flatten: in f32
+    to f32 rounding, and the model's own bf16 head at the main path's bf16
+    tolerance."""
+    from veto_tpu_torch.config import load_config
+    from veto_tpu_torch.models.sgg import build_model
+    from veto_tpu_torch.tools import relation_train_net as rtn
+
+    c = load_config(os.path.join(ROOT, "configs", SGCLS),
+                    [f"model.fold_bn={fold_bn}",
+                     f"model.pretrained_detector_ckpt={path}"])
+    m = build_model(c)
+    lines = []
+    loaded, skipped = rtn.load_pretrained_detector(c, m, lines.append)
+    n = check_detector_import(m, ref, fold_bn)
+    if len(loaded) != n + 8 or skipped:
+        raise AssertionError(f"SGCls fold_bn={fold_bn}: {len(loaded)} loaded of "
+                             f"{n} + 8, skipped {skipped[:4]}")
+    p, ch = c.model.box_pooler_resolution, c.model.fpn_channels
+    state = m.state_dict()
+    for ours, theirs in (("box_extractor.fc6", "feature_extractor.fc6"),
+                         ("box_extractor.fc7", "feature_extractor.fc7"),
+                         ("box_predictor.cls_score", "predictor.cls_score"),
+                         ("box_predictor.bbox_pred", "predictor.bbox_pred")):
+        for leaf in ("weight", "bias"):
+            want = ref[f"roi_heads.box.{theirs}.{leaf}"]
+            if ours.endswith("fc6") and leaf == "weight":
+                want = want.reshape(len(want), ch, p, p).transpose(0, 2, 3, 1)
+                want = want.reshape(len(want), -1)
+            if not np.array_equal(state[f"{ours}.{leaf}"].cpu().numpy(), want):
+                raise AssertionError(f"{ours}.{leaf} is not the imported tensor")
+    w = {k[len("roi_heads.box."):]: torch.from_numpy(v).to(DEVICE)
+         for k, v in ref.items() if k.startswith("roi_heads.box.")}
+    with torch.no_grad():
+        feats = m.extract_features(b.images)
+        pooled = m._pool_boxes(feats, b.boxes, p)
+        got = m._box_logits(feats, b.boxes)
+        del feats
+        ours = pooled.flatten(2)  # the port's NHWC flatten, its fc6
+        nchw = pooled.permute(0, 1, 4, 2, 3).flatten(2)  # the reference's
+        x, y = ours, nchw
+        for name, mod in (("fc6", m.box_extractor.fc6), ("fc7", m.box_extractor.fc7)):
+            x = torch.relu(x @ mod.weight.T + mod.bias)
+            y = torch.relu(y @ w[f"feature_extractor.{name}.weight"].T
+                           + w[f"feature_extractor.{name}.bias"])
+        x = m.box_predictor.cls_score(x)
+        ref_logits = (y @ w["predictor.cls_score.weight"].T
+                      + w["predictor.cls_score.bias"])
+    print(f"  SGCls detector import fold_bn={fold_bn}: {lines[0]}; the body's "
+          f"{n} tensors and the box head's 8 equal the reference under the mapping")
+    scale = float(ref_logits.abs().max())
+    check_close(f"box logits fold_bn={fold_bn}, f32 NHWC flatten vs reference NCHW",
+                x, ref_logits, atol=1e-4 * scale, rtol=0.0)
+    check_close(f"box logits fold_bn={fold_bn}, the model's bf16 head vs reference "
+                "NCHW f32", got, ref_logits, atol=0.05 * scale, rtol=0.0,
+                mean_tol=0.01 * float(ref_logits.abs().mean()))
+    del m
+    release()
 
 
 def check_detector_import(model, ref, fold_bn) -> int:
@@ -1790,8 +1914,12 @@ def phase_data_path(gen):
         unfolded = ResNetFPNBackbone(cfg.model.stage_blocks, cfg.model.resnet_groups,
                                      cfg.model.resnet_width_per_group,
                                      cfg.model.fpn_channels, fold_bn=False)
-    ref_sd = reference_detector(unfolded, torch.Generator().manual_seed(3), path)
+    ref_sd = reference_detector(unfolded, torch.Generator().manual_seed(3), path,
+                                box_head=(cfg.model.box_pooler_resolution,
+                                          cfg.model.box_mlp_head_dim,
+                                          cfg.model.num_obj_classes))
     del unfolded
+    box_names = {k for k in ref_sd if k.startswith("roi_heads.box.")}
     b_eval = val_batches[0][0].to(DEVICE)
     logits, pyramids = {}, {}
     for fold in (False, True):
@@ -1801,7 +1929,10 @@ def phase_data_path(gen):
         lines = []
         loaded, skipped = rtn.load_pretrained_detector(c, m, lines.append)
         n = check_detector_import(m, ref_sd, fold)
-        if len(loaded) != n or skipped:
+        # the PredCls model has no box head: its tensors are reported
+        if len(loaded) != n or len(skipped) != len(box_names) or any(
+                not name.startswith(("box_extractor.", "box_predictor."))
+                for _, name in skipped):
             raise AssertionError(f"fold_bn={fold}: {len(loaded)} loaded of {n}, "
                                  f"skipped {skipped[:4]}")
         print(f"  detector import fold_bn={fold}: {lines[0]}; all {n} tensors "
@@ -1817,6 +1948,7 @@ def phase_data_path(gen):
         logits[fold, "f32 body"] = eval_logits(m, c, b_eval)
         del m
         release()
+        check_box_head_import(path, ref_sd, fold, b_eval)
     # The two layouts are one function: in f32 their pyramids agree to f32
     # rounding (a misplaced scale or bias is off by its size), and with the
     # detector in f32 the two models' logits (trunk and kernels in bf16) are
@@ -2013,6 +2145,149 @@ def phase_data_path(gen):
           f"{save_s:.2f} s, restore {restore_s:.2f} s, {size / 2 ** 20:.0f} MiB")
 
 
+# ------------------------------------------------------------------ phase 14
+def sgcls_outputs(model, cfg, b):
+    """One eval batch's forward (``rel_logits``, ``predict_logits``,
+    ``pred_labels``), the model in eval mode."""
+    from veto_tpu_torch.models.relation.sampling import prepare_test_pairs
+
+    model.eval()
+    with torch.inference_mode():
+        pair_idx, pair_mask = prepare_test_pairs(
+            b.box_mask, b.box_mask.float(), cfg.relation.max_proposal_pairs)
+        return model(b.images, b.depth, b.boxes, b.box_mask, b.labels,
+                     b.obj_logits, pair_idx, pair_mask)
+
+
+def kernel_count(fn) -> int:
+    """Device launches (kernels, copies, fills) of one call of ``fn``, by
+    ``torch.profiler``; a trace that holds none is taken again, up to
+    three times."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU,
+                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        n = sum(e.count for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and (getattr(e, "self_device_time_total", 0) or 0) > 0)
+        if n:
+            return n
+    raise AssertionError("the trace holds no launch")
+
+
+def phase_sgcls():
+    """SGCls at full width from seeded weights (``configs/veto_vg_sgcls.yaml``):
+    ``evaluate`` over 3 batches of 8 images (B1 6, B3 3 per batch: the box
+    head's own 7x7 pool beside the relation and depth pools); one batch's
+    ``rel_logits`` (in ``phase_main_path``) and ``predict_logits`` against
+    the plain versions and
+    the card's ``pred_labels`` bit-equal to ``obj_prediction_nms`` run on
+    the CPU on the card's own logits; ``train`` for 5 steps (B1, B2a, B2b
+    6, B3 3, B3-bwd 1 per step; finite rel_loss and obj_loss, every
+    trainable tensor changed, the detector and box head bit-unchanged) and
+    one step's gradients against the plain versions with two kernel runs
+    bit-equal; the device ms of the box head and of ``obj_prediction_nms``
+    (with its launches per batch, and no synchronisation inside it); one
+    eval batch of ``configs/gqa_sgcls.yaml``."""
+    from veto_tpu_torch.ops import cuda_lib
+    from veto_tpu_torch.ops.nms import obj_prediction_nms
+    from veto_tpu_torch.ops.roi_align_windowed import fpn_level_assignment
+    from veto_tpu_torch.tools.relation_test_net import synthetic_eval_dataset
+    from veto_tpu_torch.utils.checkpoint import CheckpointManager
+
+    # 8 images a batch, the main path's eval batch (the SGCls configs leave
+    # test.ims_per_batch at its default 1)
+    eval8 = ("test.ims_per_batch=8",)
+    model, cfg, eval_ms = phase_main_path(eval8, config=SGCLS)
+    bsz, n = cfg.test.ims_per_batch, cfg.data.max_boxes
+    batch, _ = next(synthetic_eval_dataset(cfg, bsz).batches(bsz, n))
+    b = batch.to(DEVICE)
+    got = sgcls_outputs(model, cfg, b)
+    with cuda_lib.plain_kernels():
+        ref = sgcls_outputs(model, cfg, b)
+    # (phase_main_path held rel_logits) bf16 through the box head's fc6/fc7
+    r = ref.predict_logits
+    check_close("SGCls predict_logits kernels vs plain", got.predict_logits, r,
+                atol=0.05 * float(r.abs().max()), rtol=0.0,
+                mean_tol=0.01 * float(r.abs().mean()))
+    c = cfg.model.num_obj_classes
+    boxes = b.boxes.cpu()
+    cpu = obj_prediction_nms(boxes[:, :, None, :].expand(bsz, n, c, 4),
+                             got.predict_logits.cpu(), 0.5, b.box_mask.cpu())
+    if not torch.equal(got.pred_labels.cpu(), cpu):
+        raise AssertionError("pred_labels on the card differ from "
+                             "obj_prediction_nms on the CPU on the same logits")
+    valid = b.box_mask
+    same = float((got.pred_labels == ref.pred_labels)[valid].float().mean())
+    print(f"  pred_labels on the card bit-equal to obj_prediction_nms on the CPU "
+          f"on the card's logits ({int(valid.sum())} boxes, "
+          f"{len(set(got.pred_labels[valid].tolist()))} labels); the plain "
+          f"versions' logits give the same label to {same:.1%} of the boxes")
+    del got, ref
+    release()
+
+    state, launches = phase_train(5, config=SGCLS, what="SGCls")
+    phase_train_grads(state, config=SGCLS, what="SGCls", exact_floor=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ckpt = CheckpointManager(scratch_dir()).save(state.step, state)
+    save_s = time.perf_counter() - t0
+    print(f"  SGCls checkpoint {os.path.getsize(ckpt) / 2 ** 20:.0f} MiB (the box "
+          f"head included), saved in {save_s:.2f} s")
+    del state
+    release()
+
+    with torch.no_grad():
+        feats = model.extract_features(b.images)
+        logits = model._box_logits(feats, b.boxes)
+    p, mlp = cfg.model.box_pooler_resolution, cfg.model.box_mlp_head_dim
+    rois, k = bsz * n, p * p * cfg.model.fpn_channels
+    box_ms = busy_ms(lambda: model._box_logits(feats, b.boxes), 10)
+    pool_ms = device_ms(lambda: model._pool_boxes(feats, b.boxes, p),
+                        "roi_align_fwd_kernel", 10)
+    pool_bytes = (roi_tap_bytes(feats[:4], b.boxes, fpn_level_assignment(b.boxes),
+                                SCALES, p=p)
+                  + rois * p * p * cfg.model.fpn_channels * 4 + b.boxes.numel() * 4)
+    # the box head's least time: fc6/fc7 in bf16, cls_score in f32; its
+    # f32 weights read once, the pooled map read and the logits written
+    weights = sum(t.numel() for t in model.box_extractor.parameters()) + sum(
+        t.numel() for t in model.box_predictor.cls_score.parameters())
+    t_ops = (2 * rois * (k * mlp + mlp * mlp) / PEAK_BF16
+             + 2 * rois * mlp * c / PEAK_F32)
+    t_bytes = 4 * (weights + rois * k + rois * c) / PEAK_BYTES
+    print(f"[SGCls stages] box head (7x7 pool + fc6/fc7 + cls_score) "
+          f"{box_ms:.3f} device ms a batch of {rois} rois (bound "
+          f"{1e3 * max(t_ops, t_bytes):.3f} ms by "
+          f"{'operations' if t_ops >= t_bytes else 'bytes'}); its B3 pool at "
+          f"P = {p} {pool_ms:.4f} device ms (bound {1e3 * pool_bytes / PEAK_BYTES:.4f} "
+          f"ms by bytes, {pool_bytes / pool_ms / 1e6:.0f} GB/s)")
+
+    def nms():
+        return model._predict_labels(b.boxes, logits, b.box_mask)
+
+    nms_ms = busy_ms(nms, 5)
+    nms_wall = cuda_ms(nms, 5)
+    nms_launches = kernel_count(nms)
+    torch.cuda.set_sync_debug_mode("error")  # a synchronising op raises
+    try:
+        nms()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    print(f"  obj_prediction_nms: {nms_ms:.3f} device ms a batch, {nms_wall:.3f} ms "
+          f"by CUDA events, {nms_launches} launches ({n} trips); no "
+          f"synchronisation; {100 * nms_wall / eval_ms:.2f}% of the "
+          f"{eval_ms:.1f} ms eval batch")
+    del feats, logits, model, b
+    release()
+    phase_main_path(eval8, config="gqa_sgcls.yaml", n_batches=1)
+    print(f"[SGCls numbers] {card()}: eval {eval_ms:.1f} ms a batch; launches "
+          f"over the 5 train steps {json.dumps(launches)}")
+
+
 _SCRATCH = []
 
 
@@ -2063,6 +2338,7 @@ def main() -> int:
     release()
     pa_launches, mono_launches = phase_paths()
     phase_data_path(gen)
+    phase_sgcls()
     # each kernel's launches on the training path that runs it
     launches.update(pair_attention=pa_launches["pair_attention"],
                     pair_attention_backward=pa_launches["pair_attention_backward"],

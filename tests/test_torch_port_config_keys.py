@@ -11,6 +11,11 @@ shipped defaults still build, train and evaluate.
 - ``output_dir/ckpt``: ``evaluate`` restores the latest checkpoint there
   (A8c) and refuses a directory it cannot restore, rather than evaluating
   seeded weights in its place.
+- ``relation.use_gt_object_label`` false: the SGCls configs build, train
+  and evaluate (A9); ``relation.use_gt_box`` false (SGDet) and
+  ``ensemble.enabled`` (MEET) raise, naming slices A10 and A11;
+  ``model.box_pooler_resolution`` and ``model.box_mlp_head_dim`` shape the
+  SGCls box head.
 """
 
 import os
@@ -33,9 +38,8 @@ SMALL_EVAL = SMALL + ["data.min_size_test=64", "data.max_size_test=96",
                       "relation.max_proposal_pairs=48", "test.ims_per_batch=2"]
 
 
-def _cfg(opts):
-    return load_config(os.path.join(REPO, "configs", "veto_vg_predcls.yaml"),
-                       list(opts))
+def _cfg(opts, config="veto_vg_predcls.yaml"):
+    return load_config(os.path.join(REPO, "configs", config), list(opts))
 
 
 def test_train_refuses_a_detector_checkpoint(tmp_path):
@@ -143,3 +147,73 @@ def test_defaults_still_build_train_and_evaluate(tmp_path):
         cfg = _cfg(SMALL_EVAL + ([f"output_dir={out}"] if out else []))
         agg, seconds = evaluate(cfg, "cpu", max_batches=1, log=lambda s: None)
         assert len(seconds) == 1 and set(agg) >= {"R", "mR"}
+
+
+@pytest.mark.parametrize("config", ("veto_vg_sgcls.yaml", "gqa_sgcls.yaml"))
+def test_sgcls_configs_train_and_evaluate(tmp_path, config):
+    """One CPU train step and one eval batch of each shipped SGCls config at
+    toy widths: the object loss is logged (``metrics.jsonl`` too) and the
+    box head stays as it was."""
+    import json
+
+    import torch
+
+    out = tmp_path / "out"
+    cfg = _cfg(SMALL_TRAIN + SMALL_EVAL[len(SMALL):] + [
+        "model.box_mlp_head_dim=32", f"output_dir={out}"], config)
+    assert cfg.relation.mode == "sgcls"
+    model = build_model(cfg, "cpu")
+    head = {k: v.clone() for k, v in model.state_dict().items()
+            if k.startswith("box_")}
+    assert head["box_predictor.cls_score.weight"].shape == (
+        cfg.model.num_obj_classes, 32)
+    from veto_tpu_torch.engine.train import create_train_state
+
+    with pytest.raises(ValueError, match="built for 'sgcls'"):
+        create_train_state(model, cfg.solver)  # the default mode, predcls
+    state, history = train(cfg, "cpu", log=lambda s: None, model=model)
+    assert len(history) == 1 and history[0]["obj_loss"] > 0
+    np.testing.assert_allclose(history[0]["loss"], history[0]["rel_loss"]
+                               + history[0]["obj_loss"], rtol=1e-6)
+    for k, v in head.items():
+        assert torch.equal(state.model.state_dict()[k], v), k
+    with open(out / "metrics.jsonl") as f:
+        assert "obj_loss" in json.loads(f.readline())
+    agg, seconds = evaluate(cfg, "cpu", max_batches=1, log=lambda s: None,
+                            model=state.model)
+    assert len(seconds) == 1 and all(np.isfinite(v) for v in agg["R"].values())
+
+
+def test_sgdet_and_meet_still_raise():
+    with pytest.raises(NotImplementedError, match="A10"):
+        build_model(_cfg(SMALL + ["relation.use_gt_box=False"],
+                         "veto_vg_sgcls.yaml"), "cpu")
+    with pytest.raises(NotImplementedError, match="A11"):
+        build_model(_cfg(SMALL + ["ensemble.enabled=True"],
+                         "veto_vg_sgcls.yaml"), "cpu")
+
+
+def test_box_head_keys_change_the_model():
+    """``model.box_pooler_resolution`` is the box pool's P (fc6 eats P x P x
+    256) and ``model.box_mlp_head_dim`` the fc6/fc7 width; a forward runs
+    at both."""
+    import torch
+
+    from veto_tpu_torch.data.synthetic import SyntheticSGGDataset
+
+    cfg = _cfg(SMALL + ["model.box_pooler_resolution=5",
+                        "model.box_mlp_head_dim=24"], "veto_vg_sgcls.yaml")
+    model = build_model(cfg, "cpu")
+    assert model.box_extractor.fc6.weight.shape == (24, 5 * 5 * 256)
+    assert model.box_extractor.fc7.weight.shape == (24, 24)
+    ds = SyntheticSGGDataset(num_images=1, image_size=(64, 96),
+                             num_obj_classes=cfg.model.num_obj_classes,
+                             max_objects=4, seed=0)
+    batch, _ = next(ds.batches(1, 8))
+    b = batch.to("cpu")
+    with torch.no_grad():
+        feats = model.extract_features(b.images)
+        assert model._pool_boxes(feats, b.boxes, 5).shape == (1, 8, 5, 5, 256)
+        logits = model._box_logits(feats, b.boxes)
+    assert logits.shape == (1, 8, cfg.model.num_obj_classes)
+    assert torch.isfinite(logits).all()

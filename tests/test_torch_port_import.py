@@ -302,3 +302,64 @@ def test_relation_and_depth_converters_match_jax():
         dmap = td["depth_backbone"](torch.from_numpy(depth)).numpy()
     scale = max(1.0, float(np.abs(dref).max()))
     np.testing.assert_allclose(dmap / scale, dref / scale, atol=2e-5, rtol=0)
+
+
+def test_box_head_import_matches_jax(tmp_path):
+    """A reference box head (fc6 over the NCHW flatten of a 7x7x256 pool):
+    an SGCls model imports every tensor as the JAX import does (fc6's input
+    axis permuted to the NHWC flatten), and its class logits on an NHWC
+    pool equal the reference's computation on the NCHW flatten of the same
+    pool; a PredCls model reports the box head as skipped."""
+    from veto_tpu.models.detector.box_head import BoxFeatureExtractor as JExtractor
+    from veto_tpu.models.detector.box_head import BoxPredictor as JBoxPredictor
+
+    from veto_tpu_torch.models.sgg import SGGModel
+
+    rng = np.random.RandomState(3)
+    num_obj, mlp, p, c = 11, 16, 7, 256
+    ref = {}
+    for name, shape in (("feature_extractor.fc6", (mlp, c * p * p)),
+                        ("feature_extractor.fc7", (mlp, mlp)),
+                        ("predictor.cls_score", (num_obj, mlp)),
+                        ("predictor.bbox_pred", (4 * num_obj, mlp))):
+        ref[f"roi_heads.box.{name}.weight"] = (
+            rng.randn(*shape) / np.sqrt(shape[1])).astype(np.float32)
+        ref[f"roi_heads.box.{name}.bias"] = (rng.randn(shape[0]) * 0.1).astype(np.float32)
+    path = str(tmp_path / "model_final.pth")
+    torch.save({"model": {k: torch.from_numpy(v) for k, v in ref.items()}}, path)
+
+    pooled = rng.randn(3, p, p, c).astype(np.float32)
+    jx, jp = JExtractor(mlp_dim=mlp), JBoxPredictor(num_classes=num_obj)
+    jparams = {"box_extractor": jx.init(jax.random.PRNGKey(0),
+                                        jnp.asarray(pooled))["params"],
+               "box_predictor": jp.init(jax.random.PRNGKey(1),
+                                        jnp.zeros((1, mlp)))["params"]}
+    new, _, j_skipped = jti.import_detector_weights(jparams, path)
+    assert not j_skipped
+    want = flax_to_state_dict({"params": new})
+
+    small = dict(num_obj_classes=num_obj, num_rel_classes=7, **BODY, veto_dim=48,
+                 veto_layers=1, veto_depth_proj_dim=32, veto_visual_proj_dim=16,
+                 box_mlp_dim=mlp, dtype=torch.float32)
+    small["fpn_channels"] = c
+    model = SGGModel(**small, mode="sgcls").eval()
+    loaded, skipped = tti.import_detector_weights(model, path)
+    assert not skipped and sorted(loaded) == sorted(want)
+    for name in want:
+        np.testing.assert_array_equal(model.state_dict()[name].numpy(),
+                                      want[name].numpy(), name)
+    with torch.no_grad():
+        got = model.box_predictor.cls_score(
+            model.box_extractor(torch.from_numpy(pooled))).numpy()
+    x = pooled.transpose(0, 3, 1, 2).reshape(3, -1).astype(np.float64)
+    for name in ("feature_extractor.fc6", "feature_extractor.fc7"):
+        x = np.maximum(x @ ref[f"roi_heads.box.{name}.weight"].T
+                       + ref[f"roi_heads.box.{name}.bias"], 0.0)
+    logits = (x @ ref["roi_heads.box.predictor.cls_score.weight"].T
+              + ref["roi_heads.box.predictor.cls_score.bias"])
+    scale = float(np.abs(logits).max())
+    np.testing.assert_allclose(got / scale, logits / scale, atol=1e-5, rtol=0)
+
+    predcls = SGGModel(**small, mode="predcls")
+    loaded, skipped = tti.import_detector_weights(predcls, path)
+    assert not loaded and sorted(n for _, n in skipped) == sorted(want)

@@ -343,7 +343,7 @@ def test_train_step_pair_attn_matches_jax(interpret, small_model_pair_attn):
     samples = RelSample(*(torch.from_numpy(np.array(a))
                           for a in (js.pair_idx, js.labels, js.mask)))
     before = tpa.BWD_LAUNCHES, tfe.FFN_BWD_LAUNCHES, tfe.MONO_BWD_LAUNCHES
-    loss = forward_backward(state, batch.to("cpu"), samples)
+    loss = forward_backward(state, batch.to("cpu"), samples)["loss"]
     # the CPU runs the plain versions: no kernel launch is counted
     assert (tpa.BWD_LAUNCHES, tfe.FFN_BWD_LAUNCHES, tfe.MONO_BWD_LAUNCHES) == before
     np.testing.assert_allclose(float(loss), float(jl), rtol=1e-5)

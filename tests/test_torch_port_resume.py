@@ -89,29 +89,22 @@ def one_thread():
     torch.set_num_threads(threads)
 
 
-def test_resume_is_bit_equal_to_the_same_stream_without_a_save(vg_dir, tmp_path,
-                                                              one_thread):
-    """k steps, a checkpoint, a fresh process state restored from it and k
-    more steps equal k steps and k more on the same stream: the checkpoint
-    holds the model, its BN statistics, Adam, the iteration and the
-    sampler's generator.  Validation runs after every step of the tool's
-    run and none of the other, so it must leave the running statistics
-    alone (the model goes back to train mode after it)."""
+def _resume_matches_the_stream(vg_dir, tmp_path, config):
     k = 2
     # plateau_patience high: the validations do not move the LR
     opts = _opts(vg_dir, tmp_path / "a", checkpoint_period=k, val_period=1,
                  plateau_patience=100)
-    first_state, first = train(load_config(CONFIG, opts + [f"solver.max_iter={k}"]),
+    first_state, first = train(load_config(config, opts + [f"solver.max_iter={k}"]),
                                "cpu", log=_quiet)
     assert len(first) == k and all("val_mR100" in r for r in first)
-    resumed, second = train(load_config(CONFIG, opts + [f"solver.max_iter={2 * k}"]),
+    resumed, second = train(load_config(config, opts + [f"solver.max_iter={2 * k}"]),
                             "cpu", log=_quiet)
     assert len(second) == k and resumed.step == 2 * k
     assert resumed.model is not first_state.model
 
-    cfg = load_config(CONFIG, _opts(vg_dir, tmp_path / "b"))
+    cfg = load_config(config, _opts(vg_dir, tmp_path / "b"))
     ref = create_train_state(build_model(cfg, "cpu"), cfg.solver,
-                             rel_class_weights(cfg))
+                             rel_class_weights(cfg), mode=cfg.relation.mode)
     ref.generator = torch.Generator().manual_seed(cfg.solver.seed)
     ctrl = LRController(cfg.solver)
     for lo, hi in ((0, k), (k, 2 * k)):
@@ -124,6 +117,30 @@ def test_resume_is_bit_equal_to_the_same_stream_without_a_save(vg_dir, tmp_path,
             assert float(m["loss"]) == rec["loss"], it
     _same_state(resumed, ref)
     assert torch.equal(resumed.generator.get_state(), ref.generator.get_state())
+    return resumed
+
+
+def test_resume_is_bit_equal_to_the_same_stream_without_a_save(vg_dir, tmp_path,
+                                                              one_thread):
+    """k steps, a checkpoint, a fresh process state restored from it and k
+    more steps equal k steps and k more on the same stream: the checkpoint
+    holds the model, its BN statistics, Adam, the iteration and the
+    sampler's generator.  Validation runs after every step of the tool's
+    run and none of the other, so it must leave the running statistics
+    alone (the model goes back to train mode after it)."""
+    _resume_matches_the_stream(vg_dir, tmp_path, CONFIG)
+
+
+def test_sgcls_resume_is_bit_equal_to_the_same_stream_without_a_save(
+        vg_dir, tmp_path, one_thread):
+    """The same for SGCls: the checkpoint carries the frozen box head too,
+    and the object loss is in every step's record."""
+    resumed = _resume_matches_the_stream(
+        vg_dir, tmp_path, os.path.join(REPO, "configs", "veto_vg_sgcls.yaml"))
+    assert any(k.startswith("box_extractor.") for k in resumed.model.state_dict())
+    payload = CheckpointManager(tmp_path / "a" / "ckpt").load()
+    assert {"box_extractor.fc6.weight", "box_predictor.cls_score.weight"} <= set(
+        payload["model"])
 
 
 def test_validation_drives_the_plateau_controller_as_in_jax(vg_dir, tmp_path):

@@ -497,6 +497,6 @@ def test_forward_backward_leaves_detector_out_of_autograd(small_variables):
     feats = model.extract_features(tb.images)
     assert all(f.grad_fn is None and not f.requires_grad for f in feats)
     gen = torch.Generator().manual_seed(0)
-    loss = forward_backward(state, tb, sample_pairs(tb, gen, PAIRS, 0.25))
+    loss = forward_backward(state, tb, sample_pairs(tb, gen, PAIRS, 0.25))["loss"]
     assert torch.isfinite(loss)
     assert all(p.grad is None for p in model.backbone.parameters())

@@ -1,4 +1,4 @@
-"""The PredCls evaluation step (``veto_tpu/engine/train.py``
+"""The PredCls and SGCls evaluation step (``veto_tpu/engine/train.py``
 ``make_eval_step``) and its feed into the evaluator.
 
 ``eval_step(batch)`` builds every candidate pair (``prepare_test_pairs``,
@@ -14,12 +14,14 @@ import torch
 
 from ..models.relation.postprocess import RelPrediction, postprocess_relations
 from ..models.relation.sampling import prepare_test_pairs
+from ..models.sgg import check_mode
 
 
 def make_eval_step(model, max_pairs: int = 2048, mode: str = "predcls"):
     """(SGGBatch of tensors) → RelPrediction, batched."""
-    if mode != "predcls":
-        raise NotImplementedError(f"mode {mode!r}: later slices")
+    check_mode(mode)
+    if mode != model.mode:
+        raise ValueError(f"mode {mode!r} for a model built for {model.mode!r}")
 
     @torch.inference_mode()
     def eval_step(batch) -> RelPrediction:
@@ -29,7 +31,8 @@ def make_eval_step(model, max_pairs: int = 2048, mode: str = "predcls"):
         out = model(batch.images, batch.depth, batch.boxes, batch.box_mask,
                     batch.labels, batch.obj_logits, pair_idx, pair_mask)
         # the post-processor reads the proposals' predict_logits (the ±1000
-        # GT injection), not the predictor's obj_dists
+        # GT injection in PredCls, the frozen box head's logits in SGCls),
+        # not the predictor's obj_dists
         return postprocess_relations(out.rel_logits, out.predict_logits,
                                      pair_idx, pair_mask)
 

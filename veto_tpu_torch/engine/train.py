@@ -1,21 +1,22 @@
-"""The PredCls train step (``veto_tpu/engine/train.py`` ``make_train_step``),
-weighted cross-entropy variant.
+"""The PredCls and SGCls train step (``veto_tpu/engine/train.py``
+``make_train_step``), weighted cross-entropy variant.
 
 One step samples the training pairs of each image (``gtbox_relsample``),
 runs the model in train mode, takes the Rwt beta-weighted cross-entropy
-over the sampled pairs, back-propagates (through the encoder's and the
-ROIAlign's backward kernels on the card) and applies the clipped Adam
-update.  The step is split in two so that a test can feed the JAX
-package's own samples to the second half:
+over the sampled pairs (and, in SGCls, the object loss), back-propagates
+(through the encoder's and the ROIAlign's backward kernels on the card)
+and applies the clipped Adam update.  The step is split in two so that a
+test can feed the JAX package's own samples to the second half:
 
     samples = sample_pairs(batch, generator)
     metrics = train_on_pairs(state, batch, samples, lr_scale)
 
-``metrics`` holds ``loss``, ``rel_loss`` and ``grad_norm`` (the global norm
-of all gradients before clipping, as ``optax.global_norm``) as 0-d tensors
-on the device, and ``batch_stats``, copies of the BatchNorm running
-statistics after the step.  The other loss variants (label smoothing, LDAM,
-balanced norm) and MEET raise ``NotImplementedError``.
+``metrics`` holds ``loss``, ``rel_loss``, in SGCls ``obj_loss``, and
+``grad_norm`` (the global norm of all gradients before clipping, as
+``optax.global_norm``) as 0-d tensors on the device, and ``batch_stats``,
+copies of the BatchNorm running statistics after the step.  SGDet (A10),
+MEET (A11) and the other loss variants (label smoothing, LDAM, balanced
+norm) raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ from torch import nn
 
 from ..models.relation.predictor_veto import weighted_ce_loss
 from ..models.relation.sampling import RelSample, gtbox_relsample
+from ..models.sgg import check_mode
 from ..solver.optim import FROZEN_DETECTOR, Optimizer, make_optimizer
 
 
@@ -43,12 +45,13 @@ class TrainState:
 def create_train_state(model: nn.Module, solver_cfg, class_weights=None,
                        mode: str = "predcls", loss_variant: str = "weighted_ce",
                        meet=None) -> TrainState:
-    """The state of a PredCls training run over ``model``'s parameters."""
-    if mode != "predcls":
-        raise NotImplementedError(f"mode {mode!r}: SGCls and SGDet training "
-                                  "come in later slices")
+    """The state of a PredCls or SGCls training run over ``model``'s
+    parameters."""
+    check_mode(mode)
+    if mode != model.mode:
+        raise ValueError(f"mode {mode!r} for a model built for {model.mode!r}")
     if meet is not None:
-        raise NotImplementedError("MEET training comes in a later slice")
+        raise NotImplementedError("MEET training comes with slice A11")
     if loss_variant != "weighted_ce":
         raise NotImplementedError(f"loss variant {loss_variant!r}: the port "
                                   "trains with the weighted cross-entropy")
@@ -73,28 +76,38 @@ def batch_stats(model: nn.Module) -> Dict[str, torch.Tensor]:
             and not name.startswith(FROZEN_DETECTOR)}
 
 
-def forward_backward(state: TrainState, batch, samples: RelSample) -> torch.Tensor:
+def forward_backward(state: TrainState, batch,
+                     samples: RelSample) -> Dict[str, torch.Tensor]:
     """Train-mode forward and the loss's backward on the given pairs: the
     trainable parameters' ``.grad`` hold the step's gradients.  Returns the
-    relation loss (with VETO in PredCls, the whole loss)."""
+    losses, detached: ``loss`` (their sum), ``rel_loss`` and, outside
+    PredCls, ``obj_loss``."""
     model = state.model
     model.train()
     state.optimizer.zero_grad()
     out = model(batch.images, batch.depth, batch.boxes, batch.box_mask,
                 batch.labels, batch.obj_logits, samples.pair_idx, samples.mask)
-    rel_loss = weighted_ce_loss(out.rel_logits, samples.labels, samples.mask,
-                                state.class_weights)
-    rel_loss.backward()
-    return rel_loss.detach()
+    losses = {"rel_loss": weighted_ce_loss(out.rel_logits, samples.labels,
+                                           samples.mask, state.class_weights)}
+    if model.mode != "predcls":
+        # the cross-entropy of the predictor's obj_dists against the GT
+        # labels.  obj_dists is the one-hot of the NMS's labels and carries
+        # no gradient, in the JAX package as here: this term moves the loss
+        # value, not the update.
+        losses["obj_loss"] = weighted_ce_loss(out.obj_dists, batch.labels,
+                                              batch.box_mask, None)
+    loss = sum(losses.values())
+    loss.backward()
+    return {"loss": loss.detach(), **{k: v.detach() for k, v in losses.items()}}
 
 
 def train_on_pairs(state: TrainState, batch, samples: RelSample,
                    lr_scale: float) -> Dict[str, object]:
     """Forward, loss, backward and update on the given pairs."""
-    rel_loss = loss = forward_backward(state, batch, samples)
+    metrics = forward_backward(state, batch, samples)
     grad_norm = state.optimizer.step(lr_scale)
     state.step += 1
-    return {"loss": loss, "rel_loss": rel_loss, "grad_norm": grad_norm.detach(),
+    return {**metrics, "grad_norm": grad_norm.detach(),
             "batch_stats": batch_stats(state.model)}
 
 

@@ -231,16 +231,22 @@ class VetoEncoder(nn.Module):
 
 class VetoTrunk(nn.Module):
     """Embeddings → pair tokens → fusion transformer → per-pair CLS feature.
-    PredCls only: the class embedding looks up the GT label."""
+
+    The class embedding: in PredCls a lookup of the given label; in SGCls
+    the softmax of the box head's logits times the table,
+    ``softmax(logits in f32)`` rounded to the compute dtype, then a product
+    in that dtype, as the JAX trunk computes it (so ``obj_embed`` gets a
+    dense gradient, not a gather's)."""
 
     def __init__(self, num_obj_classes: int = 151, embed_dim: int = 200,
                  dim: int = 576, layers: int = 6, heads: int = 6,
                  patch_size: int = 2, depth_proj_dim: int = 512,
                  visual_proj_dim: int = 64, rgb_channels: int = 256,
                  depth_channels: int = 256, dtype: torch.dtype = torch.bfloat16,
-                 encoder_impl: str = "fused"):
+                 encoder_impl: str = "fused", mode: str = "predcls"):
         super().__init__()
         self.dtype, self.patch_size, self.dim = dtype, patch_size, dim
+        self.mode = mode
         pp = patch_size * patch_size
         self.obj_embed = nn.Embedding(num_obj_classes, embed_dim)
         self.pos_bn = MaskedBatchNorm(4)
@@ -273,11 +279,15 @@ class VetoTrunk(nn.Module):
 
     def forward(self, boxes: torch.Tensor, box_mask: torch.Tensor,
                 obj_labels: torch.Tensor, pair_idx: torch.Tensor,
-                roi_features: torch.Tensor,
-                depth_features: torch.Tensor) -> torch.Tensor:
+                roi_features: torch.Tensor, depth_features: torch.Tensor,
+                obj_logits: Optional[torch.Tensor] = None) -> torch.Tensor:
         b, p = pair_idx.shape[:2]
         dt = self.dtype
-        obj_embed = self.obj_embed.weight.to(dt)[obj_labels.long()]
+        if self.mode == "predcls":
+            obj_embed = self.obj_embed.weight.to(dt)[obj_labels.long()]
+        else:
+            probs = torch.softmax(obj_logits.float(), dim=-1).to(dt)
+            obj_embed = probs @ self.obj_embed.weight.to(dt)
         pos = self.pos_bn(center_xywh(xyxy_to_xywh(boxes)).to(dt), box_mask)
         pos = F.relu(self.pos_fc(pos))                                # (B, N, 128)
         vis = self._patchify(roi_features.to(dt))
@@ -309,24 +319,29 @@ class VetoPredictorOutput(NamedTuple):
 
 
 class VetoPredictor(nn.Module):
-    """Relation logits from proposals and pooled 8x8 RGB/depth maps."""
+    """Relation logits from proposals and pooled 8x8 RGB/depth maps.
+
+    ``obj_dists`` is the one-hot of the labels it is given (the GT labels
+    in PredCls, the NMS's predicted labels in SGCls), as in the JAX
+    predictor: it carries no gradient."""
 
     def __init__(self, num_obj_classes: int = 151, num_rel_classes: int = 51,
                  embed_dim: int = 200, dim: int = 576, layers: int = 6,
                  heads: int = 6, patch_size: int = 2, depth_proj_dim: int = 512,
                  visual_proj_dim: int = 64, rgb_channels: int = 256,
                  depth_channels: int = 256, dtype: torch.dtype = torch.bfloat16,
-                 encoder_impl: str = "fused"):
+                 encoder_impl: str = "fused", mode: str = "predcls"):
         super().__init__()
         self.num_obj_classes = num_obj_classes
         self.trunk = VetoTrunk(num_obj_classes, embed_dim, dim, layers, heads,
                                patch_size, depth_proj_dim, visual_proj_dim,
-                               rgb_channels, depth_channels, dtype, encoder_impl)
+                               rgb_channels, depth_channels, dtype, encoder_impl,
+                               mode)
         self.rel_out = Dense(dim, num_rel_classes, dtype=torch.float32)
 
     def forward(self, boxes, box_mask, obj_labels, pair_idx, roi_features,
-                depth_features) -> VetoPredictorOutput:
+                depth_features, obj_logits=None) -> VetoPredictorOutput:
         rel_feat = self.trunk(boxes, box_mask, obj_labels, pair_idx,
-                              roi_features, depth_features)
+                              roi_features, depth_features, obj_logits)
         obj_dists = F.one_hot(obj_labels.long(), self.num_obj_classes).float()
         return VetoPredictorOutput(self.rel_out(rel_feat), obj_dists)

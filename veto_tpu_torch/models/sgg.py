@@ -1,15 +1,25 @@
-"""The scene-graph model, PredCls mode (``veto_tpu/models/sgg.py``).
+"""The scene-graph model, PredCls and SGCls modes (``veto_tpu/models/sgg.py``).
 
 Frozen ResNeXt-FPN detector body, trainable depth ResNet-18, multi-level
 8x8 ROI pooling of the GT boxes (P2-P5) and of the depth map (1/16), and
-the VETO relation predictor.  SGCls, SGDet, MEET and the legacy predictors
-come in later slices and raise ``NotImplementedError`` here.
+the VETO relation predictor.  The mode sets the object labels and logits
+the predictor sees:
 
-Training: the detector body is frozen (the JAX package's
-``FROZEN_DETECTOR``, ``tools/relation_train_net.py:297``): its parameters
-never require a gradient, it runs under ``torch.no_grad()`` (so autograd
-keeps none of its activations, as ``stop_gradient`` does in JAX) and it
-stays in eval mode when the model is put in train mode.  The depth
+  * ``predcls``: the GT labels, and ±1000 one-hot logits for the
+    post-processor;
+  * ``sgcls``: the frozen box head (its own 7x7 multi-level pool of the GT
+    boxes, fc6/fc7 and ``cls_score``) gives the logits, and
+    ``obj_prediction_nms`` over the boxes tiled across classes (IoU 0.5)
+    the labels.
+
+SGDet (slice A10), MEET (A11) and the legacy predictors raise
+``NotImplementedError``.
+
+Training: the detector is frozen (the JAX package's ``FROZEN_DETECTOR``,
+``tools/relation_train_net.py:297``), the box head included: its
+parameters never require a gradient, it runs under ``torch.no_grad()`` (so
+autograd keeps none of its activations, as ``stop_gradient`` does in JAX)
+and it stays in eval mode when the model is put in train mode.  The depth
 backbone and the predictor train.
 
 Layout: NHWC images, (B, N) padded boxes, (B, P) padded pairs — the JAX
@@ -26,10 +36,24 @@ import torch.nn.functional as F
 from torch import nn
 
 from .. import resolve_device
+from ..ops.nms import obj_prediction_nms
 from ..ops.roi_align_windowed import multilevel_roi_align_batched
 from .backbone.depth_resnet import DepthResNet18
 from .backbone.resnet import ResNetFPNBackbone
+from .detector.box_head import BoxFeatureExtractor, BoxPredictor
 from .relation.predictor_veto import VetoPredictor
+
+MODES = ("predcls", "sgcls")
+
+
+def check_mode(mode: str) -> None:
+    """Raise for a task mode the port does not run yet, naming its slice."""
+    if mode == "sgdet":
+        raise NotImplementedError("mode 'sgdet': SGDet (the RPN, the NMS "
+                                  "family, box post-processing) comes with "
+                                  "slice A10")
+    if mode not in MODES:
+        raise ValueError(f"mode {mode!r}: expected one of {MODES} or sgdet")
 
 
 class SGGForward(NamedTuple):
@@ -51,13 +75,13 @@ class SGGModel(nn.Module):
                  veto_patch_size: int = 2, veto_depth_proj_dim: int = 512,
                  veto_visual_proj_dim: int = 64, embed_dim: int = 200,
                  fold_bn: bool = True, dtype: torch.dtype = torch.bfloat16,
-                 veto_encoder_impl: str = "fused"):
+                 veto_encoder_impl: str = "fused",
+                 box_pooler_resolution: int = 7, box_mlp_dim: int = 4096):
         super().__init__()
-        if mode != "predcls":
-            raise NotImplementedError(
-                f"mode {mode!r}: this port slice runs PredCls; SGCls and SGDet "
-                "come in later slices")
+        check_mode(mode)
+        self.mode = mode
         self.num_obj_classes = num_obj_classes
+        self.box_pooler_resolution = box_pooler_resolution
         self.pooler_resolution = pooler_resolution
         self.pooler_scales = tuple(pooler_scales)
         self.pooler_sampling_ratio = pooler_sampling_ratio
@@ -66,16 +90,24 @@ class SGGModel(nn.Module):
                                           fpn_channels, fold_bn, stride_in_1x1,
                                           dtype)
         self.depth_backbone = DepthResNet18(dtype)
+        self.frozen = [self.backbone]
+        if mode == "sgcls":
+            self.box_extractor = BoxFeatureExtractor(
+                box_pooler_resolution ** 2 * fpn_channels, box_mlp_dim, dtype)
+            self.box_predictor = BoxPredictor(box_mlp_dim, num_obj_classes)
+            self.frozen += [self.box_extractor, self.box_predictor]
         self.relation = VetoPredictor(
             num_obj_classes, num_rel_classes, embed_dim, veto_dim, veto_layers,
             veto_heads, veto_patch_size, veto_depth_proj_dim,
             veto_visual_proj_dim, rgb_channels=fpn_channels, depth_channels=256,
-            dtype=dtype, encoder_impl=veto_encoder_impl)
-        self.backbone.requires_grad_(False)
+            dtype=dtype, encoder_impl=veto_encoder_impl, mode=mode)
+        for m in self.frozen:
+            m.requires_grad_(False)
 
     def train(self, mode: bool = True) -> "SGGModel":
         super().train(mode)
-        self.backbone.eval()  # the frozen detector never trains
+        for m in self.frozen:  # the frozen detector never trains
+            m.eval()
         return self
 
     def extract_features(self, images: torch.Tensor) -> Tuple[torch.Tensor, ...]:
@@ -83,33 +115,59 @@ class SGGModel(nn.Module):
         with torch.no_grad():
             return self.backbone(images)
 
-    def _pool_boxes(self, feats, boxes: torch.Tensor) -> torch.Tensor:
+    def _pool_boxes(self, feats, boxes: torch.Tensor,
+                    resolution: int) -> torch.Tensor:
+        """Multi-level P x P pooling of the boxes on P2-P5 (one B3 launch
+        on the card)."""
         levels = [f.contiguous() for f in feats[: len(self.pooler_scales)]]
         return multilevel_roi_align_batched(
-            levels, boxes, self.pooler_scales, self.pooler_resolution,
+            levels, boxes, self.pooler_scales, resolution,
             self.pooler_sampling_ratio)
 
-    def relate(self, feats, depth, boxes, box_mask, obj_labels, pair_idx):
+    def _box_logits(self, feats, boxes: torch.Tensor) -> torch.Tensor:
+        """The frozen box head's f32 class logits (B, N, num_obj): its own
+        7x7 pool, fc6/fc7 and ``cls_score``, outside autograd.  SGCls never
+        decodes the box deltas (the JAX step drops them, and XLA never
+        computes what is dropped), so ``bbox_pred`` is not run here."""
+        with torch.no_grad():
+            pooled = self._pool_boxes(feats, boxes, self.box_pooler_resolution)
+            return self.box_predictor.cls_score(self.box_extractor(pooled))
+
+    def _predict_labels(self, boxes, logits, box_mask) -> torch.Tensor:
+        """SGCls labels: ``obj_prediction_nms`` over the boxes tiled across
+        the classes, at IoU 0.5 (the reference's ``add_predict_info``)."""
+        b, n = boxes.shape[:2]
+        tiled = boxes[:, :, None, :].expand(b, n, self.num_obj_classes, 4)
+        return obj_prediction_nms(tiled, logits, 0.5, valid_mask=box_mask)
+
+    def relate(self, feats, depth, boxes, box_mask, obj_labels, pair_idx,
+               obj_logits=None):
         depth_feat = self.depth_backbone(depth).contiguous()
-        roi_feats = self._pool_boxes(feats, boxes)
+        roi_feats = self._pool_boxes(feats, boxes, self.pooler_resolution)
         depth_roi = multilevel_roi_align_batched(
             [depth_feat], boxes, (self.depth_scale,), self.pooler_resolution,
             self.pooler_sampling_ratio)
         return self.relation(boxes, box_mask, obj_labels, pair_idx, roi_feats,
-                             depth_roi)
+                             depth_roi, obj_logits)
 
     def forward(self, images, depth, boxes, box_mask, obj_labels, obj_logits,
                 pair_idx, pair_mask) -> SGGForward:
         """The JAX ``SGGModel.__call__`` signature; ``obj_logits`` and
-        ``pair_mask`` are unused in PredCls (padded pairs are masked later,
-        in post-processing)."""
+        ``pair_mask`` are unused here (padded pairs are masked later, in
+        post-processing)."""
         feats = self.extract_features(images)
-        # ±1000 GT-logit injection so eval softmax obj scores are exactly 1
-        predict_logits = F.one_hot(obj_labels.long(),
-                                   self.num_obj_classes).float() * 2000.0 - 1000.0
-        out = self.relate(feats, depth, boxes, box_mask, obj_labels, pair_idx)
+        if self.mode == "sgcls":
+            predict_logits = self._box_logits(feats, boxes)
+            pred_labels = self._predict_labels(boxes, predict_logits, box_mask)
+        else:
+            # ±1000 GT-logit injection so eval softmax obj scores are exactly 1
+            predict_logits = F.one_hot(
+                obj_labels.long(), self.num_obj_classes).float() * 2000.0 - 1000.0
+            pred_labels = obj_labels
+        out = self.relate(feats, depth, boxes, box_mask, pred_labels, pair_idx,
+                          predict_logits)
         return SGGForward(rel_logits=out.rel_logits, obj_dists=out.obj_dists,
-                          pred_labels=obj_labels, predict_logits=predict_logits)
+                          pred_labels=pred_labels, predict_logits=predict_logits)
 
 
 def build_model(cfg, device=None, seed: int = None) -> SGGModel:
@@ -119,15 +177,13 @@ def build_model(cfg, device=None, seed: int = None) -> SGGModel:
     ``veto.encoder_impl`` names (raises ``ValueError`` on a name it does not
     know)."""
     dev = resolve_device(device)
-    if cfg.relation.mode != "predcls":
-        raise NotImplementedError(
-            f"mode {cfg.relation.mode!r}: SGCls and SGDet come in later slices")
+    check_mode(cfg.relation.mode)
     if cfg.relation.predictor != "VETOPredictor":
         raise NotImplementedError(
             f"predictor {cfg.relation.predictor!r}: this slice ports "
             "VETOPredictor only")
     if cfg.ensemble.enabled:
-        raise NotImplementedError("MEET comes in a later slice")
+        raise NotImplementedError("MEET comes with slice A11")
     if not cfg.model.backbone.endswith("-FPN") or any(cfg.model.stage_with_dcn):
         raise NotImplementedError(
             f"backbone {cfg.model.backbone!r}: this slice ports the ResNet-FPN "
@@ -140,7 +196,7 @@ def build_model(cfg, device=None, seed: int = None) -> SGGModel:
             "heads come with slice A14")
     model = SGGModel(
         num_obj_classes=cfg.model.num_obj_classes,
-        num_rel_classes=cfg.relation.num_classes,
+        num_rel_classes=cfg.relation.num_classes, mode=cfg.relation.mode,
         stage_blocks=cfg.model.stage_blocks, groups=cfg.model.resnet_groups,
         width_per_group=cfg.model.resnet_width_per_group,
         fpn_channels=cfg.model.fpn_channels,
@@ -154,6 +210,8 @@ def build_model(cfg, device=None, seed: int = None) -> SGGModel:
         fold_bn=cfg.model.fold_bn,
         dtype=torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32,
         veto_encoder_impl=cfg.veto.encoder_impl,
+        box_pooler_resolution=cfg.model.box_pooler_resolution,
+        box_mlp_dim=cfg.model.box_mlp_head_dim,
     ).to(dev)
     init_weights(model, cfg.solver.seed if seed is None else seed)
     return model.eval()
@@ -163,9 +221,11 @@ def build_model(cfg, device=None, seed: int = None) -> SGGModel:
 def init_weights(model: nn.Module, seed: int) -> None:
     """Seeded random weights, drawn on the model's device with one
     ``torch.Generator``: LeCun-normal matrices and conv kernels (fan-in
-    over the kernel window and group), Xavier-uniform ``rel_out``, N(0, 1)
-    CLS/position tokens, N(0, 1/embed_dim) embeddings, unit scales, zero
-    biases and BN statistics of a unit normal."""
+    over the kernel window and group), Xavier-uniform ``rel_out``, the box
+    predictor's N(0, 0.01^2) ``cls_score`` and N(0, 0.001^2) ``bbox_pred``
+    (flax's ``normal`` initializers), N(0, 1) CLS/position tokens,
+    N(0, 1/embed_dim) embeddings, unit scales, zero biases and BN
+    statistics of a unit normal."""
     dev = next(model.parameters()).device
     gen = torch.Generator(device=dev).manual_seed(seed)
     for name, p in model.named_parameters():
@@ -173,6 +233,10 @@ def init_weights(model: nn.Module, seed: int) -> None:
         if name.endswith("rel_out.weight"):
             bound = math.sqrt(6.0 / (p.shape[0] + p.shape[1]))
             p.uniform_(-bound, bound, generator=gen)
+        elif name == "box_predictor.cls_score.weight":
+            p.normal_(0.0, 0.01, generator=gen)
+        elif name == "box_predictor.bbox_pred.weight":
+            p.normal_(0.0, 0.001, generator=gen)
         elif leaf in ("cls_token", "pos_embedding"):
             p.normal_(0.0, 1.0, generator=gen)
         elif name.endswith("obj_embed.weight"):

@@ -1,4 +1,4 @@
-"""Where the PredCls evaluation step spends its time on the card.
+"""Where the PredCls or SGCls evaluation step spends its time on the card.
 
     python -m veto_tpu_torch.tools.profile_eval \\
         [--config configs/veto_vg_predcls.yaml] [--batches 3] [opts ...]
@@ -7,10 +7,11 @@ Builds the model of the config on ``cuda`` from seeded weights, runs one
 warm-up batch of the synthetic split, then
 
 * times the stages of each following batch with CUDA events recorded by
-  forward hooks: the detector body + FPN, the depth backbone, the relation
-  predictor and, inside it, the encoder; pooling is what remains of the
-  model's forward, pair preparation + post-processing what remains of the
-  step; the host-to-card copy of the batch and the whole step (ending with
+  forward hooks: the detector body + FPN, the depth backbone, in SGCls the
+  box head (its pool and MLP) and ``obj_prediction_nms``, the relation
+  predictor and, inside it, the encoder; the relation and depth pooling is
+  what remains of the model's forward, pair preparation + post-processing
+  what remains of the step; the host-to-card copy of the batch and the whole step (ending with
   the predictions on the host) are timed on the host clock;
 * traces one more batch with ``torch.profiler`` and reports the device time
   by kernel, the port's own kernels by name, and the device's busy share of
@@ -24,6 +25,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import functools
 import json
 import subprocess
 import time
@@ -41,25 +43,55 @@ OWN_KERNELS = ("gemm_sm90_kernel", "pair_attention_kernel", "layernorm_kernel",
                "pair_attn_fwd_kernel")
 
 
-def _stage_timer(named_modules):
+def _stage_timer(named_modules, named_methods=()):
     """Forward hooks that record a CUDA event pair around each module's
-    forward; returns (events list per name, remove callback)."""
+    forward, and the same around each ``(name, module, method)`` of
+    ``named_methods`` (the method wrapped on the instance); returns (events
+    list per name, remove callback)."""
     events = collections.defaultdict(list)
     handles = []
+
+    def pre(*_, name):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        events[name].append([e, None])
+
+    def post(*_, name):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        events[name][-1][1] = e
+
     for name, mod in named_modules:
-        def pre(_m, _a, name=name):
-            e = torch.cuda.Event(enable_timing=True)
-            e.record()
-            events[name].append([e, None])
+        handles += [mod.register_forward_pre_hook(functools.partial(pre, name=name)),
+                    mod.register_forward_hook(functools.partial(post, name=name))]
+    wrapped = []
+    for name, mod, attr in named_methods:
+        def timed(*args, fn=getattr(mod, attr), name=name):
+            pre(name=name)
+            out = fn(*args)
+            post(name=name)
+            return out
 
-        def post(_m, _a, _o, name=name):
-            e = torch.cuda.Event(enable_timing=True)
-            e.record()
-            events[name][-1][1] = e
+        setattr(mod, attr, timed)
+        wrapped.append((mod, attr))
 
-        handles += [mod.register_forward_pre_hook(pre),
-                    mod.register_forward_hook(post)]
-    return events, lambda: [h.remove() for h in handles]
+    def remove():
+        for h in handles:
+            h.remove()
+        for mod, attr in wrapped:
+            delattr(mod, attr)
+
+    return events, remove
+
+
+def sgcls_stages(model):
+    """The SGCls model's own stages, as ``named_methods`` of
+    :func:`_stage_timer`: the box head (its 7x7 pool and MLP) and
+    ``obj_prediction_nms``; none for PredCls."""
+    if model.mode != "sgcls":
+        return []
+    return [("box_head", model, "_box_logits"),
+            ("obj_prediction_nms", model, "_predict_labels")]
 
 
 def profile(cfg, batches: int = 3, log=print) -> dict:
@@ -69,7 +101,8 @@ def profile(cfg, batches: int = 3, log=print) -> dict:
 
     model = build_model(cfg)  # cuda; raises without a card
     dev = next(model.parameters()).device
-    step = make_eval_step(model, max_pairs=cfg.relation.max_proposal_pairs)
+    step = make_eval_step(model, max_pairs=cfg.relation.max_proposal_pairs,
+                          mode=cfg.relation.mode)
     bsz = cfg.test.ims_per_batch
     data = list(synthetic_eval_dataset(cfg, (batches + 2) * bsz)
                 .batches(bsz, cfg.data.max_boxes))
@@ -80,7 +113,8 @@ def profile(cfg, batches: int = 3, log=print) -> dict:
               ("relation", model.relation),
               ("encoder", model.relation.trunk.fusion_transformer),
               ("model", model)]
-    events, remove = _stage_timer(stages)
+    methods = sgcls_stages(model)
+    events, remove = _stage_timer(stages, methods)
     h2d, step_s = [], []
     for batch, _ in data[1:1 + batches]:
         torch.cuda.synchronize()
@@ -95,16 +129,17 @@ def profile(cfg, batches: int = 3, log=print) -> dict:
     remove()
     torch.cuda.synchronize()
     ms = {name: float(np.mean([s.elapsed_time(e) for s, e in events[name]]))
-          for name, _ in stages}
+          for name in [n for n, _ in stages] + [n for n, _, _ in methods]}
+    own = [n for n, _, _ in methods]
     ms["roi_pooling"] = (ms["model"] - ms["backbone"] - ms["depth_backbone"]
-                         - ms["relation"])
+                         - ms["relation"] - sum(ms[n] for n in own))
     ms["predictor_without_encoder"] = ms["relation"] - ms["encoder"]
     ms["pairs_postprocess_and_copy_back"] = 1e3 * float(np.mean(step_s)) - ms["model"]
     ms["host_to_card_copy"] = 1e3 * float(np.mean(h2d))
     ms["step"] = 1e3 * float(np.mean(step_s))
-    for k in ("step", "host_to_card_copy", "model", "backbone",
-              "depth_backbone", "roi_pooling", "relation", "encoder",
-              "predictor_without_encoder", "pairs_postprocess_and_copy_back"):
+    for k in ["step", "host_to_card_copy", "model", "backbone",
+              "depth_backbone", *own, "roi_pooling", "relation", "encoder",
+              "predictor_without_encoder", "pairs_postprocess_and_copy_back"]:
         log(f"  {k:32s} {ms[k]:9.3f} ms")
 
     b = data[-1][0].to(dev)

@@ -1,4 +1,4 @@
-"""Where the PredCls train step spends its time on the card.
+"""Where the PredCls or SGCls train step spends its time on the card.
 
     python -m veto_tpu_torch.tools.profile_train \\
         [--config configs/veto_vg_predcls.yaml] [--steps 3] [opts ...]
@@ -8,8 +8,9 @@ train state, runs one warm-up step on the synthetic train split, then
 
 * times each following step with CUDA events: pair sampling; the forward's
   stages by forward hooks (the frozen detector body + FPN, the depth
-  backbone, the relation predictor and, inside it, the encoder; ROI pooling
-  is what remains of the forward); the loss and the backward together; the
+  backbone, in SGCls the box head and ``obj_prediction_nms``, the relation
+  predictor and, inside it, the encoder; the relation and depth pooling is
+  what remains of the forward); the loss and the backward together; the
   optimizer update (clipping, Adam); the whole step on the host clock,
   ending after the update on the device;
 * traces one more step with ``torch.profiler`` and reports the device time
@@ -29,7 +30,7 @@ import time
 import numpy as np
 import torch
 
-from .profile_eval import OWN_KERNELS, _stage_timer, trace
+from .profile_eval import OWN_KERNELS, _stage_timer, sgcls_stages, trace
 
 # the backward kernels of csrc/encoder_layer_bwd.cu, csrc/roi_align.cu and
 # csrc/pair_attention.cu (its GEMMs are OWN_KERNELS' gemm_sm90_kernel, its
@@ -47,7 +48,8 @@ def profile(cfg, steps: int = 3, log=print) -> dict:
 
     model = build_model(cfg)  # cuda; raises without a card
     dev = next(model.parameters()).device
-    state = create_train_state(model, cfg.solver, rel_class_weights(cfg))
+    state = create_train_state(model, cfg.solver, rel_class_weights(cfg),
+                               mode=cfg.relation.mode)
     scale = LRController(cfg.solver).scale(0)
     gen = torch.Generator(device=dev).manual_seed(cfg.solver.seed)
     bsz = cfg.solver.ims_per_batch
@@ -63,11 +65,11 @@ def profile(cfg, steps: int = 3, log=print) -> dict:
         samples = sample_pairs(b, gen, cfg.relation.batch_size_per_image,
                                cfg.relation.positive_fraction)
         mark()
-        loss = forward_backward(state, b, samples)
+        losses = forward_backward(state, b, samples)
         mark()
         state.optimizer.step(scale)
         mark()
-        return float(loss)
+        return float(losses["loss"])
 
     step(data[0])  # warm-up: cuDNN plans, kernel loads
     stages = [("backbone", model.backbone),
@@ -75,7 +77,8 @@ def profile(cfg, steps: int = 3, log=print) -> dict:
               ("relation", model.relation),
               ("encoder", model.relation.trunk.fusion_transformer),
               ("model", model)]
-    events, remove = _stage_timer(stages)
+    methods = sgcls_stages(model)
+    events, remove = _stage_timer(stages, methods)
     marks, step_s = [], []
     for b in data[1:1 + steps]:
         torch.cuda.synchronize()
@@ -85,20 +88,21 @@ def profile(cfg, steps: int = 3, log=print) -> dict:
         step_s.append(time.perf_counter() - t0)
     remove()
     torch.cuda.synchronize()
+    own = [n for n, _, _ in methods]
     ms = {name: float(np.mean([s.elapsed_time(e) for s, e in events[name]]))
-          for name, _ in stages}
+          for name in [n for n, _ in stages] + own}
     spans = np.array([[marks[4 * i + k].elapsed_time(marks[4 * i + k + 1])
                        for k in range(3)] for i in range(steps)]).mean(0)
     ms["sampling"] = float(spans[0])
     ms["loss_and_backward"] = float(spans[1]) - ms["model"]
     ms["optimizer"] = float(spans[2])
     ms["roi_pooling"] = (ms["model"] - ms["backbone"] - ms["depth_backbone"]
-                         - ms["relation"])
+                         - ms["relation"] - sum(ms[n] for n in own))
     ms["predictor_without_encoder"] = ms["relation"] - ms["encoder"]
     ms["step"] = 1e3 * float(np.mean(step_s))
-    for k in ("step", "sampling", "model", "backbone", "depth_backbone",
+    for k in ["step", "sampling", "model", "backbone", "depth_backbone", *own,
               "roi_pooling", "relation", "encoder", "predictor_without_encoder",
-              "loss_and_backward", "optimizer"):
+              "loss_and_backward", "optimizer"]:
         log(f"  {k:32s} {ms[k]:9.3f} ms")
 
     b = data[-1]

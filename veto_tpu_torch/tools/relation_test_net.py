@@ -4,8 +4,9 @@
         --config configs/veto_vg_predcls.yaml [--device cpu] \\
         [--split val|test] [--max-batches N] [opts ...]
 
-Reads the YAML with the port's config loader, builds the PredCls model on
-the card (or the CPU when asked), restores the latest checkpoint in
+Reads the YAML with the port's config loader, builds the PredCls or SGCls
+model (``configs/veto_vg_sgcls.yaml``, ``configs/gqa_sgcls.yaml``) on the
+card (or the CPU when asked), restores the latest checkpoint in
 ``output_dir/ckpt`` when there is one (else the weights stay the seeded
 random ones of ``solver.seed``), evaluates the split through the eval step
 and the SGG evaluator, prints R@K / mR@K and writes ``eval_results.json``
@@ -17,7 +18,7 @@ Visual Genome), ``data.max_boxes`` objects at most.  Zero-shot recall uses
 ``test.zeroshot_file`` or, from files, the triplets of the split that the
 train split never has.
 
-Not yet ported (they raise): SGCls/SGDet, MEET, other predictors,
+Not yet ported (they raise): SGDet (A10), MEET (A11), other predictors,
 stage-wise recall, multi-device evaluation.
 """
 

@@ -4,10 +4,12 @@
         --config configs/veto_vg_predcls.yaml [--device cpu] \\
         [opts, e.g. data.data_dir=/path/to/vg solver.max_iter=125000]
 
-Reads the YAML with the port's config loader, builds the PredCls model on
-the card (or the CPU when asked) with weights drawn from ``solver.seed``,
-imports ``model.pretrained_detector_ckpt`` into the frozen detector when
-set, and trains the depth backbone and the relation head:
+Reads the YAML with the port's config loader, builds the PredCls or SGCls
+model (``relation.use_gt_object_label``) on the card (or the CPU when
+asked) with weights drawn from ``solver.seed``, imports
+``model.pretrained_detector_ckpt`` into the frozen detector (in SGCls its
+box head too) when set, and trains the depth backbone and the relation
+head:
 
   * data: the Visual Genome (or GQA-200) files under ``data.data_dir``
     through :class:`SGGLoader` (800 x 1344 and 1344 x 800 buckets at the
@@ -24,16 +26,18 @@ set, and trains the depth backbone and the relation head:
   * SIGTERM: the step in flight finishes, a checkpoint is saved at the
     next iteration and the run ends cleanly; a final checkpoint at the end.
 
-Each step logs the loss, the gradient norm, the LR scale and its seconds:
+Each step logs the loss (in SGCls also the object loss, which moves the
+loss value and not the update), the gradient norm, the LR scale and its
+seconds:
 ``seconds`` from its batch on the device to the end of its update,
 ``step_seconds`` from the end of the previous update to the end of this
 one (waiting on the loader included), ``wait_seconds`` the part spent
 waiting for the batch.  ``metrics.jsonl`` in ``output_dir`` gets the
 losses every 30 steps and each validation's mR@100.
 
-Not yet ported (they raise): SGCls/SGDet, MEET, the attribute/mask/keypoint
-heads, the other loss variants, COCO/VOC (A13) and Open Images (A14) data,
-multi-device training.
+Not yet ported (they raise): SGDet (A10), MEET (A11), the
+attribute/mask/keypoint heads, the other loss variants, COCO/VOC (A13) and
+Open Images (A14) data, multi-device training.
 """
 
 from __future__ import annotations
@@ -223,7 +227,8 @@ def run_validation(model, eval_step, batches, evaluator, device,
 def train(cfg, device=None, log=print, model=None, datasets=None):
     """Train to ``solver.max_iter`` (from the latest checkpoint in
     ``output_dir/ckpt`` when there is one).  Returns the train state and
-    one dict per step run: loss, rel_loss, grad_norm, lr_scale, seconds,
+    one dict per step run: loss, rel_loss (and obj_loss in SGCls),
+    grad_norm, lr_scale, seconds,
     step_seconds, wait_seconds, image_shape (the batch's padded (H, W))
     and, on a validation step, val_mR100.
 
@@ -295,15 +300,16 @@ def train(cfg, device=None, log=print, model=None, datasets=None):
                            cfg.relation.positive_fraction)
             fence()  # the update's launches included
             now = time.perf_counter()
-            rec = {k: float(m[k]) for k in ("loss", "rel_loss", "grad_norm")}
+            losses = [k for k in ("loss", "rel_loss", "obj_loss") if k in m]
+            rec = {k: float(m[k]) for k in losses + ["grad_norm"]}
             rec.update(lr_scale=scale, seconds=now - t0,
                        step_seconds=now - t_prev, wait_seconds=feeder.waits[-1],
                        image_shape=tuple(batch.images.shape[1:3]))
             history.append(rec)
             meters.update(time=rec["step_seconds"])
             if it % 30 == 0:
-                writer.write(it, {k: rec[k] for k in ("loss", "rel_loss",
-                                                      "grad_norm", "lr_scale")})
+                writer.write(it, {k: rec[k] for k in losses + ["grad_norm",
+                                                               "lr_scale"]})
             log(f"iter {it}/{solver.max_iter}  loss {rec['loss']:.4f}  "
                 f"grad_norm {rec['grad_norm']:.4f}  lr_scale {scale:.4f}  "
                 f"{rec['seconds']:.3f} s on {dev} ({rec['step_seconds']:.3f} s "

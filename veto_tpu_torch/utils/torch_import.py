@@ -17,16 +17,19 @@ with no HWIO round trip.  What changes values:
     factorizes it into subject and object projections, so those weights
     split by columns (:func:`_split_pair_columns`,
     :func:`_split_patch_columns`).
+  * the box head's fc6 eats the flattened pooled map: the reference
+    flattens NCHW (C, P, P), the port NHWC (P, P, C), so fc6's input axis
+    is permuted (:func:`_fc6_to_nhwc`).
 
 Entry points: :func:`import_detector_weights` (a ``.pth``, a Detectron
 ``.pkl`` or a ``catalog://`` name from the local cache, which never
 downloads); :func:`depth_backbone_state_updates` and
 :func:`veto_relation_state_updates` for a reference relation checkpoint;
 :func:`apply_updates` writes any of them into a model and reports what it
-skipped (the PredCls model has no RPN and no box head, so their tensors
-are reported as missing).  The box head's fc6 input permutation (the
-reference flattens NCHW) comes with the box head in SGCls (A9); the
-motifs/LSTM/attribute converters with the rest of the zoo (A14).
+skipped (no model of the port has an RPN yet, and the PredCls model no
+box head, so their tensors are reported as missing; an SGCls model loads
+the box head).  The motifs/LSTM/attribute converters come with the rest of
+the zoo (A14).
 """
 
 from __future__ import annotations
@@ -68,10 +71,25 @@ def _fold_bn(sd: Updates, prefix: str) -> Tuple[np.ndarray, np.ndarray]:
     return scale.astype(np.float32), (b - mean * scale).astype(np.float32)
 
 
-def detector_state_updates(sd: Updates) -> Updates:
+def _fc6_to_nhwc(w: np.ndarray, channels: int) -> np.ndarray:
+    """fc6's (out, C * P * P) weight, whose input is the reference's NCHW
+    flatten of the pooled map (``x.view(x.size(0), -1)``,
+    roi_box_feature_extractors.py:46), as (out, P * P * C) for the port's
+    NHWC flatten; a weight whose input is not ``P * P * channels`` for a
+    whole P is returned as it is (the JAX import's rule)."""
+    p = int(round(max(w.shape[1] // channels, 1) ** 0.5))
+    if p * p * channels != w.shape[1]:
+        return w
+    return np.ascontiguousarray(
+        w.reshape(w.shape[0], channels, p, p).transpose(0, 2, 3, 1)
+        .reshape(w.shape[0], -1))
+
+
+def detector_state_updates(sd: Updates, fpn_channels: int) -> Updates:
     """A maskrcnn-benchmark detector state dict in the port's names, in the
     unfolded layout (convs without bias, each followed by a
-    ``FrozenBatchNorm`` with the folded affine)."""
+    ``FrozenBatchNorm`` with the folded affine); fc6 permuted for the NHWC
+    pool of ``fpn_channels`` channels."""
     out: Updates = {}
 
     def put_bn(src: str, dst: str) -> None:
@@ -108,8 +126,7 @@ def detector_state_updates(sd: Updates) -> Updates:
         if m:
             out[f"backbone.conv{m.group(1)}.weight"] = _f32(sd[k])
             out[f"backbone.conv{m.group(1)}.bias"] = _f32(sd[k[:-len("weight")] + "bias"])
-    # the RPN head and the box head (fc6 as stored: its NCHW → NHWC input
-    # permutation comes with the port's box head, A9)
+    # the RPN head and the box head
     heads = [(f"rpn.head.{n}", f"rpn.{n}") for n in ("conv", "cls_logits", "bbox_pred")]
     heads += [("roi_heads.box.feature_extractor.fc6", "box_extractor.fc6"),
               ("roi_heads.box.feature_extractor.fc7", "box_extractor.fc7"),
@@ -119,7 +136,10 @@ def detector_state_updates(sd: Updates) -> Updates:
                "attribute_predictor.att_score")]
     for src, dst in heads:
         if f"{src}.weight" in sd:
-            out[f"{dst}.weight"] = _f32(sd[f"{src}.weight"])
+            w = _f32(sd[f"{src}.weight"])
+            if dst == "box_extractor.fc6":
+                w = _fc6_to_nhwc(w, fpn_channels)
+            out[f"{dst}.weight"] = w
             out[f"{dst}.bias"] = _f32(sd[f"{src}.bias"])
     return out
 
@@ -183,15 +203,16 @@ def import_detector_weights(model, ckpt_path: str, log=None,
     """Checkpoint file → the model's detector.  ``catalog://...`` resolves
     to a file of the local cache; ``*.pkl`` is a caffe2/Detectron pickle;
     anything else a torch checkpoint.  ``fold_bn`` targets a model built
-    with ``model.fold_bn``.  Returns :func:`apply_updates`' (loaded,
-    skipped)."""
+    with ``model.fold_bn``.  fc6 is permuted for the width of the model's
+    FPN.  Returns :func:`apply_updates`' (loaded, skipped)."""
     if ckpt_path.startswith("catalog://"):
         ckpt_path = resolve_catalog(ckpt_path)
     if ckpt_path.endswith(".pkl"):
         sd = load_c2_state_dict(ckpt_path)
     else:
         sd = load_torch_state_dict(ckpt_path)
-    updates = detector_state_updates(sd)
+    updates = detector_state_updates(
+        sd, model.backbone.fpn.fpn_layer1.out_channels)
     if fold_bn:
         updates = fold_detector_updates(updates)
     return apply_updates(model, updates, log)
