@@ -111,9 +111,35 @@ catches its own failure:
     versions, two kernel runs bit-equal; the box head's and
     ``obj_prediction_nms``'s device ms and the NMS's launches per batch
     (it must not synchronise); one eval batch of ``configs/gqa_sgcls.yaml``.
-15. One JSON line ``{"kernels": [...]}`` (all eight kernels; ``launches``
-    from the main path's training run, or the path that runs each) and,
-    last, ``{"ok": true, "device": {...}}``.
+15. SGDet at full width (``configs/veto_vg_sgdet.yaml``, nothing cut).
+    Kernel N1 (``csrc/nms.cu``: the IoU bitmask, then the greedy scan)
+    against the plain blockwise walk on the same sorted problems: the RPN's
+    8 x 5 x 6000 (boxes decoded from the real anchors, bf16-quantised
+    scores), the box head's 8 x 150 x 1000 per-class walks, ``max_outputs``
+    reached early, duplicates, all boxes identical, all inactive, N = 1,
+    N = 100 and IoU exactly at the threshold; keep bits bit-equal, two runs
+    bit-equal, the scan's shared memory in C against its Python mirror,
+    ``topk_first`` on pure ties on the card; both kernels' device ms
+    against their bounds, the plain walk's ms.  The frozen
+    ``box_predictor.cls_score`` is drawn with the first σ that leaves 40
+    detections an image (the config's own 0.01 first).  ``evaluate`` over 3
+    batches of 8 (B1 6, B3 3, N1 mask 2, N1 scan 2 a batch, every other
+    kernel 0); one batch's proposals and detections through the kernels
+    bit-equal to the plain versions' on the same inputs, ``rel_logits`` on
+    the same detections at phase 5's tolerances, and no synchronisation
+    inside ``detect`` or the post-processing
+    (``torch.cuda.set_sync_debug_mode("error")``); ``detect``'s stage times;
+    ``train`` for 5 steps of 12 images whose GT boxes and labels are 20
+    detections of one earlier ``detect`` of the same images, with seeded
+    relations among them (B1, B2a, B2b 6, B3 3, B3-bwd 1, N1 mask 2, N1
+    scan 2 a step, the validation of step 4's two batches on top; finite
+    ``rel_loss`` and ``obj_loss``, every trainable tensor changed, the
+    detector, RPN and box head bit-unchanged, foreground pairs printed) and
+    one step's gradients against the plain versions, two kernel runs
+    bit-equal; one eval batch of ``configs/gqa_sgdet.yaml``.
+16. One JSON line ``{"kernels": [...]}`` (all nine kernels, N1 last;
+    ``launches`` from the main path's training run, or the path that runs
+    each) and, last, ``{"ok": true, "device": {...}}``.
 
 Every f32 comparison runs with TF32 off (``torch.backends.cudnn.allow_tf32``
 and ``torch.backends.cuda.matmul.allow_tf32`` are set False below), so the
@@ -1324,6 +1350,8 @@ COUNTERS = {
     "pair_attention_cuda_cores": ("pair_attention", "CUDA_CORE_LAUNCHES"),
     "pair_attention_backward_cuda_cores": ("pair_attention", "CUDA_CORE_BWD_LAUNCHES"),
     "encoder_mono_bwd": ("fused_encoder", "MONO_BWD_LAUNCHES"),         # B5
+    "nms_mask": ("nms", "MASK_LAUNCHES"),                               # N1
+    "nms_scan": ("nms", "SCAN_LAUNCHES"),                               # N1
 }
 
 
@@ -1443,12 +1471,13 @@ def phase_train(steps=5, opts=(), encoder=("fused_encoder_layer",
 
 
 def phase_train_grads(state, opts=(), what="main path", b=None, config=PREDCLS,
-                      exact_floor=False):
+                      exact_floor=False, samples=None):
     """One step's gradients through the kernels against the same step
     through the plain versions, on the card, from the trained state; on
     the synthetic train split's first batch unless a device batch ``b`` is
-    given.  ``exact_floor``: two kernel runs of the step must give
-    bit-equal gradients."""
+    given, on its sampled pairs unless ``samples`` are given (SGDet's: the
+    detections and their pairs).  ``exact_floor``: two kernel runs of the
+    step must give bit-equal gradients."""
     from veto_tpu_torch.config import load_config
     from veto_tpu_torch.engine.train import forward_backward, sample_pairs
     from veto_tpu_torch.ops import cuda_lib
@@ -1461,8 +1490,9 @@ def phase_train_grads(state, opts=(), what="main path", b=None, config=PREDCLS,
         b = batch.to(DEVICE)
     bsz = b.images.shape[0]
     gen = torch.Generator(device=DEVICE).manual_seed(1)
-    samples = sample_pairs(b, gen, cfg.relation.batch_size_per_image,
-                           cfg.relation.positive_fraction)
+    if samples is None:
+        samples = sample_pairs(b, gen, cfg.relation.batch_size_per_image,
+                               cfg.relation.positive_fraction)
     print(f"[train grads, {what}] one step's gradients, kernels vs plain: {bsz} "
           f"images of {tuple(b.images.shape[1:3])}, "
           f"{cfg.relation.batch_size_per_image} pairs an image")
@@ -2288,6 +2318,559 @@ def phase_sgcls():
           f"over the 5 train steps {json.dumps(launches)}")
 
 
+# ------------------------------------------------------------------ phase 15
+SGDET = "veto_vg_sgdet.yaml"
+RPN_MAPS = ((200, 336), (100, 168), (50, 84), (25, 42), (13, 21))  # 800x1344
+IOU_OPS = 15  # f32 operations of one IoU and its comparison (csrc/nms.cu)
+
+
+def rpn_problems(gen, b=8, pre=6000):
+    """The RPN's NMS problems at full width: per image and level of an
+    800x1344 image, the top ``pre`` of bf16-quantised objectness logits over
+    the real anchors, decoded (small random deltas) and clipped, sorted as
+    ``nms`` sorts them → (b x 5, pre, 4) boxes, (b x 5, pre) active."""
+    import torch.nn.functional as F
+
+    from veto_tpu_torch.models.detector.rpn import _level_candidates, level_anchors
+    from veto_tpu_torch.ops.nms import _NEG_INF, _sorted_problems
+
+    anchors = level_anchors(RPN_MAPS, (32, 64, 128, 256, 512), (4, 8, 16, 32, 64),
+                            (0.23232838, 0.63365731, 1.28478321, 3.15089189), DEVICE)
+    sizes = torch.full((b, 2), 800.0, device=DEVICE)
+    sizes[:, 0] = 1344.0
+    boxes, live = [], []
+    for a in anchors:
+        n = a.shape[0]
+        o = (2 * torch.randn((b, n), generator=gen, device=DEVICE)).bfloat16()
+        r = 0.2 * torch.randn((b, n, 4), generator=gen, device=DEVICE)
+        props, sc, valid = _level_candidates(o, r, a, sizes, pre, 0.0)
+        pad = pre - sc.shape[1]
+        boxes.append(F.pad(props, (0, 0, 0, pad)))
+        live.append(F.pad(torch.where(valid, sc, _NEG_INF), (0, pad), value=_NEG_INF))
+    boxes = torch.stack(boxes, 1).reshape(b * 5, pre, 4)
+    sboxes, _, active = _sorted_problems(boxes, torch.stack(live, 1).reshape(b * 5, pre))
+    return sboxes.contiguous(), active
+
+
+def class_problems(gen, b=8, n=1000, c=150):
+    """The box head's per-class problems: ``n`` proposals an image, each
+    decoded per class (small deltas) and clipped, scored by a softmax over
+    ``c + 1`` classes peaked enough that many pass the 0.01 threshold →
+    (b x c, n, 4) boxes, (b x c, n) active, sorted."""
+    from veto_tpu_torch.ops.box_ops import clip_to_image, decode_boxes
+    from veto_tpu_torch.ops.nms import _NEG_INF, _sorted_problems
+
+    xy = torch.rand((b, n, 2), generator=gen, device=DEVICE) * torch.tensor(
+        [1200.0, 700.0], device=DEVICE)
+    wh = 16 + 384 * torch.rand((b, n, 2), generator=gen, device=DEVICE)
+    props = torch.cat([xy, xy + wh], -1)
+    deltas = 0.5 * torch.randn((b, n, 4 * (c + 1)), generator=gen, device=DEVICE)
+    sizes = torch.tensor([[1344.0, 800.0]] * b, device=DEVICE)
+    bpc = clip_to_image(decode_boxes(deltas, props).reshape(b, n * (c + 1), 4),
+                        sizes).reshape(b, n, c + 1, 4)[:, :, 1:]
+    prob = torch.softmax(2 * torch.randn((b, n, c + 1), generator=gen,
+                                         device=DEVICE), -1)[..., 1:]
+    live = torch.where(prob > 0.01, prob, _NEG_INF).transpose(1, 2).reshape(-1, n)
+    sboxes, _, active = _sorted_problems(
+        bpc.transpose(1, 2).reshape(-1, n, 4), live)
+    return sboxes.contiguous(), active
+
+
+def nms_edge_cases(gen):
+    """Small problems at the edges: duplicate boxes, all boxes identical,
+    all inactive, N = 1, N = 100 (not a multiple of 64), and pairs whose IoU
+    is exactly the threshold 0.5 (never suppressed: the test is strict)."""
+    cases = []
+    base = 100 * torch.rand((8, 4), generator=gen, device=DEVICE)
+    base[:, 2:] += base[:, :2] + 5
+    dup = base.repeat(8, 1)                                  # 64 boxes, 8 distinct
+    cases.append(("duplicates", dup, torch.ones(64, dtype=torch.bool, device=DEVICE)))
+    same = base[:1].repeat(100, 1)
+    cases.append(("all identical", same, torch.ones(100, dtype=torch.bool,
+                                                    device=DEVICE)))
+    cases.append(("all inactive", dup, torch.zeros(64, dtype=torch.bool,
+                                                   device=DEVICE)))
+    cases.append(("N = 1", base[:1], torch.ones(1, dtype=torch.bool, device=DEVICE)))
+    xy = 300 * torch.rand((100, 2), generator=gen, device=DEVICE)
+    rnd = torch.cat([xy, xy + 10 + 60 * torch.rand((100, 2), generator=gen,
+                                                   device=DEVICE)], -1)
+    cases.append(("N = 100", rnd, torch.rand(100, generator=gen, device=DEVICE) > 0.1))
+    # [0, 0, 9, 9] against [0, 0, 9, 19]: inter 100, union 200, IoU 0.5
+    half = torch.tensor([[0, 0, 9, 9], [0, 0, 9, 19], [0, 0, 19, 19],
+                         [0, 0, 9, 9]], dtype=torch.float32, device=DEVICE)
+    cases.append(("IoU = threshold", half, torch.ones(4, dtype=torch.bool,
+                                                      device=DEVICE)))
+    return cases
+
+
+def scan_bytes(keep: torch.Tensor) -> int:
+    """Bytes the scan must move for these keeps: each kept row's mask words
+    from its own on, the active flags read, the keep flags written."""
+    g, n = keep.shape
+    words = -(-n // 64)
+    rows = keep.nonzero()[:, 1]
+    return int((words - rows // 64).sum()) * 8 + 2 * g * n
+
+
+def n1_kernel_ms(boxes, active, thr, m, iters=10):
+    """Device ms of each of N1's kernels alone: CUDA events around
+    ``iters`` launches of its C entry on preallocated buffers (uncounted:
+    these are timing launches, not the path's)."""
+    import ctypes
+
+    from veto_tpu_torch.ops import cuda_lib
+    from veto_tpu_torch.ops import nms as tn
+
+    g, n = active.shape
+    table = torch.empty((g, n, tn.mask_words(n)), dtype=torch.int64, device=DEVICE)
+    keep = torch.empty((g, n), dtype=torch.bool, device=DEVICE)
+    stream = torch.cuda.current_stream().cuda_stream
+    lib, mask_fn = tn._entry("nms_mask", [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                                          ctypes.c_float, ctypes.c_void_p,
+                                          ctypes.c_void_p])
+    _, scan_fn = tn._entry("nms_scan", [ctypes.c_void_p, ctypes.c_void_p,
+                                        ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                        ctypes.c_void_p, ctypes.c_void_p])
+
+    def mask():
+        cuda_lib.check(lib, mask_fn(boxes.data_ptr(), g, n, thr, table.data_ptr(),
+                                    stream), "nms_mask")
+
+    def scan():
+        cuda_lib.check(lib, scan_fn(table.data_ptr(), active.data_ptr(), g, n, m,
+                                    keep.data_ptr(), stream), "nms_scan")
+
+    # the mask first: the scan then walks the table it wrote
+    mask_ms = cuda_ms(mask, iters)
+    scan_ms = cuda_ms(scan, iters)
+    if not torch.equal(keep, tn.greedy_keep_sorted(boxes, active, thr, m)):
+        raise AssertionError("the timed launches' keeps differ from the wrapper's")
+    return mask_ms, scan_ms
+
+
+def phase_nms(gen):
+    """Kernel N1 (``csrc/nms.cu``: the IoU bitmask, then the scan) against
+    the plain blockwise walk on the same sorted problems: the RPN's (8 x 5
+    x 6000, IoU 0.7, 1000 keeps), the box head's per-class (8 x 150 x 1000,
+    IoU 0.3, 300 keeps), ``max_outputs`` reached early, and the edge cases;
+    keep bits bit-equal, two runs bit-equal; the C shared-memory size
+    against its Python mirror; device ms of both kernels (CUDA events
+    around their launches alone) against their bounds, the plain walk's
+    ms."""
+    from veto_tpu_torch.ops import cuda_lib
+    from veto_tpu_torch.ops import nms as tn
+
+    print("[N1 greedy NMS] kernel vs the plain blockwise walk on the same "
+          "sorted problems")
+    lib = cuda_lib.library("nms")
+    for n in (1, 64, 100, 1000, 6000, 49152):
+        if lib.nms_scan_smem_bytes(n) != tn.scan_smem_bytes(n):
+            raise AssertionError(f"scan shared memory at N = {n}: C "
+                                 f"{lib.nms_scan_smem_bytes(n)}, Python "
+                                 f"{tn.scan_smem_bytes(n)}")
+
+    def both(what, boxes, active, thr, m):
+        got = tn.greedy_keep_sorted(boxes, active, thr, m)
+        again = tn.greedy_keep_sorted(boxes, active, thr, m)
+        ref = tn.reference_greedy_keep(boxes, active, thr, m)
+        if not torch.equal(got, ref):
+            bad = (got != ref).any(1).nonzero()[:4, 0].tolist()
+            raise AssertionError(f"{what}: kernel keeps differ from the plain "
+                                 f"walk's in problems {bad}")
+        if not torch.equal(got, again):
+            raise AssertionError(f"{what}: two kernel runs differ")
+        k = got.sum(1)
+        print(f"  {what}: {tuple(active.shape)} bit-equal to the plain walk, two "
+              f"runs bit-equal; keeps a problem {int(k.min())}-{int(k.max())} "
+              f"(total {int(k.sum())}), active {int(active.sum())}")
+        return got
+
+    rpn = rpn_problems(gen)
+    keep = both("RPN 8 x 5 x 6000, IoU 0.7, 1000 keeps", *rpn, 0.7, 1000)
+    both("RPN, max_outputs 5 (reached early)", *rpn, 0.7, 5)
+    cls = class_problems(gen)
+    keep_cls = both("per class 8 x 150 x 1000, IoU 0.3, 300 keeps", *cls, 0.3, 300)
+    for what, boxes, active in nms_edge_cases(gen):
+        thr = 0.5 if what == "IoU = threshold" else 0.3
+        got = both(what, boxes[None].contiguous(), active[None], thr, 1000)
+        if what == "IoU = threshold" and got.sum() != 3:
+            raise AssertionError(f"IoU exactly at the threshold suppressed: {got}")
+    ties = torch.zeros((4, 1000), device=DEVICE)
+    from veto_tpu_torch.models.detector.rpn import topk_first
+
+    if not torch.equal(topk_first(ties, 600)[1],
+                       torch.arange(600, device=DEVICE).expand(4, 600)):
+        raise AssertionError("topk_first on pure ties is not index order on the card")
+    print("  topk_first on pure ties: index order on the card")
+
+    rows = []
+    for what, (boxes, active), thr, m, kp in (
+            ("RPN", rpn, 0.7, 1000, keep), ("per class", cls, 0.3, 300, keep_cls)):
+        g, n = active.shape
+        words = -(-n // 64)
+        mask_ms, scan_ms = n1_kernel_ms(boxes, active, thr, m)
+        plain = cuda_ms(lambda: tn.reference_greedy_keep(boxes, active, thr, m), 2, 1)
+        t_ops = IOU_OPS * g * n * (n - 1) / 2 / PEAK_F32 * 1e3
+        mask_bytes = g * n * 16 + g * words * (words + 1) // 2 * 64 * 8
+        sbytes = scan_bytes(kp)
+        t_bytes = (mask_bytes + sbytes) / PEAK_BYTES * 1e3
+        depth = int(kp.sum(1).max())
+        print(f"  {what}: mask {mask_ms:.4f} + scan {scan_ms:.4f} device ms "
+              f"(bound: mask {t_ops:.4f} ms by operations, {IOU_OPS} a pair, "
+              f"{mask_bytes / 1e6:.1f} MB of table; scan {sbytes / 1e6:.2f} MB, "
+              f"{sbytes / PEAK_BYTES * 1e3:.4f} ms by bytes, but {depth} kept "
+              f"rows one after another in its longest problem); plain walk "
+              f"{plain:.2f} ms")
+        rows.append(dict(ms=mask_ms + scan_ms, plain_ms=plain,
+                         bound_ms=max(t_ops, t_bytes),
+                         bound_by="operations" if t_ops >= t_bytes else "bytes"))
+    rpn_row = rows[0]
+    return dict(name="greedy_nms", route="cuda", source="veto_tpu_torch/csrc/nms.cu",
+                replaces="veto_tpu/ops/nms.py:85 (_greedy_keep_sorted_coords; "
+                         "XLA, no Pallas call)",
+                max_abs_err=0.0, library_ms=None, **rpn_row)
+
+
+SIGMAS = (0.01, 0.03, 0.1, 0.3, 1.0)  # cls_score draws tried, the config's first
+MIN_DETECTIONS = 40  # valid detections an image the SGDet checks need
+
+
+def sgdet_launches(cfg, batches=1):
+    """Launches of ``batches`` SGDet forwards (eval batches, or the detect
+    and relate of train steps): B1 a layer, B3 3 (the box head's pool of
+    the proposals, the relation and depth pools), N1's mask and scan 2
+    each (the RPN's walks, then the per-class walks)."""
+    return {"fused_encoder_layer": cfg.veto.enc_layers * batches,
+            "multilevel_roi_align": 3 * batches,
+            "nms_mask": 2 * batches, "nms_scan": 2 * batches}
+
+
+def mean_detections(model, b) -> float:
+    with torch.inference_mode():
+        return float(model.detect(b.images, b.sizes).detections.mask.sum(1)
+                     .float().mean())
+
+
+def draw_cls_score(model, cfg, b) -> float:
+    """Seeded weights give a near-uniform softmax over the classes, under
+    the 0.01 score threshold: draw the frozen ``box_predictor.cls_score``
+    with the first σ of ``SIGMAS`` (the config's own 0.01 first) that
+    leaves at least ``MIN_DETECTIONS`` valid detections an image of ``b``;
+    returns σ."""
+    w = model.box_predictor.cls_score.weight
+    counts = []
+    for sigma in SIGMAS:
+        g = torch.Generator(device=DEVICE).manual_seed(cfg.solver.seed + 15)
+        with torch.no_grad():
+            w.copy_(sigma * torch.randn(w.shape, generator=g, device=DEVICE))
+        counts.append(mean_detections(model, b))
+        if counts[-1] >= MIN_DETECTIONS:
+            break
+    print(f"  detections an image by cls_score sigma: "
+          f"{dict(zip(SIGMAS, [round(c, 1) for c in counts]))} (sigma 0.01 is "
+          f"the config's init); sigma {sigma} taken")
+    if counts[-1] < MIN_DETECTIONS:
+        raise AssertionError(f"no sigma of {SIGMAS} gives {MIN_DETECTIONS} "
+                             f"detections an image: {counts}")
+    return sigma
+
+
+def sgdet_eval_model(config, opts=()):
+    from veto_tpu_torch.config import load_config
+    from veto_tpu_torch.models.sgg import build_model
+    from veto_tpu_torch.tools.relation_test_net import synthetic_eval_dataset
+
+    cfg = load_config(os.path.join(ROOT, "configs", config),
+                      ["test.ims_per_batch=8", *opts])
+    model = build_model(cfg)
+    bsz = cfg.test.ims_per_batch
+    batch, _ = next(synthetic_eval_dataset(cfg, bsz).batches(bsz, cfg.data.max_boxes))
+    b = batch.to(DEVICE)
+    sigma = draw_cls_score(model, cfg, b)
+    return model, cfg, b, sigma
+
+
+def sgdet_evaluate(model, cfg, n_batches, what):
+    """``relation_test_net.evaluate`` over ``n_batches`` batches with the
+    launch counts read at every batch; returns ms per batch after warm-up
+    and the peak memory."""
+    from veto_tpu_torch.tools.relation_test_net import evaluate
+
+    per_batch = expected(**sgdet_launches(cfg))
+    counts = []
+
+    def log(line):
+        if line.startswith("batch "):
+            counts.append(read_counters(reset=True))
+        print(f"  {line}")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    read_counters(reset=True)
+    agg, seconds = evaluate(cfg, model=model, max_batches=n_batches, log=log)
+    peak = torch.cuda.max_memory_allocated()
+    ms = 1e3 * float(np.mean(seconds[1:] or seconds))
+    print(f"  [{what}] launches a batch {json.dumps(counts[0])}; after warm-up "
+          f"{ms:.1f} ms a batch ({[round(1e3 * t, 1) for t in seconds]}); peak "
+          f"memory {peak / 2 ** 30:.2f} GiB; detection mAP {agg['bbox']['mAP']:.4f}")
+    if len(counts) != n_batches or any(c != per_batch for c in counts):
+        raise AssertionError(f"launches {counts}, want {per_batch} each batch")
+    for m in ("R", "mR"):
+        if not all(np.isfinite(v) and 0 <= v <= 100 for v in agg[m].values()):
+            raise AssertionError(f"{m}@K out of range: {agg[m]}")
+    return ms, peak
+
+
+def sgdet_ladder(model, cfg, b):
+    """One batch's cascade on the card, each stage through the kernels and
+    through the plain versions on the same input: the proposals (N1 against
+    the plain walk) and the detections from the same box logits bit-equal,
+    ``rel_logits`` on the same detections at phase 5's tolerances; no
+    synchronisation inside ``detect`` or the post-processing.  Returns the
+    detections' and pairs' counts an image."""
+    from veto_tpu_torch.models.relation.postprocess import postprocess_relations_sgdet
+    from veto_tpu_torch.models.relation.sampling import prepare_test_pairs
+    from veto_tpu_torch.ops import cuda_lib
+
+    model.eval()
+    with torch.inference_mode():
+        feats = model.extract_features(b.images)
+        obj, reg = model.rpn_maps(feats)
+        props = model.propose(obj, reg, b.sizes)
+        with cuda_lib.plain_kernels():
+            ref = model.propose(obj, reg, b.sizes)
+        for f in props._fields:
+            if not torch.equal(getattr(props, f), getattr(ref, f)):
+                raise AssertionError(f"proposals.{f}: kernels differ from plain")
+        logits, deltas = model.box_head(feats, props.boxes)
+        dets = model.postprocess_boxes(logits, deltas, props, b.sizes)
+        with cuda_lib.plain_kernels():
+            ref = model.postprocess_boxes(logits, deltas, props, b.sizes)
+        for f in dets._fields:
+            if not torch.equal(getattr(dets, f), getattr(ref, f)):
+                raise AssertionError(f"detections.{f}: kernels differ from plain")
+        idx = dets.orig_idx.long()[..., None].expand(-1, -1, logits.shape[-1])
+        det_logits = torch.gather(logits, 1, idx)
+        pi, pm = prepare_test_pairs(dets.mask, dets.scores,
+                                    cfg.relation.max_proposal_pairs, boxes=dets.boxes,
+                                    require_overlap=cfg.test.relation_require_overlap)
+
+        def relate():
+            return model.relate(feats, b.depth, dets.boxes, dets.mask, dets.labels,
+                                pi, det_logits).rel_logits
+
+        got = relate()
+        with cuda_lib.plain_kernels():
+            want = relate()
+        check_close("SGDet rel_logits kernels vs plain", got, want,
+                    atol=0.05 * float(want.abs().max()), rtol=0.0,
+                    mean_tol=0.01 * float(want.abs().mean()))
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")  # a synchronising op raises
+        try:
+            det = model.detect(b.images, b.sizes)
+            post = postprocess_relations_sgdet(
+                got, det.predict_logits, pi, pm, det.detections.boxes_per_cls,
+                det.detections.mask, cfg.relation.later_nms_prediction_thres)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        if not torch.equal(det.detections.labels, dets.labels):
+            raise AssertionError("detect differs from its stages on the same batch")
+    nd = dets.mask.sum(1).tolist()
+    npairs = pm.sum(1).tolist()
+    print(f"  kernels vs plain on one batch: proposals ({int(props.mask.sum())}) and "
+          f"detections bit-equal; no synchronisation inside detect or the "
+          f"post-processing; detections an image {nd}, pairs an image {npairs}, "
+          f"{int(post.pair_mask.sum())} ranked triplets")
+    return nd, npairs
+
+
+def detected_gt_dataset(model, cfg, num_images=24, per_image=20, relations=12):
+    """The synthetic train split with its GT replaced by detections: for
+    each image, the ``per_image`` best detections of one ``detect`` of the
+    same image become its GT boxes and labels, with seeded relations among
+    them, so that label assignment and ``detect_relsample`` find
+    foreground under seeded weights."""
+    from veto_tpu_torch.data.synthetic import SyntheticSGGDataset
+    from veto_tpu_torch.tools.relation_train_net import synthetic_train_dataset
+
+    base = synthetic_train_dataset(cfg, num_images)
+    gt = []
+    for batch, _ in base.batches(cfg.solver.ims_per_batch, cfg.data.max_boxes):
+        b = batch.to(DEVICE)
+        with torch.inference_mode():
+            d = model.detect(b.images, b.sizes).detections
+        top = torch.sort(torch.where(d.mask, d.scores, -1.0), dim=1,
+                         descending=True, stable=True)[1][:, :per_image]
+        for i in range(top.shape[0]):
+            keep = top[i][d.mask[i, top[i]]]
+            gt.append((d.boxes[i, keep].cpu().numpy(), d.labels[i, keep].cpu().numpy()))
+
+    class Detected(SyntheticSGGDataset):
+        def __getitem__(self, idx):
+            rec = super().__getitem__(idx)
+            boxes, labels = gt[idx % len(gt)]
+            n = len(boxes)
+            rng = np.random.RandomState(idx)
+            rel = np.zeros((n, n), np.int32)
+            for _ in range(relations if n > 1 else 0):
+                s_, o_ = rng.choice(n, 2, replace=False)
+                rel[s_, o_] = rng.randint(1, self.num_rel_classes)
+            tuples = np.argwhere(rel > 0)
+            rec.update(boxes=boxes.astype(np.float32), labels=labels.astype(np.int32),
+                       rel_matrix=rel, rel_tuples=np.column_stack(
+                           [tuples, rel[rel > 0]]).astype(np.int64))
+            return rec
+
+    return Detected(num_images=base.num_images, image_size=base.image_size,
+                    num_obj_classes=base.num_obj_classes,
+                    num_rel_classes=base.num_rel_classes,
+                    max_objects=base.max_objects, seed=base.seed)
+
+
+def sgdet_train(model, cfg_opts, steps=5):
+    """``relation_train_net.train`` for ``steps`` full-width SGDet steps on
+    the detected-GT split with a validation through the SGDet eval step at
+    step 4: exact launches at every step (the validation's on top of the
+    step it follows), finite losses, every trainable tensor changed, the
+    detector, RPN and box head bit-unchanged.  Returns the state, the
+    step's launches, ms a step after warm-up, the peak memory and the
+    train dataset."""
+    from veto_tpu_torch.config import load_config
+    from veto_tpu_torch.tools.relation_train_net import build_dataset, train
+
+    cfg = load_config(os.path.join(ROOT, "configs", SGDET),
+                      [f"solver.max_iter={steps}", f"output_dir={scratch_dir()}",
+                       "solver.val_period=4", "test.ims_per_batch=8", *cfg_opts])
+    train_ds = detected_gt_dataset(model, cfg)
+    val_ds = build_dataset(cfg, "val")
+    val_batches = -(-len(val_ds) // cfg.test.ims_per_batch)
+    layers = cfg.veto.enc_layers
+    per_step = expected(**sgdet_launches(cfg), encoder_ffn_bwd=layers,
+                        encoder_att_bwd=layers, roi_align_backward=1)
+    with_val = dict(per_step)
+    for k, v in sgdet_launches(cfg, val_batches).items():
+        with_val[k] += v
+    print(f"[train, SGDet] VETO sgdet training ({SGDET}), {steps} steps of "
+          f"{cfg.solver.ims_per_batch} images on GT from detections, "
+          f"{cfg.relation.batch_size_per_image} pairs an image, validation at "
+          f"step 4 ({val_batches} batches of {cfg.test.ims_per_batch})")
+    frozen = frozen_state(model)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()
+              if p.requires_grad}
+    counts = []
+
+    def log(line):
+        if line.startswith("iter "):
+            counts.append(read_counters(reset=True))
+            line += f"  launches {json.dumps(counts[-1])}"
+        print(f"  {line}")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    read_counters(reset=True)
+    state, history = train(cfg, model=model, log=log, datasets=(train_ds, val_ds))
+    peak = torch.cuda.max_memory_allocated()
+    ms = 1e3 * float(np.mean([r["seconds"] for r in history[1:]]))
+    want = [with_val if i == 4 else per_step for i in range(steps)]
+    if counts != want:
+        raise AssertionError(f"launches {counts}, want {want}")
+    if not all(np.isfinite(r[k]) for r in history
+               for k in ("loss", "rel_loss", "obj_loss", "grad_norm")):
+        raise AssertionError(f"non-finite losses: {history}")
+    print(f"  after warm-up {ms:.1f} ms a step "
+          f"({[round(1e3 * r['seconds'], 1) for r in history]}); peak memory "
+          f"{peak / 2 ** 30:.2f} GiB; rel_loss "
+          f"{[round(r['rel_loss'], 4) for r in history]}, obj_loss "
+          f"{[round(r['obj_loss'], 4) for r in history]}; validation mR@100 "
+          f"{history[3].get('val_mR100')}")
+    for k, v in frozen_state(model).items():
+        if not torch.equal(v, frozen[k]):
+            raise AssertionError(f"frozen detector changed: {k}")
+    still = [n for n, p in model.named_parameters()
+             if p.requires_grad and torch.equal(p, before[n])]
+    if still:
+        raise AssertionError(f"trainable parameters unchanged: {still}")
+    print(f"  {len(before)} trainable tensors all changed, {len(frozen)} detector, "
+          "RPN and box-head tensors bit-unchanged")
+    return state, per_step, ms, peak, train_ds, cfg
+
+
+def detect_stage_ms(model, b):
+    """ms by CUDA events of each stage of ``detect`` on batch ``b``."""
+    with torch.inference_mode():
+        feats = model.extract_features(b.images)
+        obj, reg = model.rpn_maps(feats)
+        props = model.propose(obj, reg, b.sizes)
+        logits, deltas = model.box_head(feats, props.boxes)
+        return {
+            "body + FPN": cuda_ms(lambda: model.extract_features(b.images), 3),
+            "RPN head": cuda_ms(lambda: model.rpn_maps(feats), 5),
+            "propose": cuda_ms(lambda: model.propose(obj, reg, b.sizes), 5),
+            "box head": cuda_ms(lambda: model.box_head(feats, props.boxes), 5),
+            "post-processing": cuda_ms(
+                lambda: model.postprocess_boxes(logits, deltas, props, b.sizes), 5)}
+
+
+def phase_sgdet(gen):
+    """SGDet at full width from seeded weights (``configs/veto_vg_sgdet.yaml``,
+    nothing cut): kernel N1 against the plain walk (``phase_nms``);
+    ``evaluate`` over 3 batches of 8 (B1 6, B3 3, N1 mask 2, scan 2 a batch,
+    every other kernel 0) and one batch's ladder on the card (proposals and
+    detections bit-equal to the plain versions', ``rel_logits`` at phase 5's
+    tolerances, no synchronisation in ``detect`` or the post-processing);
+    ``train`` for 5 steps of 12 on GT taken from detections with a
+    validation at step 4, and one step's gradients against the plain
+    versions, two kernel runs bit-equal; the stage times of ``detect``; one
+    eval batch of ``configs/gqa_sgdet.yaml``.  Returns N1's kernels-line row
+    and its launches on the training path."""
+    from veto_tpu_torch.engine.train import sample_detections
+
+    row = phase_nms(gen)
+    release()
+    print(f"[SGDet] {SGDET} at full width from seeded weights: 8 x 800x1344 "
+          "images a batch, RPN 6000 / 1000, box head 4096, 80 detections, "
+          "2048 test pairs")
+    model, cfg, b, sigma = sgdet_eval_model(SGDET)
+    eval_ms, eval_peak = sgdet_evaluate(model, cfg, 3, "SGDet eval")
+    sgdet_ladder(model, cfg, b)
+    stages = detect_stage_ms(model, b)
+    print(f"  detect stages (ms by CUDA events, a batch of 8): "
+          f"{json.dumps({k: round(v, 2) for k, v in stages.items()})}")
+    del b
+    release()
+
+    state, per_step, train_ms, train_peak, train_ds, tcfg = sgdet_train(model, ())
+    bsz = tcfg.solver.ims_per_batch
+    batch, _ = next(train_ds.batches(bsz, tcfg.data.max_boxes))
+    tb = batch.to(DEVICE)
+    gen_s = torch.Generator(device=DEVICE).manual_seed(1)
+    samples = sample_detections(state.model, tb, gen_s,
+                                tcfg.relation.batch_size_per_image,
+                                tcfg.relation.positive_fraction,
+                                tcfg.relation.num_sample_per_gt_rel,
+                                tcfg.relation.require_box_overlap)
+    fg = (samples.pairs.labels > 0).sum(1).tolist()
+    print(f"  foreground pairs an image of a train batch {fg} (of "
+          f"{tcfg.relation.batch_size_per_image})")
+    if sum(fg) == 0:
+        raise AssertionError("the SGDet sampler found no foreground")
+    phase_train_grads(state, config=SGDET, what="SGDet", b=tb, exact_floor=True,
+                      samples=samples)
+    del state, samples, tb
+    release()
+    gqa_model, gqa_cfg, gb, _ = sgdet_eval_model("gqa_sgdet.yaml")
+    print(f"[SGDet GQA] gqa_sgdet.yaml: {gqa_cfg.model.num_obj_classes} object / "
+          f"{gqa_cfg.relation.num_classes} predicate classes")
+    sgdet_evaluate(gqa_model, gqa_cfg, 1, "SGDet GQA eval")
+    del gqa_model, gb, model
+    release()
+    print(f"[SGDet numbers] {card()}: eval {eval_ms:.1f} ms a batch of 8, peak "
+          f"{eval_peak / 2 ** 30:.2f} GiB; train {train_ms:.1f} ms a step of {bsz}, "
+          f"peak {train_peak / 2 ** 30:.2f} GiB; cls_score sigma {sigma}")
+    return row, 5 * per_step["nms_mask"]
+
+
 _SCRATCH = []
 
 
@@ -2339,10 +2922,13 @@ def main() -> int:
     pa_launches, mono_launches = phase_paths()
     phase_data_path(gen)
     phase_sgcls()
+    n1, n1_launches = phase_sgdet(gen)
+    kernels.append(n1)
     # each kernel's launches on the training path that runs it
     launches.update(pair_attention=pa_launches["pair_attention"],
                     pair_attention_backward=pa_launches["pair_attention_backward"],
-                    encoder_mono_bwd=mono_launches["encoder_mono_bwd"])
+                    encoder_mono_bwd=mono_launches["encoder_mono_bwd"],
+                    greedy_nms=n1_launches)
     for k in kernels:
         k["launches"] = launches[k["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

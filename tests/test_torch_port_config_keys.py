@@ -12,8 +12,10 @@ shipped defaults still build, train and evaluate.
   (A8c) and refuses a directory it cannot restore, rather than evaluating
   seeded weights in its place.
 - ``relation.use_gt_object_label`` false: the SGCls configs build, train
-  and evaluate (A9); ``relation.use_gt_box`` false (SGDet) and
-  ``ensemble.enabled`` (MEET) raise, naming slices A10 and A11;
+  and evaluate (A9); ``relation.use_gt_box`` false: the SGDet configs
+  build, train and evaluate (A10), and ``relation.require_box_overlap`` and
+  ``test.relation_require_overlap`` reach the SGDet pair sampler and test
+  pairs; ``ensemble.enabled`` (MEET) raises, naming slice A11;
   ``model.box_pooler_resolution`` and ``model.box_mlp_head_dim`` shape the
   SGCls box head.
 """
@@ -185,9 +187,15 @@ def test_sgcls_configs_train_and_evaluate(tmp_path, config):
 
 
 def test_sgdet_and_meet_still_raise():
-    with pytest.raises(NotImplementedError, match="A10"):
-        build_model(_cfg(SMALL + ["relation.use_gt_box=False"],
-                         "veto_vg_sgcls.yaml"), "cpu")
+    """SGDet builds now (the RPN head and the box head, frozen); MEET still
+    raises, naming its slice."""
+    model = build_model(_cfg(SMALL + ["relation.use_gt_box=False",
+                                      "model.box_mlp_head_dim=16"],
+                             "veto_vg_sgcls.yaml"), "cpu")
+    assert model.mode == "sgdet"
+    assert model.rpn.cls_logits.weight.shape == (4, 256, 1, 1)
+    assert not any(p.requires_grad for n, p in model.named_parameters()
+                   if n.startswith(("rpn.", "box_")))
     with pytest.raises(NotImplementedError, match="A11"):
         build_model(_cfg(SMALL + ["ensemble.enabled=True"],
                          "veto_vg_sgcls.yaml"), "cpu")
@@ -217,3 +225,72 @@ def test_box_head_keys_change_the_model():
         logits = model._box_logits(feats, b.boxes)
     assert logits.shape == (1, 8, cfg.model.num_obj_classes)
     assert torch.isfinite(logits).all()
+
+
+# detections at seeded weights need a threshold under 1 / num_obj_classes
+SGDET_TOY = ["model.box_mlp_head_dim=32", "model.rpn_pre_nms_top_n_test=200",
+             "model.rpn_post_nms_top_n_test=50", "model.box_detections_per_img=8",
+             "model.box_score_thresh=0.002"]
+
+
+@pytest.mark.parametrize("config", ("veto_vg_sgdet.yaml", "gqa_sgdet.yaml"))
+def test_sgdet_configs_train_and_evaluate(tmp_path, config):
+    """One CPU train step and one eval batch of each shipped SGDet config at
+    toy widths, through both tools: the object loss is logged, the
+    detector, RPN and box head stay as they were, the evaluation reports
+    R@K and the detections' COCO mAP, and ``relation_test_net.main``
+    writes its results."""
+    import json
+
+    import torch
+
+    from veto_tpu_torch.tools import relation_test_net
+
+    out = tmp_path / "out"
+    opts = SMALL_TRAIN + SMALL_EVAL[len(SMALL):] + SGDET_TOY + [f"output_dir={out}"]
+    cfg = _cfg(opts, config)
+    assert cfg.relation.mode == "sgdet"
+    model = build_model(cfg, "cpu")
+    frozen = {k: v.clone() for k, v in model.state_dict().items()
+              if k.startswith(("backbone.", "rpn.", "box_"))}
+    state, history = train(cfg, "cpu", log=lambda s: None, model=model)
+    assert len(history) == 1 and np.isfinite(history[0]["rel_loss"])
+    assert history[0]["obj_loss"] > 0
+    for k, v in frozen.items():
+        assert torch.equal(state.model.state_dict()[k], v), k
+    logs = []
+    agg, seconds = evaluate(cfg, "cpu", max_batches=1, log=logs.append,
+                            model=state.model)
+    assert len(seconds) == 1 and all(np.isfinite(v) for v in agg["R"].values())
+    assert np.isfinite(agg["bbox"]["mAP"]) and any("detection mAP" in s for s in logs)
+    relation_test_net.main(["--config", os.path.join(REPO, "configs", config),
+                            "--device", "cpu", "--max-batches", "1", *opts])
+    with open(out / "eval_results.json") as f:
+        assert "bbox" in json.load(f)
+
+
+def test_sgdet_overlap_keys_are_honoured(tmp_path, monkeypatch):
+    """``relation.require_box_overlap`` reaches ``detect_relsample`` in
+    training and ``test.relation_require_overlap`` reaches
+    ``prepare_test_pairs`` in evaluation, each way."""
+    from veto_tpu_torch.engine import evaluate as ev
+    from veto_tpu_torch.engine import train as tr
+
+    seen = []
+
+    def spy(real, key):
+        def call(*args, **kw):
+            seen.append((key, kw.get("require_overlap")))
+            return real(*args, **kw)
+        return call
+
+    monkeypatch.setattr(tr, "detect_relsample", spy(tr.detect_relsample, "train"))
+    monkeypatch.setattr(ev, "prepare_test_pairs", spy(ev.prepare_test_pairs, "eval"))
+    for flag in (True, False):
+        cfg = _cfg(SMALL_TRAIN + SMALL_EVAL[len(SMALL):] + SGDET_TOY + [
+            f"output_dir={tmp_path / str(flag)}", f"relation.require_box_overlap={flag}",
+            f"test.relation_require_overlap={flag}"], "veto_vg_sgdet.yaml")
+        state, _ = train(cfg, "cpu", log=lambda s: None)
+        evaluate(cfg, "cpu", max_batches=1, log=lambda s: None, model=state.model)
+        assert ("train", flag) in seen and ("eval", flag) in seen
+        seen.clear()

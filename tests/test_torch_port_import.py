@@ -363,3 +363,66 @@ def test_box_head_import_matches_jax(tmp_path):
     predcls = SGGModel(**small, mode="predcls")
     loaded, skipped = tti.import_detector_weights(predcls, path)
     assert not loaded and sorted(n for _, n in skipped) == sorted(want)
+
+
+def test_rpn_head_import_matches_jax(tmp_path):
+    """A reference RPN head (``rpn.head.conv``, ``cls_logits``,
+    ``bbox_pred``) and box head, written by the test: an SGDet model imports
+    every tensor as the JAX import does into the flax tree (the RPN's convs
+    in torch layout as they are), the box predictor's ``bbox_pred``
+    included; its RPN maps equal the reference's convolutions."""
+    from veto_tpu.models.detector.box_head import BoxFeatureExtractor as JExtractor
+    from veto_tpu.models.detector.box_head import BoxPredictor as JBoxPredictor
+    from veto_tpu.models.detector.rpn import RPNHead as JRPNHead
+
+    from veto_tpu_torch.models.sgg import SGGModel
+
+    rng = np.random.RandomState(4)
+    num_obj, mlp, p, c = 11, 16, 7, 256
+    ref = {}
+    for name, shape in (("rpn.head.conv", (256, c, 3, 3)),
+                        ("rpn.head.cls_logits", (4, 256, 1, 1)),
+                        ("rpn.head.bbox_pred", (16, 256, 1, 1)),
+                        ("roi_heads.box.feature_extractor.fc6", (mlp, c * p * p)),
+                        ("roi_heads.box.feature_extractor.fc7", (mlp, mlp)),
+                        ("roi_heads.box.predictor.cls_score", (num_obj, mlp)),
+                        ("roi_heads.box.predictor.bbox_pred", (4 * num_obj, mlp))):
+        fan_in = int(np.prod(shape[1:]))
+        ref[f"{name}.weight"] = (rng.randn(*shape) / np.sqrt(fan_in)).astype(np.float32)
+        ref[f"{name}.bias"] = (rng.randn(shape[0]) * 0.1).astype(np.float32)
+    path = str(tmp_path / "model_final.pth")
+    torch.save({"model": {k: torch.from_numpy(v) for k, v in ref.items()}}, path)
+
+    feats = [rng.randn(2, h, w, c).astype(np.float32) for h, w in ((8, 12), (4, 6))]
+    jparams = {
+        "rpn": JRPNHead(mid_channels=256, num_anchors=4).init(
+            jax.random.PRNGKey(0), [jnp.asarray(f) for f in feats])["params"],
+        "box_extractor": JExtractor(mlp_dim=mlp).init(
+            jax.random.PRNGKey(1), jnp.zeros((1, p, p, c)))["params"],
+        "box_predictor": JBoxPredictor(num_classes=num_obj).init(
+            jax.random.PRNGKey(2), jnp.zeros((1, mlp)))["params"]}
+    new, _, j_skipped = jti.import_detector_weights(jparams, path)
+    assert not j_skipped
+    want = flax_to_state_dict({"params": new})
+
+    small = dict(num_obj_classes=num_obj, num_rel_classes=7, **BODY, veto_dim=48,
+                 veto_layers=1, veto_depth_proj_dim=32, veto_visual_proj_dim=16,
+                 box_mlp_dim=mlp, dtype=torch.float32)
+    small["fpn_channels"] = c
+    model = SGGModel(**small, mode="sgdet").eval()
+    loaded, skipped = tti.import_detector_weights(model, path)
+    assert not skipped and sorted(loaded) == sorted(want)
+    assert {"rpn.conv.weight", "box_predictor.bbox_pred.weight"} <= set(loaded)
+    for name in want:
+        np.testing.assert_array_equal(model.state_dict()[name].numpy(),
+                                      want[name].numpy(), name)
+    obj, reg = model.rpn_maps([torch.from_numpy(f) for f in feats])
+    x = torch.nn.functional.conv2d(
+        torch.from_numpy(feats[0]).permute(0, 3, 1, 2).double(),
+        torch.from_numpy(ref["rpn.head.conv.weight"]).double(),
+        torch.from_numpy(ref["rpn.head.conv.bias"]).double(), padding=1).relu()
+    logits = torch.nn.functional.conv2d(
+        x, torch.from_numpy(ref["rpn.head.cls_logits.weight"]).double(),
+        torch.from_numpy(ref["rpn.head.cls_logits.bias"]).double())
+    np.testing.assert_allclose(obj[0].numpy(), logits.permute(0, 2, 3, 1).numpy(),
+                               atol=1e-5, rtol=0)

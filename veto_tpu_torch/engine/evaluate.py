@@ -1,10 +1,15 @@
-"""The PredCls and SGCls evaluation step (``veto_tpu/engine/train.py``
-``make_eval_step``) and its feed into the evaluator.
+"""The evaluation steps (``veto_tpu/engine/train.py`` ``make_eval_step`` and
+``make_sgdet_eval_step``) and their feed into the evaluators.
 
-``eval_step(batch)`` builds every candidate pair (``prepare_test_pairs``,
-capped at ``max_pairs``), runs the model, and ranks the triplets
-(``postprocess_relations``); results stay padded and masked, one shape per
-batch.  It runs under ``torch.inference_mode``.
+PredCls and SGCls: ``eval_step(batch)`` builds every candidate pair of the
+GT boxes (``prepare_test_pairs``, capped at ``max_pairs``), runs the model,
+and ranks the triplets (``postprocess_relations``).  SGDet: the model's
+detection cascade gives the boxes (``SGGModel.detect``), the pairs are
+those of the detections by score product (optionally only overlapping
+ones), the relation head runs on them, and ``postprocess_relations_sgdet``
+re-picks the classes (the late object NMS) and ranks the triplets.
+Results stay padded and masked, one shape per batch.  Every step runs
+under ``torch.inference_mode``.
 """
 
 from __future__ import annotations
@@ -12,16 +17,26 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..models.relation.postprocess import RelPrediction, postprocess_relations
+from ..models.relation.postprocess import (
+    RelPrediction, SGDetPrediction, postprocess_relations,
+    postprocess_relations_sgdet,
+)
 from ..models.relation.sampling import prepare_test_pairs
 from ..models.sgg import check_mode
 
 
-def make_eval_step(model, max_pairs: int = 2048, mode: str = "predcls"):
-    """(SGGBatch of tensors) → RelPrediction, batched."""
+def make_eval_step(model, max_pairs: int = 2048, mode: str = "predcls",
+                   later_nms_thres: float = 0.3, require_overlap: bool = False):
+    """(SGGBatch of tensors) → RelPrediction (SGDetPrediction in SGDet),
+    batched.  ``later_nms_thres`` (``relation.later_nms_prediction_thres``)
+    and ``require_overlap`` (``test.relation_require_overlap``) are SGDet's:
+    the JAX package's PredCls / SGCls step takes neither."""
     check_mode(mode)
     if mode != model.mode:
         raise ValueError(f"mode {mode!r} for a model built for {model.mode!r}")
+    if mode == "sgdet":
+        return _sgdet_eval_step(model, max_pairs, later_nms_thres,
+                                require_overlap)
 
     @torch.inference_mode()
     def eval_step(batch) -> RelPrediction:
@@ -39,17 +54,72 @@ def make_eval_step(model, max_pairs: int = 2048, mode: str = "predcls"):
     return eval_step
 
 
-def to_numpy(preds: RelPrediction) -> RelPrediction:
-    return RelPrediction(*[t.detach().cpu().numpy() for t in preds])
+def _sgdet_eval_step(model, max_pairs, later_nms_thres, require_overlap):
+    @torch.inference_mode()
+    def eval_step(batch) -> SGDetPrediction:
+        det = model.detect(batch.images, batch.sizes)
+        dets = det.detections
+        pair_idx, pair_mask = prepare_test_pairs(
+            dets.mask, dets.scores, max_pairs=max_pairs, boxes=dets.boxes,
+            require_overlap=require_overlap)
+        out = model.relate(det.features, batch.depth, dets.boxes, dets.mask,
+                           dets.labels, pair_idx, det.predict_logits)
+        # the late NMS reads the detector's logits on the kept detections,
+        # not the predictor's one-hot obj_dists (OBJECT_CLASSIFICATION_REFINE
+        # is off in every shipped config)
+        return postprocess_relations_sgdet(
+            out.rel_logits, det.predict_logits, pair_idx, pair_mask,
+            dets.boxes_per_cls, dets.mask, later_nms_thres=later_nms_thres)
+
+    return eval_step
 
 
-def accumulate_eval(preds: RelPrediction, recs, evaluator) -> None:
+def to_numpy(preds):
+    """A prediction tuple's tensors as numpy arrays, on the host."""
+    return type(preds)(*[t.detach().cpu().numpy() for t in preds])
+
+
+def _scale(rec, input_size) -> np.ndarray:
+    """(1, 4) factors from the network input's box coordinates to the
+    record's original image (1 when the record names no ``orig_size``)."""
+    ow, oh = rec.get("orig_size", (None, None))
+    if ow is None:
+        return np.ones((1, 4), np.float32)
+    iw, ih = float(input_size[0]), float(input_size[1])
+    return np.asarray([[ow / iw, oh / ih, ow / iw, oh / ih]], np.float32)
+
+
+def accumulate_eval(preds, recs, evaluator, input_sizes=None,
+                    coco_evaluator=None) -> None:
     """Feed one batch of padded predictions (numpy) into ``evaluator``, one
-    image per record (``accumulate_eval``'s gt-box branch in the JAX tool)."""
+    image per record (the JAX tool's ``accumulate_eval``).  GT boxes: the
+    record's boxes are the predictions' boxes.  SGDet: the valid
+    detections, their pair indices renumbered onto them, boxes scaled back
+    to the record's original size by ``input_sizes`` (B, 2); an image
+    without a detection or a pair is skipped; ``coco_evaluator`` also takes
+    the detections (COCO bbox mAP)."""
+    if not isinstance(preds, SGDetPrediction):
+        for i, rec in enumerate(recs):
+            n = len(rec["boxes"])
+            pm = np.asarray(preds.pair_mask[i], bool)
+            evaluator.add_image(
+                rec["boxes"], rec["labels"], rec["rel_tuples"], rec["boxes"],
+                preds.obj_labels[i][:n], preds.obj_scores[i][:n],
+                preds.pair_idx[i][pm], preds.rel_scores[i][pm])
+        return
     for i, rec in enumerate(recs):
-        n = len(rec["boxes"])
+        dm = np.asarray(preds.det_mask[i], bool)
         pm = np.asarray(preds.pair_mask[i], bool)
-        evaluator.add_image(
-            rec["boxes"], rec["labels"], rec["rel_tuples"], rec["boxes"],
-            preds.obj_labels[i][:n], preds.obj_scores[i][:n],
-            preds.pair_idx[i][pm], preds.rel_scores[i][pm])
+        if dm.sum() == 0 or pm.sum() == 0:
+            continue
+        remap = np.cumsum(dm) - 1
+        boxes = preds.boxes[i][dm]
+        if input_sizes is not None:
+            boxes = boxes * _scale(rec, input_sizes[i])
+        labels, scores = preds.obj_labels[i][dm], preds.obj_scores[i][dm]
+        evaluator.add_image(rec["boxes"], rec["labels"], rec["rel_tuples"],
+                            boxes, labels, scores, remap[preds.pair_idx[i][pm]],
+                            preds.rel_scores[i][pm])
+        if coco_evaluator is not None:
+            coco_evaluator.add_image(rec["boxes"], rec["labels"], boxes, labels,
+                                     scores)

@@ -1,35 +1,46 @@
-"""The PredCls and SGCls train step (``veto_tpu/engine/train.py``
-``make_train_step``), weighted cross-entropy variant.
+"""The train steps (``veto_tpu/engine/train.py`` ``make_train_step`` and
+``make_sgdet_train_step``), weighted cross-entropy variant.
 
-One step samples the training pairs of each image (``gtbox_relsample``),
-runs the model in train mode, takes the Rwt beta-weighted cross-entropy
-over the sampled pairs (and, in SGCls, the object loss), back-propagates
-(through the encoder's and the ROIAlign's backward kernels on the card)
-and applies the clipped Adam update.  The step is split in two so that a
-test can feed the JAX package's own samples to the second half:
+PredCls and SGCls: one step samples the training pairs of each image's GT
+boxes (``gtbox_relsample``), runs the model in train mode, takes the Rwt
+beta-weighted cross-entropy over the sampled pairs (and, in SGCls, the
+object loss), back-propagates (through the encoder's and the ROIAlign's
+backward kernels on the card) and applies the clipped Adam update.
 
-    samples = sample_pairs(batch, generator)
+SGDet: the frozen cascade detects (``SGGModel.detect``, outside autograd),
+each detection takes the label of its GT box (``assign_labels_to_proposals``),
+the pairs are sampled over the detections (``detect_relsample``), and the
+relation head trains on them, embedding the detections' own labels; the
+object loss is taken against the GT-assigned labels.
+
+The step is split in two so that a test can feed the JAX package's own
+samples (and, in SGDet, detections) to the second half:
+
+    samples = sample_pairs(batch, generator)        # SGDet: sample_detections
     metrics = train_on_pairs(state, batch, samples, lr_scale)
 
-``metrics`` holds ``loss``, ``rel_loss``, in SGCls ``obj_loss``, and
+``metrics`` holds ``loss``, ``rel_loss``, outside PredCls ``obj_loss``, and
 ``grad_norm`` (the global norm of all gradients before clipping, as
 ``optax.global_norm``) as 0-d tensors on the device, and ``batch_stats``,
-copies of the BatchNorm running statistics after the step.  SGDet (A10),
-MEET (A11) and the other loss variants (label smoothing, LDAM, balanced
-norm) raise ``NotImplementedError``.
+copies of the BatchNorm running statistics after the step.  MEET (A11) and
+the other loss variants (label smoothing, LDAM, balanced norm) raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Optional
+from typing import Dict, NamedTuple, Optional, Union
 
 import torch
 from torch import nn
 
+from ..models.detector.box_head import assign_labels_to_proposals
 from ..models.relation.predictor_veto import weighted_ce_loss
-from ..models.relation.sampling import RelSample, gtbox_relsample
-from ..models.sgg import check_mode
+from ..models.relation.sampling import (
+    DetRelSample, RelSample, detect_relsample, gtbox_relsample,
+)
+from ..models.sgg import DetectOutput, check_mode
 from ..solver.optim import FROZEN_DETECTOR, Optimizer, make_optimizer
 
 
@@ -45,8 +56,7 @@ class TrainState:
 def create_train_state(model: nn.Module, solver_cfg, class_weights=None,
                        mode: str = "predcls", loss_variant: str = "weighted_ce",
                        meet=None) -> TrainState:
-    """The state of a PredCls or SGCls training run over ``model``'s
-    parameters."""
+    """The state of a training run over ``model``'s parameters."""
     check_mode(mode)
     if mode != model.mode:
         raise ValueError(f"mode {mode!r} for a model built for {model.mode!r}")
@@ -69,6 +79,35 @@ def sample_pairs(batch, generator: torch.Generator,
                            batch_size_per_image, positive_fraction)
 
 
+class DetSample(NamedTuple):
+    """SGDet's half-step input: the detections and the pairs over them."""
+    det: DetectOutput
+    gt_labels: torch.Tensor  # (B, D) int32 labels of the matched GT boxes
+    pairs: DetRelSample
+
+
+def sample_detections(model: nn.Module, batch, generator: torch.Generator,
+                      batch_size_per_image: int = 1024,
+                      positive_fraction: float = 0.25,
+                      num_sample_per_gt_rel: int = 4,
+                      require_overlap: bool = False) -> DetSample:
+    """SGDet: detect, assign GT labels to the detections and sample the
+    step's pairs over them (``relation.num_sample_per_gt_rel``,
+    ``relation.require_box_overlap``)."""
+    det = model.detect(batch.images, batch.sizes)
+    dets = det.detections
+    gt_labels, _ = assign_labels_to_proposals(dets.boxes, dets.mask, batch.boxes,
+                                              batch.labels, batch.box_mask)
+    pairs = detect_relsample(
+        batch.rel_matrix, batch.rel_matrix, batch.boxes, batch.labels,
+        batch.box_mask, dets.boxes, gt_labels, dets.scores, dets.mask,
+        generator, batch_size=batch_size_per_image,
+        positive_fraction=positive_fraction,
+        num_sample_per_gt_rel=num_sample_per_gt_rel,
+        require_overlap=require_overlap)
+    return DetSample(det, gt_labels, pairs)
+
+
 def batch_stats(model: nn.Module) -> Dict[str, torch.Tensor]:
     """Copies of the running statistics of the trainable BatchNorms."""
     return {name: buf.detach().clone() for name, buf in model.named_buffers()
@@ -77,7 +116,7 @@ def batch_stats(model: nn.Module) -> Dict[str, torch.Tensor]:
 
 
 def forward_backward(state: TrainState, batch,
-                     samples: RelSample) -> Dict[str, torch.Tensor]:
+                     samples: Union[RelSample, DetSample]) -> Dict[str, torch.Tensor]:
     """Train-mode forward and the loss's backward on the given pairs: the
     trainable parameters' ``.grad`` hold the step's gradients.  Returns the
     losses, detached: ``loss`` (their sum), ``rel_loss`` and, outside
@@ -85,6 +124,22 @@ def forward_backward(state: TrainState, batch,
     model = state.model
     model.train()
     state.optimizer.zero_grad()
+    if isinstance(samples, DetSample):
+        det, pairs = samples.det, samples.pairs
+        dets = det.detections
+        # VETO embeds the detections' own (NMS-reduced) labels
+        out = model.relate(det.features, batch.depth, dets.boxes, dets.mask,
+                           dets.labels, pairs.pair_idx, det.predict_logits)
+        losses = {"rel_loss": weighted_ce_loss(out.rel_logits, pairs.labels,
+                                               pairs.mask, state.class_weights),
+                  # obj_dists is the one-hot of the detections' labels: this
+                  # term moves the loss value, not the update
+                  "obj_loss": weighted_ce_loss(out.obj_dists, samples.gt_labels,
+                                               dets.mask, None)}
+        loss = sum(losses.values())
+        loss.backward()
+        return {"loss": loss.detach(),
+                **{k: v.detach() for k, v in losses.items()}}
     out = model(batch.images, batch.depth, batch.boxes, batch.box_mask,
                 batch.labels, batch.obj_logits, samples.pair_idx, samples.mask)
     losses = {"rel_loss": weighted_ce_loss(out.rel_logits, samples.labels,
@@ -101,7 +156,8 @@ def forward_backward(state: TrainState, batch,
     return {"loss": loss.detach(), **{k: v.detach() for k, v in losses.items()}}
 
 
-def train_on_pairs(state: TrainState, batch, samples: RelSample,
+def train_on_pairs(state: TrainState, batch,
+                   samples: Union[RelSample, DetSample],
                    lr_scale: float) -> Dict[str, object]:
     """Forward, loss, backward and update on the given pairs."""
     metrics = forward_backward(state, batch, samples)
@@ -113,8 +169,16 @@ def train_on_pairs(state: TrainState, batch, samples: RelSample,
 
 def train_step(state: TrainState, batch, generator: torch.Generator,
                lr_scale: float, batch_size_per_image: int = 1024,
-               positive_fraction: float = 0.25) -> Dict[str, object]:
-    """One whole step: sample the pairs, then train on them."""
-    samples = sample_pairs(batch, generator, batch_size_per_image,
-                           positive_fraction)
+               positive_fraction: float = 0.25, num_sample_per_gt_rel: int = 4,
+               require_overlap: bool = False) -> Dict[str, object]:
+    """One whole step: sample the pairs (in SGDet: detect, then sample over
+    the detections with ``num_sample_per_gt_rel`` and ``require_overlap``),
+    then train on them."""
+    if state.model.mode == "sgdet":
+        samples = sample_detections(state.model, batch, generator,
+                                    batch_size_per_image, positive_fraction,
+                                    num_sample_per_gt_rel, require_overlap)
+    else:
+        samples = sample_pairs(batch, generator, batch_size_per_image,
+                               positive_fraction)
     return train_on_pairs(state, batch, samples, lr_scale)

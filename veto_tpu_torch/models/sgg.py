@@ -1,4 +1,4 @@
-"""The scene-graph model, PredCls and SGCls modes (``veto_tpu/models/sgg.py``).
+"""The scene-graph model, all three task modes (``veto_tpu/models/sgg.py``).
 
 Frozen ResNeXt-FPN detector body, trainable depth ResNet-18, multi-level
 8x8 ROI pooling of the GT boxes (P2-P5) and of the depth map (1/16), and
@@ -10,13 +10,22 @@ the predictor sees:
   * ``sgcls``: the frozen box head (its own 7x7 multi-level pool of the GT
     boxes, fc6/fc7 and ``cls_score``) gives the logits, and
     ``obj_prediction_nms`` over the boxes tiled across classes (IoU 0.5)
-    the labels.
+    the labels;
+  * ``sgdet``: no GT boxes.  :meth:`SGGModel.detect` runs the whole frozen
+    cascade (body → RPN head → proposals → box head → box post-processing:
+    80 padded detections with their ``boxes_per_cls``), and
+    :meth:`SGGModel.relate` the relation head over the detections, with
+    the detections' labels and the box head's logits (the soft class
+    embedding).  Pairs are built or sampled outside the model
+    (``engine/``).  ``detect`` is a chain of stage methods
+    (:meth:`~SGGModel.rpn_maps`, :meth:`~SGGModel.propose`,
+    :meth:`~SGGModel.box_head`, :meth:`~SGGModel.postprocess_boxes`), each
+    callable on its own.
 
-SGDet (slice A10), MEET (A11) and the legacy predictors raise
-``NotImplementedError``.
+MEET (A11) and the legacy predictors raise ``NotImplementedError``.
 
 Training: the detector is frozen (the JAX package's ``FROZEN_DETECTOR``,
-``tools/relation_train_net.py:297``), the box head included: its
+``tools/relation_train_net.py:297``), the RPN and box head included: its
 parameters never require a gradient, it runs under ``torch.no_grad()`` (so
 autograd keeps none of its activations, as ``stop_gradient`` does in JAX)
 and it stays in eval mode when the model is put in train mode.  The depth
@@ -29,7 +38,7 @@ package's, so the two take the same batch.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Sequence, Tuple
+from typing import Dict, NamedTuple, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -40,20 +49,21 @@ from ..ops.nms import obj_prediction_nms
 from ..ops.roi_align_windowed import multilevel_roi_align_batched
 from .backbone.depth_resnet import DepthResNet18
 from .backbone.resnet import ResNetFPNBackbone
-from .detector.box_head import BoxFeatureExtractor, BoxPredictor
+from .detector.box_head import (
+    BoxFeatureExtractor, BoxPredictor, Detections, box_postprocess,
+)
+from .detector.rpn import (
+    Proposals, RPNHead, flatten_level, level_anchors, rpn_select_proposals,
+)
 from .relation.predictor_veto import VetoPredictor
 
-MODES = ("predcls", "sgcls")
+MODES = ("predcls", "sgcls", "sgdet")
 
 
 def check_mode(mode: str) -> None:
-    """Raise for a task mode the port does not run yet, naming its slice."""
-    if mode == "sgdet":
-        raise NotImplementedError("mode 'sgdet': SGDet (the RPN, the NMS "
-                                  "family, box post-processing) comes with "
-                                  "slice A10")
+    """Raise ``ValueError`` for a name that is not a task mode."""
     if mode not in MODES:
-        raise ValueError(f"mode {mode!r}: expected one of {MODES} or sgdet")
+        raise ValueError(f"mode {mode!r}: expected one of {MODES}")
 
 
 class SGGForward(NamedTuple):
@@ -61,6 +71,12 @@ class SGGForward(NamedTuple):
     obj_dists: torch.Tensor       # (B, N, num_obj) f32
     pred_labels: torch.Tensor     # (B, N)
     predict_logits: torch.Tensor  # (B, N, num_obj) ±1000 GT injection
+
+
+class DetectOutput(NamedTuple):
+    features: Tuple[torch.Tensor, ...]  # the FPN maps, NHWC
+    detections: Detections              # (B, D, ...) fields
+    predict_logits: torch.Tensor        # (B, D, num_obj) f32 box-head logits
 
 
 class SGGModel(nn.Module):
@@ -76,11 +92,34 @@ class SGGModel(nn.Module):
                  veto_visual_proj_dim: int = 64, embed_dim: int = 200,
                  fold_bn: bool = True, dtype: torch.dtype = torch.bfloat16,
                  veto_encoder_impl: str = "fused",
-                 box_pooler_resolution: int = 7, box_mlp_dim: int = 4096):
+                 box_pooler_resolution: int = 7, box_mlp_dim: int = 4096,
+                 anchor_sizes: Tuple[int, ...] = (32, 64, 128, 256, 512),
+                 anchor_strides: Tuple[int, ...] = (4, 8, 16, 32, 64),
+                 aspect_ratios: Tuple[float, ...] = (0.23232838, 0.63365731,
+                                                     1.28478321, 3.15089189),
+                 rpn_pre_nms_top_n: int = 6000, rpn_post_nms_top_n: int = 1000,
+                 rpn_nms_thresh: float = 0.7, rpn_fpn_post_nms_top_n: int = 1000,
+                 rpn_min_size: float = 0.0, box_score_thresh: float = 0.01,
+                 box_nms_thresh: float = 0.3, box_post_nms_per_cls_topn: int = 300,
+                 nms_filter_duplicates: bool = True, detections_per_img: int = 80):
         super().__init__()
         check_mode(mode)
         self.mode = mode
         self.num_obj_classes = num_obj_classes
+        self.anchor_sizes = tuple(anchor_sizes)
+        self.anchor_strides = tuple(anchor_strides)
+        self.aspect_ratios = tuple(aspect_ratios)
+        self.rpn_cfg = dict(pre_nms_top_n=rpn_pre_nms_top_n,
+                            post_nms_top_n=rpn_post_nms_top_n,
+                            nms_thresh=rpn_nms_thresh,
+                            fpn_post_nms_top_n=rpn_fpn_post_nms_top_n,
+                            min_size=rpn_min_size)
+        self.box_cfg = dict(score_thresh=box_score_thresh,
+                            nms_thresh=box_nms_thresh,
+                            post_nms_per_cls_topn=box_post_nms_per_cls_topn,
+                            nms_filter_duplicates=nms_filter_duplicates,
+                            detections_per_img=detections_per_img)
+        self._anchors: Dict[tuple, list] = {}
         self.box_pooler_resolution = box_pooler_resolution
         self.pooler_resolution = pooler_resolution
         self.pooler_scales = tuple(pooler_scales)
@@ -91,7 +130,11 @@ class SGGModel(nn.Module):
                                           dtype)
         self.depth_backbone = DepthResNet18(dtype)
         self.frozen = [self.backbone]
-        if mode == "sgcls":
+        if mode == "sgdet":
+            # one size a level, so len(ratios) anchors a position
+            self.rpn = RPNHead(fpn_channels, 256, len(self.aspect_ratios))
+            self.frozen.append(self.rpn)
+        if mode in ("sgcls", "sgdet"):
             self.box_extractor = BoxFeatureExtractor(
                 box_pooler_resolution ** 2 * fpn_channels, box_mlp_dim, dtype)
             self.box_predictor = BoxPredictor(box_mlp_dim, num_obj_classes)
@@ -139,6 +182,60 @@ class SGGModel(nn.Module):
         b, n = boxes.shape[:2]
         tiled = boxes[:, :, None, :].expand(b, n, self.num_obj_classes, 4)
         return obj_prediction_nms(tiled, logits, 0.5, valid_mask=box_mask)
+
+    # ------------------------------------------------ the SGDet cascade
+    def anchors(self, map_sizes, device) -> list:
+        """Per-level anchors for maps of ``map_sizes`` ((H_l, W_l) per level,
+        ``ceil(H / stride_l)`` of the padded image), made once per size."""
+        key = (tuple(tuple(int(v) for v in hw) for hw in map_sizes), str(device))
+        if key not in self._anchors:
+            self._anchors[key] = level_anchors(
+                key[0], self.anchor_sizes, self.anchor_strides,
+                self.aspect_ratios, device)
+        return self._anchors[key]
+
+    def rpn_maps(self, feats):
+        """The RPN head on every FPN level, its maps cast to f32: NHWC
+        (B, H, W, A) objectness and (B, H, W, 4A) deltas per level."""
+        with torch.no_grad():
+            obj, reg = self.rpn(feats)
+        return (tuple(m.float() for m in obj), tuple(m.float() for m in reg))
+
+    def propose(self, obj_maps, reg_maps, image_sizes: torch.Tensor) -> Proposals:
+        """The RPN's proposals of every image from its maps; ``image_sizes``
+        (B, 2) = (w, h) before padding."""
+        anchors = self.anchors([m.shape[1:3] for m in obj_maps],
+                               obj_maps[0].device)
+        flat = [flatten_level(o, r) for o, r in zip(obj_maps, reg_maps)]
+        return rpn_select_proposals([f[0] for f in flat], [f[1] for f in flat],
+                                    anchors, image_sizes.float(), **self.rpn_cfg)
+
+    def box_head(self, feats, boxes: torch.Tensor):
+        """The frozen box head on (B, P, 4) rois: f32 class logits (B, P, C)
+        and box deltas (B, P, 4C), outside autograd."""
+        with torch.no_grad():
+            pooled = self._pool_boxes(feats, boxes, self.box_pooler_resolution)
+            return self.box_predictor(self.box_extractor(pooled))
+
+    def postprocess_boxes(self, logits, deltas, proposals: Proposals,
+                          image_sizes: torch.Tensor) -> Detections:
+        """Decode, per-class NMS and the duplicate filter: the detections."""
+        return box_postprocess(logits, deltas, proposals.boxes, proposals.mask,
+                               image_sizes.float(), **self.box_cfg)
+
+    def detect(self, images: torch.Tensor,
+               image_sizes: torch.Tensor) -> DetectOutput:
+        """NHWC images (B, H, W, 3) and their (B, 2) = (w, h) sizes → the FPN
+        maps, the padded detections and their box-head logits (gathered by
+        ``orig_idx``), all outside autograd."""
+        with torch.no_grad():
+            feats = self.extract_features(images)
+            obj, reg = self.rpn_maps(feats)
+            proposals = self.propose(obj, reg, image_sizes)
+            logits, deltas = self.box_head(feats, proposals.boxes)
+            dets = self.postprocess_boxes(logits, deltas, proposals, image_sizes)
+            idx = dets.orig_idx.long()[..., None].expand(-1, -1, logits.shape[-1])
+            return DetectOutput(feats, dets, torch.gather(logits, 1, idx))
 
     def relate(self, feats, depth, boxes, box_mask, obj_labels, pair_idx,
                obj_logits=None):
@@ -212,6 +309,20 @@ def build_model(cfg, device=None, seed: int = None) -> SGGModel:
         veto_encoder_impl=cfg.veto.encoder_impl,
         box_pooler_resolution=cfg.model.box_pooler_resolution,
         box_mlp_dim=cfg.model.box_mlp_head_dim,
+        # the RPN and box-head budgets as the JAX tool builds the model
+        # (tools/relation_train_net.py:260-272): the test budgets in
+        # training too, the fpn post-NMS budget = the post-NMS one
+        anchor_sizes=cfg.model.anchor_sizes,
+        anchor_strides=cfg.model.anchor_strides,
+        aspect_ratios=cfg.model.aspect_ratios,
+        rpn_pre_nms_top_n=cfg.model.rpn_pre_nms_top_n_test,
+        rpn_post_nms_top_n=cfg.model.rpn_post_nms_top_n_test,
+        rpn_nms_thresh=cfg.model.rpn_nms_thresh,
+        rpn_fpn_post_nms_top_n=cfg.model.rpn_post_nms_top_n_test,
+        box_score_thresh=cfg.model.box_score_thresh,
+        box_nms_thresh=cfg.model.box_nms_thresh,
+        nms_filter_duplicates=cfg.model.nms_filter_duplicates,
+        detections_per_img=cfg.model.box_detections_per_img,
     ).to(dev)
     init_weights(model, cfg.solver.seed if seed is None else seed)
     return model.eval()
@@ -223,7 +334,8 @@ def init_weights(model: nn.Module, seed: int) -> None:
     ``torch.Generator``: LeCun-normal matrices and conv kernels (fan-in
     over the kernel window and group), Xavier-uniform ``rel_out``, the box
     predictor's N(0, 0.01^2) ``cls_score`` and N(0, 0.001^2) ``bbox_pred``
-    (flax's ``normal`` initializers), N(0, 1) CLS/position tokens,
+    and the RPN head's N(0, 0.01^2) convolutions (flax's ``normal``
+    initializers), N(0, 1) CLS/position tokens,
     N(0, 1/embed_dim) embeddings, unit scales, zero biases and BN
     statistics of a unit normal."""
     dev = next(model.parameters()).device
@@ -237,6 +349,8 @@ def init_weights(model: nn.Module, seed: int) -> None:
             p.normal_(0.0, 0.01, generator=gen)
         elif name == "box_predictor.bbox_pred.weight":
             p.normal_(0.0, 0.001, generator=gen)
+        elif name.startswith("rpn.") and leaf == "weight":
+            p.normal_(0.0, 0.01, generator=gen)
         elif leaf in ("cls_token", "pos_embedding"):
             p.normal_(0.0, 1.0, generator=gen)
         elif name.endswith("obj_embed.weight"):

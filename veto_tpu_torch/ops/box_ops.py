@@ -1,15 +1,22 @@
-"""Box geometry the PredCls slice needs (``veto_tpu/ops/box_ops.py``).
+"""Box geometry (``veto_tpu/ops/box_ops.py``).
 
 The maskrcnn-benchmark inclusive-pixel convention is kept exactly:
 ``width = x2 - x1 + 1`` (``TO_REMOVE``).  It moves the FPN level
-assignment and the VETO position embedding.
+assignment, the VETO position embedding, every IoU and the box decoding.
+Each function computes in the JAX package's order of operations, so on
+the CPU the results are the same f32 values (``exp`` may differ from
+XLA's by an ulp).
 """
 
 from __future__ import annotations
 
+import math
+from typing import Tuple
+
 import torch
 
 TO_REMOVE = 1.0
+BBOX_XFORM_CLIP = math.log(1000.0 / 16)
 
 
 def box_area(boxes: torch.Tensor) -> torch.Tensor:
@@ -17,6 +24,18 @@ def box_area(boxes: torch.Tensor) -> torch.Tensor:
     w = boxes[..., 2] - boxes[..., 0] + TO_REMOVE
     h = boxes[..., 3] - boxes[..., 1] + TO_REMOVE
     return w * h
+
+
+def box_iou(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
+    """Pairwise IoU: (..., N, 4) x (..., M, 4) → (..., N, M), with
+    ``TO_REMOVE`` (the reference's ``boxlist_iou``)."""
+    area1 = box_area(boxes1)
+    area2 = box_area(boxes2)
+    lt = torch.maximum(boxes1[..., :, None, :2], boxes2[..., None, :, :2])
+    rb = torch.minimum(boxes1[..., :, None, 2:], boxes2[..., None, :, 2:])
+    wh = torch.clamp(rb - lt + TO_REMOVE, min=0.0)
+    inter = wh[..., 0] * wh[..., 1]
+    return inter / (area1[..., :, None] + area2[..., None, :] - inter)
 
 
 def xyxy_to_xywh(boxes: torch.Tensor) -> torch.Tensor:
@@ -30,3 +49,58 @@ def center_xywh(xywh: torch.Tensor) -> torch.Tensor:
     """(x, y, w, h) → (cx, cy, w, h), the VETO position-embedding input."""
     return torch.cat([xywh[..., :2] + 0.5 * xywh[..., 2:], xywh[..., 2:]],
                      dim=-1)
+
+
+def clip_to_image(boxes: torch.Tensor, size: torch.Tensor) -> torch.Tensor:
+    """Clamp xyxy boxes (..., N, 4) to [0, W - 1] x [0, H - 1]; ``size`` is
+    (..., 2) = (width, height), one per leading index."""
+    w = size[..., None, 0:1].to(boxes.dtype)
+    h = size[..., None, 1:2].to(boxes.dtype)
+    zero = torch.zeros((), dtype=boxes.dtype, device=boxes.device)
+    x1 = torch.minimum(torch.maximum(boxes[..., 0:1], zero), w - TO_REMOVE)
+    y1 = torch.minimum(torch.maximum(boxes[..., 1:2], zero), h - TO_REMOVE)
+    x2 = torch.minimum(torch.maximum(boxes[..., 2:3], zero), w - TO_REMOVE)
+    y2 = torch.minimum(torch.maximum(boxes[..., 3:4], zero), h - TO_REMOVE)
+    return torch.cat([x1, y1, x2, y2], dim=-1)
+
+
+def nonempty_mask(boxes: torch.Tensor, min_size: float = 0.0) -> torch.Tensor:
+    """The reference's ``remove_small_boxes`` as a mask."""
+    ws = boxes[..., 2] - boxes[..., 0] + TO_REMOVE
+    hs = boxes[..., 3] - boxes[..., 1] + TO_REMOVE
+    return (ws >= min_size) & (hs >= min_size)
+
+
+def decode_boxes(rel_codes: torch.Tensor, boxes: torch.Tensor,
+                 weights: Tuple[float, float, float, float] = (10.0, 10.0, 5.0, 5.0)
+                 ) -> torch.Tensor:
+    """``BoxCoder.decode``: ``rel_codes`` (..., N, 4K), K classes of deltas
+    per box of ``boxes`` (..., N, 4) → (..., N, 4K).  ``dw``/``dh`` are
+    clamped at ``BBOX_XFORM_CLIP``; x2/y2 take the inclusive ``- 1``."""
+    widths = boxes[..., 2] - boxes[..., 0] + TO_REMOVE
+    heights = boxes[..., 3] - boxes[..., 1] + TO_REMOVE
+    ctr_x = boxes[..., 0] + 0.5 * widths
+    ctr_y = boxes[..., 1] + 0.5 * heights
+
+    codes = rel_codes.reshape(rel_codes.shape[:-1] + (-1, 4))
+    # 0-d tensors filled on the device (no copy from the host, so no
+    # synchronisation); tensor divisors, because a Python-scalar division
+    # on a card multiplies by the rounded reciprocal, an ulp off the JAX
+    # package's division
+    def const(v):
+        return torch.full((), v, dtype=codes.dtype, device=codes.device)
+
+    clip = const(BBOX_XFORM_CLIP)
+    dx = codes[..., 0] / const(weights[0])
+    dy = codes[..., 1] / const(weights[1])
+    dw = torch.minimum(codes[..., 2] / const(weights[2]), clip)
+    dh = torch.minimum(codes[..., 3] / const(weights[3]), clip)
+
+    pred_cx = dx * widths[..., None] + ctr_x[..., None]
+    pred_cy = dy * heights[..., None] + ctr_y[..., None]
+    pred_w = torch.exp(dw) * widths[..., None]
+    pred_h = torch.exp(dh) * heights[..., None]
+    out = torch.stack([pred_cx - 0.5 * pred_w, pred_cy - 0.5 * pred_h,
+                       pred_cx + 0.5 * pred_w - 1.0,
+                       pred_cy + 0.5 * pred_h - 1.0], dim=-1)
+    return out.reshape(rel_codes.shape)

@@ -30,7 +30,8 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
-SOURCES = ("roi_align", "encoder_layer", "encoder_layer_bwd", "pair_attention")
+SOURCES = ("roi_align", "encoder_layer", "encoder_layer_bwd", "pair_attention",
+           "nms")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",

@@ -1,4 +1,5 @@
-"""Where the PredCls or SGCls evaluation step spends its time on the card.
+"""Where the evaluation step (PredCls, SGCls or SGDet) spends its time on
+the card.
 
     python -m veto_tpu_torch.tools.profile_eval \\
         [--config configs/veto_vg_predcls.yaml] [--batches 3] [opts ...]
@@ -8,14 +9,19 @@ warm-up batch of the synthetic split, then
 
 * times the stages of each following batch with CUDA events recorded by
   forward hooks: the detector body + FPN, the depth backbone, in SGCls the
-  box head (its pool and MLP) and ``obj_prediction_nms``, the relation
-  predictor and, inside it, the encoder; the relation and depth pooling is
-  what remains of the model's forward, pair preparation + post-processing
-  what remains of the step; the host-to-card copy of the batch and the whole step (ending with
-  the predictions on the host) are timed on the host clock;
+  box head (its pool and MLP) and ``obj_prediction_nms``, in SGDet the
+  stages of ``detect`` (RPN head, proposals, box head, box
+  post-processing) and ``relate``, the relation predictor and, inside it,
+  the encoder; the relation and depth pooling is what remains of the
+  model's forward (of ``relate`` in SGDet), pair preparation +
+  post-processing what remains of the step; the host-to-card copy of the
+  batch and the whole step (ending with the predictions on the host) are
+  timed on the host clock;
 * traces one more batch with ``torch.profiler`` and reports the device time
   by kernel, the port's own kernels by name, and the device's busy share of
   the step's wall time.
+
+In SGDet the detections an image are reported beside the stages.
 
 The last line is one JSON object with these numbers and the card's name.
 It needs a card and raises without one.
@@ -40,7 +46,7 @@ import torch
 # train step, also B4b's and B2b's attention)
 OWN_KERNELS = ("gemm_sm90_kernel", "pair_attention_kernel", "layernorm_kernel",
                "roi_align_fwd_kernel", "attention_bwd_mma_kernel",
-               "pair_attn_fwd_kernel")
+               "pair_attn_fwd_kernel", "nms_mask_kernel", "nms_scan_kernel")
 
 
 def _stage_timer(named_modules, named_methods=()):
@@ -66,9 +72,9 @@ def _stage_timer(named_modules, named_methods=()):
                     mod.register_forward_hook(functools.partial(post, name=name))]
     wrapped = []
     for name, mod, attr in named_methods:
-        def timed(*args, fn=getattr(mod, attr), name=name):
+        def timed(*args, fn=getattr(mod, attr), name=name, **kw):
             pre(name=name)
-            out = fn(*args)
+            out = fn(*args, **kw)
             post(name=name)
             return out
 
@@ -84,36 +90,65 @@ def _stage_timer(named_modules, named_methods=()):
     return events, remove
 
 
-def sgcls_stages(model):
-    """The SGCls model's own stages, as ``named_methods`` of
-    :func:`_stage_timer`: the box head (its 7x7 pool and MLP) and
-    ``obj_prediction_nms``; none for PredCls."""
-    if model.mode != "sgcls":
-        return []
-    return [("box_head", model, "_box_logits"),
-            ("obj_prediction_nms", model, "_predict_labels")]
+def mode_stages(model):
+    """The mode's own stages, as ``named_methods`` of :func:`_stage_timer`:
+    SGCls the box head (its 7x7 pool and MLP) and ``obj_prediction_nms``;
+    SGDet ``detect`` and its stages, and ``relate``; none for PredCls."""
+    if model.mode == "sgcls":
+        return [("box_head", model, "_box_logits"),
+                ("obj_prediction_nms", model, "_predict_labels")]
+    if model.mode == "sgdet":
+        return [("detect", model, "detect"), ("rpn_head", model, "rpn_maps"),
+                ("propose", model, "propose"), ("box_head", model, "box_head"),
+                ("box_postprocess", model, "postprocess_boxes"),
+                ("relate", model, "relate")]
+    return []
+
+
+DETECT_STAGES = ("rpn_head", "propose", "box_head", "box_postprocess")
+
+
+def derived_stages(ms, model_mode, own):
+    """The stages that are differences of timed ones: the model's forward,
+    the ROI pooling and the predictor without its encoder (and in SGDet the
+    rest of ``detect``: anchors, the logits' gather)."""
+    if model_mode == "sgdet":
+        ms["model"] = ms["detect"] + ms["relate"]
+        ms["detect_other"] = (ms["detect"] - ms["backbone"]
+                              - sum(ms[n] for n in DETECT_STAGES))
+        ms["roi_pooling"] = ms["relate"] - ms["depth_backbone"] - ms["relation"]
+    else:
+        ms["roi_pooling"] = (ms["model"] - ms["backbone"] - ms["depth_backbone"]
+                             - ms["relation"] - sum(ms[n] for n in own))
+    ms["predictor_without_encoder"] = ms["relation"] - ms["encoder"]
 
 
 def profile(cfg, batches: int = 3, log=print) -> dict:
-    from ..engine.evaluate import make_eval_step, to_numpy
+    from ..engine.evaluate import to_numpy
     from ..models.sgg import build_model
     from .relation_test_net import synthetic_eval_dataset
+    from .relation_train_net import make_eval_fn
 
     model = build_model(cfg)  # cuda; raises without a card
     dev = next(model.parameters()).device
-    step = make_eval_step(model, max_pairs=cfg.relation.max_proposal_pairs,
-                          mode=cfg.relation.mode)
+    step = make_eval_fn(cfg, model)
     bsz = cfg.test.ims_per_batch
     data = list(synthetic_eval_dataset(cfg, (batches + 2) * bsz)
                 .batches(bsz, cfg.data.max_boxes))
-    to_numpy(step(data[0][0].to(dev)))  # warm-up: cuDNN plans, kernel loads
+    first = to_numpy(step(data[0][0].to(dev)))  # warm-up: cuDNN plans, kernel loads
+    extra = {}
+    if cfg.relation.mode == "sgdet":
+        extra["detections_per_image"] = float(first.det_mask.sum(1).mean())
+        log(f"  detections an image: {first.det_mask.sum(1).tolist()}")
 
     stages = [("backbone", model.backbone),
               ("depth_backbone", model.depth_backbone),
               ("relation", model.relation),
               ("encoder", model.relation.trunk.fusion_transformer),
               ("model", model)]
-    methods = sgcls_stages(model)
+    if cfg.relation.mode == "sgdet":
+        stages.pop()  # the forward is not called: detect, then relate
+    methods = mode_stages(model)
     events, remove = _stage_timer(stages, methods)
     h2d, step_s = [], []
     for batch, _ in data[1:1 + batches]:
@@ -131,19 +166,18 @@ def profile(cfg, batches: int = 3, log=print) -> dict:
     ms = {name: float(np.mean([s.elapsed_time(e) for s, e in events[name]]))
           for name in [n for n, _ in stages] + [n for n, _, _ in methods]}
     own = [n for n, _, _ in methods]
-    ms["roi_pooling"] = (ms["model"] - ms["backbone"] - ms["depth_backbone"]
-                         - ms["relation"] - sum(ms[n] for n in own))
-    ms["predictor_without_encoder"] = ms["relation"] - ms["encoder"]
+    derived_stages(ms, cfg.relation.mode, own)
     ms["pairs_postprocess_and_copy_back"] = 1e3 * float(np.mean(step_s)) - ms["model"]
     ms["host_to_card_copy"] = 1e3 * float(np.mean(h2d))
     ms["step"] = 1e3 * float(np.mean(step_s))
     for k in ["step", "host_to_card_copy", "model", "backbone",
-              "depth_backbone", *own, "roi_pooling", "relation", "encoder",
+              "depth_backbone", *own, *(["detect_other"] if "detect" in own else []),
+              "roi_pooling", "relation", "encoder",
               "predictor_without_encoder", "pairs_postprocess_and_copy_back"]:
         log(f"  {k:32s} {ms[k]:9.3f} ms")
 
     b = data[-1][0].to(dev)
-    return {"batch": bsz, "stage_ms": ms,
+    return {"batch": bsz, "stage_ms": ms, **extra,
             **trace(lambda: to_numpy(step(b)), OWN_KERNELS, log)}
 
 

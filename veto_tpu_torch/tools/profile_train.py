@@ -1,4 +1,5 @@
-"""Where the PredCls or SGCls train step spends its time on the card.
+"""Where the train step (PredCls, SGCls or SGDet) spends its time on the
+card.
 
     python -m veto_tpu_torch.tools.profile_train \\
         [--config configs/veto_vg_predcls.yaml] [--steps 3] [opts ...]
@@ -6,16 +7,22 @@
 Builds the model of the config on ``cuda`` from seeded weights and its
 train state, runs one warm-up step on the synthetic train split, then
 
-* times each following step with CUDA events: pair sampling; the forward's
-  stages by forward hooks (the frozen detector body + FPN, the depth
-  backbone, in SGCls the box head and ``obj_prediction_nms``, the relation
-  predictor and, inside it, the encoder; the relation and depth pooling is
-  what remains of the forward); the loss and the backward together; the
+* times each following step with CUDA events: pair sampling (in SGDet
+  ``detect``, the label assignment and ``detect_relsample``); the
+  forward's stages by forward hooks (the frozen detector body + FPN, the
+  depth backbone, in SGCls the box head and ``obj_prediction_nms``, in
+  SGDet the stages of ``detect`` and ``relate``, the relation predictor
+  and, inside it, the encoder; the relation and depth pooling is what
+  remains of the forward); the loss and the backward together; the
   optimizer update (clipping, Adam); the whole step on the host clock,
   ending after the update on the device;
 * traces one more step with ``torch.profiler`` and reports the device time
   by kernel, the port's own kernels by name, and the device's busy share of
   the step's wall time.
+
+In SGDet the synthetic GT boxes match no detection of seeded weights, so
+the sampler draws background pairs only; every shape is static, so the
+step's work is the same.
 
 The last line is one JSON object with these numbers and the card's name.
 It needs a card and raises without one.
@@ -30,7 +37,9 @@ import time
 import numpy as np
 import torch
 
-from .profile_eval import OWN_KERNELS, _stage_timer, sgcls_stages, trace
+from .profile_eval import (
+    OWN_KERNELS, _stage_timer, derived_stages, mode_stages, trace,
+)
 
 # the backward kernels of csrc/encoder_layer_bwd.cu, csrc/roi_align.cu and
 # csrc/pair_attention.cu (its GEMMs are OWN_KERNELS' gemm_sm90_kernel, its
@@ -41,7 +50,9 @@ OWN_BWD_KERNELS = ("ln_backward_kernel", "splitk_reduce_kernel",
 
 
 def profile(cfg, steps: int = 3, log=print) -> dict:
-    from ..engine.train import create_train_state, forward_backward, sample_pairs
+    from ..engine.train import (
+        create_train_state, forward_backward, sample_detections, sample_pairs,
+    )
     from ..models.sgg import build_model
     from ..solver.optim import LRController
     from .relation_train_net import rel_class_weights, synthetic_train_dataset
@@ -62,8 +73,15 @@ def profile(cfg, steps: int = 3, log=print) -> dict:
                 marks.append(torch.cuda.Event(enable_timing=True))
                 marks[-1].record()
         mark()
-        samples = sample_pairs(b, gen, cfg.relation.batch_size_per_image,
-                               cfg.relation.positive_fraction)
+        if cfg.relation.mode == "sgdet":
+            samples = sample_detections(model, b, gen,
+                                        cfg.relation.batch_size_per_image,
+                                        cfg.relation.positive_fraction,
+                                        cfg.relation.num_sample_per_gt_rel,
+                                        cfg.relation.require_box_overlap)
+        else:
+            samples = sample_pairs(b, gen, cfg.relation.batch_size_per_image,
+                                   cfg.relation.positive_fraction)
         mark()
         losses = forward_backward(state, b, samples)
         mark()
@@ -77,7 +95,9 @@ def profile(cfg, steps: int = 3, log=print) -> dict:
               ("relation", model.relation),
               ("encoder", model.relation.trunk.fusion_transformer),
               ("model", model)]
-    methods = sgcls_stages(model)
+    if cfg.relation.mode == "sgdet":
+        stages.pop()  # the forward is not called: detect, then relate
+    methods = mode_stages(model)
     events, remove = _stage_timer(stages, methods)
     marks, step_s = [], []
     for b in data[1:1 + steps]:
@@ -93,14 +113,15 @@ def profile(cfg, steps: int = 3, log=print) -> dict:
           for name in [n for n, _ in stages] + own}
     spans = np.array([[marks[4 * i + k].elapsed_time(marks[4 * i + k + 1])
                        for k in range(3)] for i in range(steps)]).mean(0)
+    derived_stages(ms, cfg.relation.mode, own)
     ms["sampling"] = float(spans[0])
-    ms["loss_and_backward"] = float(spans[1]) - ms["model"]
+    # SGDet's forward (relate) runs in the second span, detect in the first
+    fwd = ms["relate"] if cfg.relation.mode == "sgdet" else ms["model"]
+    ms["loss_and_backward"] = float(spans[1]) - fwd
     ms["optimizer"] = float(spans[2])
-    ms["roi_pooling"] = (ms["model"] - ms["backbone"] - ms["depth_backbone"]
-                         - ms["relation"] - sum(ms[n] for n in own))
-    ms["predictor_without_encoder"] = ms["relation"] - ms["encoder"]
     ms["step"] = 1e3 * float(np.mean(step_s))
     for k in ["step", "sampling", "model", "backbone", "depth_backbone", *own,
+              *(["detect_other"] if "detect" in own else []),
               "roi_pooling", "relation", "encoder", "predictor_without_encoder",
               "loss_and_backward", "optimizer"]:
         log(f"  {k:32s} {ms[k]:9.3f} ms")

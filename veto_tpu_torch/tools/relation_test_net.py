@@ -4,13 +4,13 @@
         --config configs/veto_vg_predcls.yaml [--device cpu] \\
         [--split val|test] [--max-batches N] [opts ...]
 
-Reads the YAML with the port's config loader, builds the PredCls or SGCls
-model (``configs/veto_vg_sgcls.yaml``, ``configs/gqa_sgcls.yaml``) on the
-card (or the CPU when asked), restores the latest checkpoint in
+Reads the YAML with the port's config loader, builds the PredCls, SGCls or
+SGDet model (``configs/veto_vg_sgcls.yaml``, ``configs/veto_vg_sgdet.yaml``,
+their ``gqa_`` twins) on the card (or the CPU when asked), restores the latest checkpoint in
 ``output_dir/ckpt`` when there is one (else the weights stay the seeded
 random ones of ``solver.seed``), evaluates the split through the eval step
-and the SGG evaluator, prints R@K / mR@K and writes ``eval_results.json``
-to ``output_dir``.  The split is read from ``data.data_dir`` (VG or GQA-200
+and the SGG evaluator, prints R@K / mR@K (in SGDet also the detections'
+COCO bbox mAP) and writes ``eval_results.json`` to ``output_dir``.  The split is read from ``data.data_dir`` (VG or GQA-200
 files, through :class:`SGGLoader`); with ``data.data_dir`` empty it is the
 synthetic corpus at the eval input shape: images of ``min_size_test`` x
 ``max_size_test`` rounded up to ``size_divisibility`` (800 x 1344 for
@@ -18,8 +18,9 @@ Visual Genome), ``data.max_boxes`` objects at most.  Zero-shot recall uses
 ``test.zeroshot_file`` or, from files, the triplets of the split that the
 train split never has.
 
-Not yet ported (they raise): SGDet (A10), MEET (A11), other predictors,
-stage-wise recall, multi-device evaluation.
+Not yet ported (they raise): MEET (A11), other predictors, stage-wise
+recall, multi-device evaluation; the bbox-aug test-time augmentation of
+SGDet (A14) is not run.
 """
 
 from __future__ import annotations
@@ -86,18 +87,21 @@ def evaluate(cfg, device=None, max_batches: int = 0, log=print, model=None,
              split: str = "test", dataset=None, train_dataset=None):
     """Evaluate ``split`` (``max_batches`` batches of it, or all of it; the
     synthetic split has 16 images, or ``max_batches`` batches' worth).
-    Returns the evaluator's aggregate and the seconds each batch took from
-    its hand-out by the device feeder to its predictions back on the host
+    Returns the evaluator's aggregate (in SGDet with the COCO bbox mAP under
+    ``"bbox"``) and the seconds each batch took from its hand-out by the
+    device feeder to its predictions back on the host
     (:func:`run_validation`).
 
     ``model`` is an already built :class:`SGGModel`, evaluated as it is; by
     default one is built from ``cfg`` on ``device`` and the latest
     checkpoint of ``output_dir/ckpt`` restored into it.  ``dataset`` (and
     ``train_dataset``, for the zero-shot triplets) stand in for the files."""
-    from ..engine.evaluate import make_eval_step
+    from ..evaluation.coco_map import CocoMapEvaluator
     from ..models.sgg import build_model
     from ..utils.checkpoint import CheckpointManager
-    from .relation_train_net import batches_for, build_dataset, run_validation
+    from .relation_train_net import (
+        batches_for, build_dataset, make_eval_fn, run_validation,
+    )
 
     if model is None:
         model = build_model(cfg, device)
@@ -115,12 +119,17 @@ def evaluate(cfg, device=None, max_batches: int = 0, log=print, model=None,
     if (train_dataset is None and cfg.test.zeroshot_eval and cfg.data.data_dir
             and not cfg.test.zeroshot_file):
         train_dataset = build_dataset(cfg, "train")
-    step = make_eval_step(model, max_pairs=cfg.relation.max_proposal_pairs,
-                          mode=cfg.relation.mode)
+    step = make_eval_fn(cfg, model)
     evaluator = make_sgg_evaluator(cfg, train_dataset, dataset)
+    coco = (CocoMapEvaluator(num_classes=cfg.model.num_obj_classes)
+            if cfg.relation.mode == "sgdet" else None)
     agg, seconds = run_validation(model, step,
                                   batches_for(cfg, dataset, split)(0),
-                                  evaluator, dev, max_batches, log)
+                                  evaluator, dev, max_batches, log, coco)
+    if coco is not None:
+        agg["bbox"] = det = coco.aggregate()
+        log(f"detection mAP {det['mAP']:.4f}  AP50 {det['AP50']:.4f}  "
+            f"AP75 {det['AP75']:.4f}")
     log(evaluator.summary_string())
     return agg, seconds
 

@@ -4,12 +4,14 @@
         --config configs/veto_vg_predcls.yaml [--device cpu] \\
         [opts, e.g. data.data_dir=/path/to/vg solver.max_iter=125000]
 
-Reads the YAML with the port's config loader, builds the PredCls or SGCls
-model (``relation.use_gt_object_label``) on the card (or the CPU when
-asked) with weights drawn from ``solver.seed``, imports
-``model.pretrained_detector_ckpt`` into the frozen detector (in SGCls its
-box head too) when set, and trains the depth backbone and the relation
-head:
+Reads the YAML with the port's config loader, builds the PredCls, SGCls
+or SGDet model (``relation.use_gt_box``, ``relation.use_gt_object_label``)
+on the card (or the CPU when asked) with weights drawn from
+``solver.seed``, imports ``model.pretrained_detector_ckpt`` into the frozen
+detector (in SGCls its box head too, in SGDet also the RPN head) when set,
+and trains the depth backbone and the relation head (in SGDet on pairs of
+the detections, ``relation.num_sample_per_gt_rel`` and
+``relation.require_box_overlap``):
 
   * data: the Visual Genome (or GQA-200) files under ``data.data_dir``
     through :class:`SGGLoader` (800 x 1344 and 1344 x 800 buckets at the
@@ -26,8 +28,8 @@ head:
   * SIGTERM: the step in flight finishes, a checkpoint is saved at the
     next iteration and the run ends cleanly; a final checkpoint at the end.
 
-Each step logs the loss (in SGCls also the object loss, which moves the
-loss value and not the update), the gradient norm, the LR scale and its
+Each step logs the loss (in SGCls and SGDet also the object loss, which
+moves the loss value and not the update), the gradient norm, the LR scale and its
 seconds:
 ``seconds`` from its batch on the device to the end of its update,
 ``step_seconds`` from the end of the previous update to the end of this
@@ -35,8 +37,7 @@ one (waiting on the loader included), ``wait_seconds`` the part spent
 waiting for the batch.  ``metrics.jsonl`` in ``output_dir`` gets the
 losses every 30 steps and each validation's mR@100.
 
-Not yet ported (they raise): SGDet (A10), MEET (A11), the
-attribute/mask/keypoint heads, the other loss variants, COCO/VOC (A13) and
+Not yet ported (they raise): MEET (A11), the attribute/mask/keypoint heads, the other loss variants, COCO/VOC (A13) and
 Open Images (A14) data, multi-device training.
 """
 
@@ -190,12 +191,25 @@ def load_pretrained_detector(cfg, model, log=print):
                                    log, fold_bn=cfg.model.fold_bn)
 
 
+def make_eval_fn(cfg, model):
+    """The config's eval step (the JAX tool's ``make_eval_fn``): SGDet's
+    takes ``relation.later_nms_prediction_thres`` and
+    ``test.relation_require_overlap``."""
+    from ..engine.evaluate import make_eval_step
+
+    return make_eval_step(model, max_pairs=cfg.relation.max_proposal_pairs,
+                          mode=cfg.relation.mode,
+                          later_nms_thres=cfg.relation.later_nms_prediction_thres,
+                          require_overlap=cfg.test.relation_require_overlap)
+
+
 def run_validation(model, eval_step, batches, evaluator, device,
-                   max_batches: int = 0, log=None):
+                   max_batches: int = 0, log=None, coco_evaluator=None):
     """``batches`` (host batches of the val or test split; the first
     ``max_batches`` of them, or all) through :class:`DeviceFeeder`, the eval
     step (the model in eval mode, so its BatchNorms read and keep their
-    running statistics; its mode is restored after) and the evaluator.
+    running statistics; its mode is restored after) and the evaluator (in
+    SGDet also ``coco_evaluator``, when given).
     Returns the aggregate and the seconds each batch took from its hand-out
     by the feeder (its pinned copy to the card overlapping the batch before)
     to its predictions back on the host."""
@@ -218,7 +232,9 @@ def run_validation(model, eval_step, batches, evaluator, device,
             if log is not None:
                 log(f"batch {i}: {len(recs)} images, {seconds[-1]:.3f} s on "
                     f"{device}")
-            accumulate_eval(preds, recs, evaluator)
+            accumulate_eval(preds, recs, evaluator,
+                            input_sizes=batch.sizes.cpu().numpy(),
+                            coco_evaluator=coco_evaluator)
     finally:
         model.train(was_training)
     return evaluator.aggregate(), seconds
@@ -227,7 +243,7 @@ def run_validation(model, eval_step, batches, evaluator, device,
 def train(cfg, device=None, log=print, model=None, datasets=None):
     """Train to ``solver.max_iter`` (from the latest checkpoint in
     ``output_dir/ckpt`` when there is one).  Returns the train state and
-    one dict per step run: loss, rel_loss (and obj_loss in SGCls),
+    one dict per step run: loss, rel_loss (and obj_loss in SGCls and SGDet),
     grad_norm, lr_scale, seconds,
     step_seconds, wait_seconds, image_shape (the batch's padded (H, W))
     and, on a validation step, val_mR100.
@@ -238,7 +254,6 @@ def train(cfg, device=None, log=print, model=None, datasets=None):
     import torch
 
     from ..engine.batch import DeviceFeeder
-    from ..engine.evaluate import make_eval_step
     from ..engine.train import create_train_state, train_step
     from ..models.sgg import build_model
     from ..solver.optim import LRController
@@ -275,8 +290,7 @@ def train(cfg, device=None, log=print, model=None, datasets=None):
         return {k: getattr(ctrl, k) for k in _CTRL_FIELDS}
 
     evaluator = make_sgg_evaluator(cfg, train_ds, val_ds)
-    eval_step = make_eval_step(model, max_pairs=cfg.relation.max_proposal_pairs,
-                               mode=cfg.relation.mode)
+    eval_step = make_eval_fn(cfg, model)
     val_gen = batches_for(cfg, val_ds, "val")
     feeder = DeviceFeeder(
         batches_for(cfg, train_ds, "train")(solver.max_iter, start_iter), dev)
@@ -297,7 +311,9 @@ def train(cfg, device=None, log=print, model=None, datasets=None):
             t0 = time.perf_counter()
             m = train_step(state, batch, state.generator, scale,
                            cfg.relation.batch_size_per_image,
-                           cfg.relation.positive_fraction)
+                           cfg.relation.positive_fraction,
+                           cfg.relation.num_sample_per_gt_rel,
+                           cfg.relation.require_box_overlap)
             fence()  # the update's launches included
             now = time.perf_counter()
             losses = [k for k in ("loss", "rel_loss", "obj_loss") if k in m]

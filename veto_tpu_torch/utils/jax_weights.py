@@ -13,6 +13,10 @@ path is its torch name, with these conversions:
     ...) keep their names and their ``(in, out)`` layout — the CUDA layer
     kernel reads them so.
 
+The SGDet model's frozen heads map by the same rules: the ``rpn`` subtree
+(``conv``, ``cls_logits``, ``bbox_pred``: HWIO kernels → OIHW) and the box
+predictor's ``bbox_pred`` Dense.
+
 A detector body in the unfolded layout (conv + ``FrozenBatchNorm``) loads
 into an unfolded port model as is, or is folded here (``kernel * scale``,
 ``bias = bn.bias``) for a folded one.

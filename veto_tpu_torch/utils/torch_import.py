@@ -26,9 +26,9 @@ Entry points: :func:`import_detector_weights` (a ``.pth``, a Detectron
 downloads); :func:`depth_backbone_state_updates` and
 :func:`veto_relation_state_updates` for a reference relation checkpoint;
 :func:`apply_updates` writes any of them into a model and reports what it
-skipped (no model of the port has an RPN yet, and the PredCls model no
-box head, so their tensors are reported as missing; an SGCls model loads
-the box head).  The motifs/LSTM/attribute converters come with the rest of
+skipped (a PredCls model has no RPN and no box head, an SGCls model no
+RPN, so those tensors are reported as missing; an SGDet model loads the
+RPN head and the whole box head, ``bbox_pred`` included).  The motifs/LSTM/attribute converters come with the rest of
 the zoo (A14).
 """
 
