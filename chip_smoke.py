@@ -137,7 +137,26 @@ catches its own failure:
     detector, RPN and box head bit-unchanged, foreground pairs printed) and
     one step's gradients against the plain versions, two kernel runs
     bit-equal; one eval batch of ``configs/gqa_sgdet.yaml``.
-16. One JSON line ``{"kernels": [...]}`` (all nine kernels, N1 last;
+16. MEET at full width from seeded weights, nothing cut
+    (``configs/veto_meet_vg_predcls.yaml``: the VETO trunk embedding the hard
+    labels, 5 f32 group heads of VG's divide4): ``evaluate`` over 2 batches
+    of 8 (B1 6, B3 2 a batch, every other kernel 0); one batch's group
+    logits through the kernels against the plain versions at phase 5's
+    tolerances; the card's post-processing (each group's best predicate of
+    each pair, 10,240 candidates an image ranked by a stable sort) against
+    the same on the CPU on the card's logits: the same surviving
+    candidates, probabilities within 1e-6, the ranking in order up to
+    ties of 1e-6, R@K and mR@K equal; the host's ``accumulate_eval``
+    seconds a batch; with ``ensemble.expert_group`` (15 heads) one batch
+    each with voting C and U, checked the same way; ``train`` for 3 steps
+    of 12 (B1, B2a, B2b 6, B3 2, B3-bwd 1 a step; every group loss finite,
+    every trainable tensor changed, the detector bit-unchanged) and one
+    step's gradients on one routing draw against the plain versions, two
+    kernel runs bit-equal; SGDet MEET (``veto_vg_sgdet.yaml`` with
+    ``VETOPredictor_MEET`` and ``ensemble.enabled``): one eval batch of 8
+    (B1 6, B3 3, N1 mask 2, scan 2) and one train step of 12; one eval
+    batch of ``configs/gqa_meet_predcls.yaml`` (groups 5, 10, 20, 65).
+17. One JSON line ``{"kernels": [...]}`` (all nine kernels, N1 last;
     ``launches`` from the main path's training run, or the path that runs
     each) and, last, ``{"ok": true, "device": {...}}``.
 
@@ -1374,6 +1393,19 @@ def expected(**launches):
 
 
 LAST_TRAIN = {}  # the main path's training run: from-memory step times
+TRAIN_MS = {}  # each training path's (ms a step after warm-up, peak bytes)
+
+
+def loss_keys(cfg):
+    """The losses a step of ``cfg`` records, ``loss`` first: ``rel_loss``, or
+    with MEET each (expert, group) head's, and outside PredCls
+    ``obj_loss``."""
+    from veto_tpu_torch.tools.relation_train_net import build_meet_config
+
+    meet = build_meet_config(cfg)
+    rel = ([f"group_{k}{e + 1}_CE_loss" for e in range(meet.experts_per_group)
+            for k in range(len(meet.group_sizes))] if meet else ["rel_loss"])
+    return ["loss", *rel] + (["obj_loss"] if cfg.relation.mode != "predcls" else [])
 
 
 def frozen_state(model):
@@ -1441,18 +1473,18 @@ def phase_train(steps=5, opts=(), encoder=("fused_encoder_layer",
           f"the next, {wait:.1f} ms of it waiting for a batch")
     if what == "main path":
         LAST_TRAIN.update(fed_ms=fed, wait_share=wait / fed)
+    TRAIN_MS[what] = (ms, peak)
     if len(history) != steps:
         raise AssertionError(f"{len(history)} steps ran, not {steps}")
     for i, c in enumerate(counts):
         if c != per_step:
             raise AssertionError(f"step {i}: launches {c}, want {per_step}")
-    losses = ["loss", "rel_loss", "grad_norm"] + (
-        ["obj_loss"] if cfg.relation.mode == "sgcls" else [])
+    losses = loss_keys(cfg) + ["grad_norm"]
     if not all(np.isfinite(r[k]) for r in history for k in losses):
         raise AssertionError(f"non-finite {losses}: {history}")
-    if "obj_loss" in losses:
-        print(f"  rel_loss {[round(r['rel_loss'], 4) for r in history]}, "
-              f"obj_loss {[round(r['obj_loss'], 4) for r in history]}")
+    if len(losses) > 3:
+        print(f"  {', '.join(f'{k} {round(history[-1][k], 4)}' for k in losses[1:-1])} "
+              "(the last step)")
     for k, v in frozen_state(model).items():
         if not torch.equal(v, frozen[k]):
             raise AssertionError(f"frozen detector changed: {k}")
@@ -1476,8 +1508,9 @@ def phase_train_grads(state, opts=(), what="main path", b=None, config=PREDCLS,
     through the plain versions, on the card, from the trained state; on
     the synthetic train split's first batch unless a device batch ``b`` is
     given, on its sampled pairs unless ``samples`` are given (SGDet's: the
-    detections and their pairs).  ``exact_floor``: two kernel runs of the
-    step must give bit-equal gradients."""
+    detections and their pairs), with MEET on one routing draw.
+    ``exact_floor``: two kernel runs of the step must give bit-equal
+    gradients."""
     from veto_tpu_torch.config import load_config
     from veto_tpu_torch.engine.train import forward_backward, sample_pairs
     from veto_tpu_torch.ops import cuda_lib
@@ -1497,9 +1530,17 @@ def phase_train_grads(state, opts=(), what="main path", b=None, config=PREDCLS,
           f"images of {tuple(b.images.shape[1:3])}, "
           f"{cfg.relation.batch_size_per_image} pairs an image")
     params = [(n, p) for n, p in state.model.named_parameters() if p.requires_grad]
+    member = None
+    if state.meet is not None:  # one routing draw for every run of the step
+        from veto_tpu_torch.models.relation.predictor_meet import meet_route
+
+        pairs = getattr(samples, "pairs", samples)
+        member = meet_route(torch.Generator(device=DEVICE).manual_seed(2),
+                            pairs.labels, pairs.mask, state.meet.incre_idx,
+                            state.meet.sample_rate)
 
     def grads():
-        loss = forward_backward(state, b, samples)["loss"]
+        loss = forward_backward(state, b, samples, member)["loss"]
         return loss, {n: p.grad.detach().clone() for n, p in params}
 
     def compare(got, ref):
@@ -2590,13 +2631,12 @@ def sgdet_eval_model(config, opts=()):
     return model, cfg, b, sigma
 
 
-def sgdet_evaluate(model, cfg, n_batches, what):
+def counted_evaluate(model, cfg, n_batches, what, per_batch):
     """``relation_test_net.evaluate`` over ``n_batches`` batches with the
-    launch counts read at every batch; returns ms per batch after warm-up
-    and the peak memory."""
+    launch counts read at every batch, each held to ``per_batch``; returns
+    ms per batch after warm-up, the peak memory and the aggregate."""
     from veto_tpu_torch.tools.relation_test_net import evaluate
 
-    per_batch = expected(**sgdet_launches(cfg))
     counts = []
 
     def log(line):
@@ -2610,14 +2650,23 @@ def sgdet_evaluate(model, cfg, n_batches, what):
     agg, seconds = evaluate(cfg, model=model, max_batches=n_batches, log=log)
     peak = torch.cuda.max_memory_allocated()
     ms = 1e3 * float(np.mean(seconds[1:] or seconds))
+    det = f"; detection mAP {agg['bbox']['mAP']:.4f}" if "bbox" in agg else ""
     print(f"  [{what}] launches a batch {json.dumps(counts[0])}; after warm-up "
           f"{ms:.1f} ms a batch ({[round(1e3 * t, 1) for t in seconds]}); peak "
-          f"memory {peak / 2 ** 30:.2f} GiB; detection mAP {agg['bbox']['mAP']:.4f}")
+          f"memory {peak / 2 ** 30:.2f} GiB; R@K {agg['R']}{det}")
     if len(counts) != n_batches or any(c != per_batch for c in counts):
         raise AssertionError(f"launches {counts}, want {per_batch} each batch")
     for m in ("R", "mR"):
         if not all(np.isfinite(v) and 0 <= v <= 100 for v in agg[m].values()):
             raise AssertionError(f"{m}@K out of range: {agg[m]}")
+    return ms, peak, agg
+
+
+def sgdet_evaluate(model, cfg, n_batches, what):
+    """:func:`counted_evaluate` at SGDet's launches a batch; returns ms per
+    batch after warm-up and the peak memory."""
+    ms, peak, _ = counted_evaluate(model, cfg, n_batches, what,
+                                   expected(**sgdet_launches(cfg)))
     return ms, peak
 
 
@@ -2751,10 +2800,12 @@ def sgdet_train(model, cfg_opts, steps=5):
     with_val = dict(per_step)
     for k, v in sgdet_launches(cfg, val_batches).items():
         with_val[k] += v
-    print(f"[train, SGDet] VETO sgdet training ({SGDET}), {steps} steps of "
+    val = (f", validation at step 4 ({val_batches} batches of "
+           f"{cfg.test.ims_per_batch})" if steps > 4 else "")
+    print(f"[train, SGDet] VETO sgdet training ({SGDET}"
+          f"{' ' + ' '.join(cfg_opts) if cfg_opts else ''}), {steps} step(s) of "
           f"{cfg.solver.ims_per_batch} images on GT from detections, "
-          f"{cfg.relation.batch_size_per_image} pairs an image, validation at "
-          f"step 4 ({val_batches} batches of {cfg.test.ims_per_batch})")
+          f"{cfg.relation.batch_size_per_image} pairs an image{val}")
     frozen = frozen_state(model)
     before = {n: p.detach().clone() for n, p in model.named_parameters()
               if p.requires_grad}
@@ -2771,19 +2822,19 @@ def sgdet_train(model, cfg_opts, steps=5):
     read_counters(reset=True)
     state, history = train(cfg, model=model, log=log, datasets=(train_ds, val_ds))
     peak = torch.cuda.max_memory_allocated()
-    ms = 1e3 * float(np.mean([r["seconds"] for r in history[1:]]))
+    ms = 1e3 * float(np.mean([r["seconds"] for r in history[1:] or history]))
     want = [with_val if i == 4 else per_step for i in range(steps)]
     if counts != want:
         raise AssertionError(f"launches {counts}, want {want}")
-    if not all(np.isfinite(r[k]) for r in history
-               for k in ("loss", "rel_loss", "obj_loss", "grad_norm")):
+    losses = loss_keys(cfg)
+    if not all(np.isfinite(r[k]) for r in history for k in losses + ["grad_norm"]):
         raise AssertionError(f"non-finite losses: {history}")
+    val = [r["val_mR100"] for r in history if "val_mR100" in r]
     print(f"  after warm-up {ms:.1f} ms a step "
           f"({[round(1e3 * r['seconds'], 1) for r in history]}); peak memory "
-          f"{peak / 2 ** 30:.2f} GiB; rel_loss "
-          f"{[round(r['rel_loss'], 4) for r in history]}, obj_loss "
-          f"{[round(r['obj_loss'], 4) for r in history]}; validation mR@100 "
-          f"{history[3].get('val_mR100')}")
+          f"{peak / 2 ** 30:.2f} GiB; "
+          f"{', '.join(f'{k} {[round(r[k], 4) for r in history]}' for k in losses[1:])}"
+          f"; validation mR@100 {val}")
     for k, v in frozen_state(model).items():
         if not torch.equal(v, frozen[k]):
             raise AssertionError(f"frozen detector changed: {k}")
@@ -2871,6 +2922,238 @@ def phase_sgdet(gen):
     return row, 5 * per_step["nms_mask"]
 
 
+# ------------------------------------------------------------------ phase 16
+MEET = "veto_meet_vg_predcls.yaml"
+MEET_OPTS = ("test.ims_per_batch=8",)  # the MEET configs leave it at 1
+SGDET_MEET = ("relation.predictor=VETOPredictor_MEET", "ensemble.enabled=true")
+
+
+def meet_model(config, opts=()):
+    """A full-width MEET model of ``config`` on the card, seeded, eval mode."""
+    from veto_tpu_torch.config import load_config
+    from veto_tpu_torch.models.sgg import build_model
+    from veto_tpu_torch.tools.relation_train_net import build_meet_config
+
+    cfg = load_config(os.path.join(ROOT, "configs", config), [*MEET_OPTS, *opts])
+    meet = build_meet_config(cfg)
+    model = build_model(cfg)
+    heads = meet.experts_per_group * len(meet.group_sizes)
+    print(f"[MEET] {config}{' ' + ' '.join(opts) if opts else ''}: "
+          f"{cfg.relation.mode}, groups {meet.group_sizes} x {meet.experts_per_group} "
+          f"expert(s) = {heads} f32 heads of {cfg.veto.t_input_dim} -> gs + 2, "
+          f"voting {meet.voting}; {cfg.test.ims_per_batch} images a batch, "
+          f"{cfg.data.max_boxes} boxes, {cfg.relation.max_proposal_pairs} pairs: "
+          f"{len(meet.group_sizes) * cfg.relation.max_proposal_pairs} candidates "
+          "an image")
+    return model, cfg, meet
+
+
+def meet_forward(model, cfg, b):
+    """One eval batch through the model: the group logits [e][k], the
+    proposals' logits and the test pairs."""
+    from veto_tpu_torch.models.relation.sampling import prepare_test_pairs
+
+    model.eval()
+    with torch.inference_mode():
+        pi, pm = prepare_test_pairs(b.box_mask, b.box_mask.float(),
+                                    cfg.relation.max_proposal_pairs)
+        out = model(b.images, b.depth, b.boxes, b.box_mask, b.labels,
+                    b.obj_logits, pi, pm)
+    return out.rel_logits, out.predict_logits, pi, pm
+
+
+def meet_candidates(pred, i):
+    """Image ``i``'s surviving candidates of a (numpy) ``MeetPrediction``
+    keyed by (subject, object, predicate): one key each, since a pair
+    proposes one predicate a group and the groups' predicates differ."""
+    pm = pred.pair_mask[i]
+    pi = pred.pair_idx[i][pm].astype(np.int64)
+    key = (pi[:, 0] * 100000 + pi[:, 1]) * 1000 + pred.rel_labels[i][pm]
+    return key, pred.rel_scores[i][pm]
+
+
+def check_meet_post(meet, glogits, predict_logits, pi, pm, b, recs, cfg, what):
+    """The MEET post-processing on the card against the same on the CPU, on
+    the card's logits: the surviving candidates the same, each one's
+    probabilities within 1e-6, the card's ranking sorted by the CPU's
+    triple scores up to 1e-6 (the two softmaxes may round one ulp apart),
+    and R@K / mR@K of both equal."""
+    from veto_tpu_torch.engine.evaluate import MeetEval, accumulate_eval, to_numpy
+    from veto_tpu_torch.models.relation.postprocess import object_predictions
+    from veto_tpu_torch.models.relation.predictor_meet import postprocess_meet
+    from veto_tpu_torch.tools.relation_test_net import make_sgg_evaluator
+
+    num_rel = cfg.relation.num_classes
+
+    def post(dev):
+        lg = tuple(tuple(x.to(dev) for x in e) for e in glogits)
+        labels, scores = object_predictions(predict_logits.to(dev))
+        with torch.inference_mode():
+            p = postprocess_meet(meet, lg, labels, scores, pi.to(dev), pm.to(dev),
+                                 num_rel)
+        return to_numpy(MeetEval(p, b.boxes.to(dev), b.box_mask.to(dev)))
+
+    card_out, cpu_out = post(DEVICE), post("cpu")
+    g, c = card_out.prediction, cpu_out.prediction
+    if not np.array_equal(g.pair_mask, c.pair_mask):
+        raise AssertionError(f"{what}: pair_mask differs, card vs CPU")
+    worst, moved, slack = 0.0, 0, 0.0
+    for i in range(len(recs)):
+        gk, gs = meet_candidates(g, i)
+        ck, cs = meet_candidates(c, i)
+        go, co = np.argsort(gk, kind="stable"), np.argsort(ck, kind="stable")
+        if not np.array_equal(gk[go], ck[co]):
+            raise AssertionError(f"{what}: image {i}: other candidates survive")
+        worst = max(worst, float(np.abs(gs[go] - cs[co]).max(initial=0)))
+        moved += int((gk != ck).sum())
+        # the CPU's triple score of each candidate, in the card's order
+        obj = c.obj_scores[i]
+        pidx = g.pair_idx[i][g.pair_mask[i]]
+        rank = np.searchsorted(ck[co], gk)
+        triple = (cs[co][rank][:, 1:].max(-1) * obj[pidx[:, 0]] * obj[pidx[:, 1]])
+        slack = max(slack, float(np.maximum(np.diff(triple), 0).max(initial=0)))
+    if worst > 1e-6 or slack > 1e-6:
+        raise AssertionError(f"{what}: rel_scores off by {worst}, ranking out of "
+                             f"order by {slack}")
+    aggs = []
+    for out in (card_out, cpu_out):
+        ev = make_sgg_evaluator(cfg)
+        accumulate_eval(out, recs, ev, input_sizes=b.sizes.cpu().numpy())
+        aggs.append(ev.aggregate())
+    if any(aggs[0][m] != aggs[1][m] for m in ("R", "mR")):
+        raise AssertionError(f"{what}: R@K card {aggs[0]['R']} / {aggs[0]['mR']}, "
+                             f"CPU {aggs[1]['R']} / {aggs[1]['mR']}")
+    print(f"  {what}: post-processing on the card vs the CPU on the card's logits: "
+          f"{int(g.pair_mask.sum())} surviving candidates the same, rel_scores max "
+          f"|err| {worst:.2e}, {moved} candidates ranked elsewhere (ties within "
+          f"{slack:.1e}); R@K {aggs[0]['R']}, mR@K {aggs[0]['mR']} equal")
+    return card_out
+
+
+def check_meet_logits(model, cfg, b):
+    """One batch's group logits through the kernels against the plain
+    versions, at phase 5's tolerances (each head's scale); returns the
+    kernels' logits, the proposals' logits and the pairs."""
+    from veto_tpu_torch.ops import cuda_lib
+
+    got, predict_logits, pi, pm = meet_forward(model, cfg, b)
+    with cuda_lib.plain_kernels():
+        ref = meet_forward(model, cfg, b)[0]
+    rows = []
+    for e, (ge, re) in enumerate(zip(got, ref)):
+        for k, (gl, rl) in enumerate(zip(ge, re)):
+            err = (gl.float() - rl).abs()
+            rows.append((float(err.max()) / float(rl.abs().max()),
+                         float(err.mean()) / float(rl.abs().mean()), f"e{e} g{k}",
+                         gl.dtype == torch.float32 and bool(torch.isfinite(gl).all())))
+    worst = max(rows)
+    print(f"  MEET group logits kernels vs plain, {len(rows)} heads: worst max |err| "
+          f"{worst[0]:.3e} of max |ref| ({worst[2]}), worst mean |err| "
+          f"{max(r[1] for r in rows):.3e} of mean |ref| (phase 5's tolerances: "
+          "0.05, 0.01)")
+    bad = [r for r in rows if r[0] > 0.05 or r[1] > 0.01 or not r[3]]
+    if bad:
+        raise AssertionError(f"group logits off: {bad}")
+    return got, predict_logits, pi, pm
+
+
+def host_accumulate_s(step, b, recs, cfg) -> float:
+    """Seconds ``accumulate_eval`` takes on the host for one batch's
+    predictions (a fresh evaluator)."""
+    from veto_tpu_torch.engine.evaluate import accumulate_eval, to_numpy
+    from veto_tpu_torch.tools.relation_test_net import make_sgg_evaluator
+
+    preds = to_numpy(step(b))
+    ev = make_sgg_evaluator(cfg)
+    t0 = time.perf_counter()
+    accumulate_eval(preds, recs, ev, input_sizes=b.sizes.cpu().numpy())
+    return time.perf_counter() - t0
+
+
+def phase_meet():
+    """MEET at full width from seeded weights, nothing cut:
+    ``configs/veto_meet_vg_predcls.yaml`` (VG divide4: 5 groups)
+    ``evaluate`` over 2 batches of 8 (B1 6, B3 2 a batch, every other kernel
+    0), one batch's group logits through the kernels against the plain
+    versions, the card's post-processing against the CPU's on the same
+    logits, the host's ``accumulate_eval`` seconds; with
+    ``ensemble.expert_group`` (15 heads) one batch each with voting C and U,
+    each checked so; ``train`` for 3 steps of 12 (B1, B2a, B2b 6, B3 2,
+    B3-bwd 1 a step; every group loss finite) and one step's gradients on
+    one routing draw against the plain versions, two kernel runs
+    bit-equal; SGDet MEET (``veto_vg_sgdet.yaml`` with
+    ``VETOPredictor_MEET`` and the ensemble): one eval batch (B1 6, B3 3, N1
+    2 + 2) and one train step; one eval batch of
+    ``configs/gqa_meet_predcls.yaml``.  Returns the numbers it prints."""
+    from veto_tpu_torch.tools.relation_test_net import synthetic_eval_dataset
+    from veto_tpu_torch.tools.relation_train_net import make_eval_fn
+
+    model, cfg, meet = meet_model(MEET)
+    per_batch = expected(fused_encoder_layer=cfg.veto.enc_layers,
+                         multilevel_roi_align=2)
+    eval_ms, eval_peak, _ = counted_evaluate(model, cfg, 2, "MEET PredCls eval",
+                                             per_batch)
+    bsz = cfg.test.ims_per_batch
+    batch, recs = next(synthetic_eval_dataset(cfg, bsz).batches(bsz, cfg.data.max_boxes))
+    b = batch.to(DEVICE)
+    glogits, predict_logits, pi, pm = check_meet_logits(model, cfg, b)
+    check_meet_post(meet, glogits, predict_logits, pi, pm, b, recs, cfg,
+                    "MEET PredCls")
+    step = make_eval_fn(cfg, model)
+    host_s = [host_accumulate_s(step, b, recs, cfg) for _ in range(3)]
+    print(f"  accumulate_eval on the host: {[round(t, 4) for t in host_s]} s a batch "
+          f"of {bsz} ({len(meet.group_sizes) * cfg.relation.max_proposal_pairs} "
+          f"candidates an image) beside {eval_ms:.1f} ms of the eval step")
+    del model, glogits, predict_logits
+    release()
+
+    voting_ms = {}
+    model, cfg3, meet3 = meet_model(MEET, ("ensemble.expert_group=true",))
+    glogits, predict_logits, pi, pm = check_meet_logits(model, cfg3, b)
+    for voting in ("C", "U"):
+        from veto_tpu_torch.config import load_config
+        from veto_tpu_torch.tools.relation_train_net import build_meet_config
+
+        cfg_v = load_config(os.path.join(ROOT, "configs", MEET),
+                            [*MEET_OPTS, "ensemble.expert_group=true",
+                             f"ensemble.voting={voting}"])
+        voting_ms[voting], _, _ = counted_evaluate(
+            model, cfg_v, 1, f"MEET PredCls 3 experts, voting {voting}", per_batch)
+        check_meet_post(build_meet_config(cfg_v), glogits, predict_logits, pi, pm,
+                        b, recs, cfg_v, f"MEET voting {voting}")
+    del model, glogits, predict_logits
+    release()
+
+    state, launches = phase_train(3, config=MEET, what="MEET")
+    phase_train_grads(state, config=MEET, what="MEET", exact_floor=True)
+    train_ms, train_peak = TRAIN_MS["MEET"]
+    del state
+    release()
+
+    sg_model, sg_cfg, _, sigma = sgdet_eval_model(SGDET, SGDET_MEET)
+    sg_eval_ms, sg_peak = sgdet_evaluate(sg_model, sg_cfg, 1, "SGDet MEET eval")
+    _, _, sg_train_ms, sg_train_peak, _, _ = sgdet_train(sg_model, SGDET_MEET,
+                                                         steps=1)
+    del sg_model
+    release()
+
+    gqa_model, gqa_cfg, _ = meet_model("gqa_meet_predcls.yaml")
+    counted_evaluate(gqa_model, gqa_cfg, 1, "MEET GQA eval",
+                     expected(fused_encoder_layer=gqa_cfg.veto.enc_layers,
+                              multilevel_roi_align=2))
+    del gqa_model, b
+    release()
+    numbers = dict(eval_ms=eval_ms, eval_peak_gib=eval_peak / 2 ** 30,
+                   accumulate_eval_s=host_s, voting_ms=voting_ms,
+                   train_ms=train_ms, train_peak_gib=train_peak / 2 ** 30,
+                   sgdet_eval_ms=sg_eval_ms, sgdet_eval_peak_gib=sg_peak / 2 ** 30,
+                   sgdet_train_ms=sg_train_ms,
+                   sgdet_train_peak_gib=sg_train_peak / 2 ** 30,
+                   cls_score_sigma=sigma, train_launches=launches)
+    print(f"[MEET numbers] {card()}: {json.dumps(numbers)}")
+    return numbers
+
+
 _SCRATCH = []
 
 
@@ -2924,6 +3207,7 @@ def main() -> int:
     phase_sgcls()
     n1, n1_launches = phase_sgdet(gen)
     kernels.append(n1)
+    phase_meet()
     # each kernel's launches on the training path that runs it
     launches.update(pair_attention=pa_launches["pair_attention"],
                     pair_attention_backward=pa_launches["pair_attention_backward"],

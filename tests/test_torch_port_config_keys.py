@@ -15,7 +15,9 @@ shipped defaults still build, train and evaluate.
   and evaluate (A9); ``relation.use_gt_box`` false: the SGDet configs
   build, train and evaluate (A10), and ``relation.require_box_overlap`` and
   ``test.relation_require_overlap`` reach the SGDet pair sampler and test
-  pairs; ``ensemble.enabled`` (MEET) raises, naming slice A11;
+  pairs; ``ensemble.enabled`` builds MEET's predictor (A11), a
+  ``VETOPredictor_MEET`` name without it the plain VETO one, and the legacy
+  ``*_MEET`` predictors raise, naming slice A14;
   ``model.box_pooler_resolution`` and ``model.box_mlp_head_dim`` shape the
   SGCls box head.
 """
@@ -187,8 +189,14 @@ def test_sgcls_configs_train_and_evaluate(tmp_path, config):
 
 
 def test_sgdet_and_meet_still_raise():
-    """SGDet builds now (the RPN head and the box head, frozen); MEET still
-    raises, naming its slice."""
+    """SGDet builds (the RPN head and the box head, frozen), and so does
+    MEET: ``ensemble.enabled`` builds ``MeetPredictor`` (SGCls here: its
+    trunk embeds the hard labels), ``VETOPredictor_MEET`` without it the
+    plain VETO predictor, as the JAX tool resolves the name; a legacy
+    ``*_MEET`` predictor still raises, naming its slice, A14."""
+    from veto_tpu_torch.models.relation.predictor_meet import MeetPredictor
+    from veto_tpu_torch.models.relation.predictor_veto import VetoPredictor
+
     model = build_model(_cfg(SMALL + ["relation.use_gt_box=False",
                                       "model.box_mlp_head_dim=16"],
                              "veto_vg_sgcls.yaml"), "cpu")
@@ -196,9 +204,17 @@ def test_sgdet_and_meet_still_raise():
     assert model.rpn.cls_logits.weight.shape == (4, 256, 1, 1)
     assert not any(p.requires_grad for n, p in model.named_parameters()
                    if n.startswith(("rpn.", "box_")))
-    with pytest.raises(NotImplementedError, match="A11"):
-        build_model(_cfg(SMALL + ["ensemble.enabled=True"],
-                         "veto_vg_sgcls.yaml"), "cpu")
+    meet = build_model(_cfg(SMALL + ["ensemble.enabled=True",
+                                     "model.box_mlp_head_dim=16"],
+                            "veto_vg_sgcls.yaml"), "cpu").relation
+    assert isinstance(meet, MeetPredictor) and meet.trunk.hard_label_embed
+    assert meet.rel_out_e0_g4.weight.shape == (12 + 2, 96)
+    plain = build_model(_cfg(SMALL + ["relation.predictor=VETOPredictor_MEET"]),
+                        "cpu").relation
+    assert isinstance(plain, VetoPredictor) and not plain.trunk.hard_label_embed
+    with pytest.raises(NotImplementedError, match="A14"):
+        build_model(_cfg(SMALL + ["relation.predictor=MotifPredictor_MEET",
+                                  "ensemble.enabled=True"]), "cpu")
 
 
 def test_box_head_keys_change_the_model():

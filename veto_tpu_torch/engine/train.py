@@ -22,9 +22,15 @@ samples (and, in SGDet, detections) to the second half:
 ``metrics`` holds ``loss``, ``rel_loss``, outside PredCls ``obj_loss``, and
 ``grad_norm`` (the global norm of all gradients before clipping, as
 ``optax.global_norm``) as 0-d tensors on the device, and ``batch_stats``,
-copies of the BatchNorm running statistics after the step.  MEET (A11) and
-the other loss variants (label smoothing, LDAM, balanced norm) raise
-``NotImplementedError``.
+copies of the BatchNorm running statistics after the step.
+
+MEET (``create_train_state(meet=)``, in every mode): ``rel_loss`` gives way
+to one plain cross-entropy per (expert, group) head,
+``group_{k}{e+1}_CE_loss``, over the pairs routed to it; the routing draws
+from ``state.generator`` after the pair sampler's draws of the same step
+(the JAX package folds the step's key instead), so a resumed run stays
+bit-equal.  The other loss variants (label smoothing, LDAM, balanced
+norm) raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -36,6 +42,7 @@ import torch
 from torch import nn
 
 from ..models.detector.box_head import assign_labels_to_proposals
+from ..models.relation.predictor_meet import MeetConfig, meet_losses
 from ..models.relation.predictor_veto import weighted_ce_loss
 from ..models.relation.sampling import (
     DetRelSample, RelSample, detect_relsample, gtbox_relsample,
@@ -51,24 +58,29 @@ class TrainState:
     class_weights: Optional[torch.Tensor] = None  # (num_rel,) or None
     step: int = 0  # updates applied so far
     generator: Optional[torch.Generator] = None  # the pair sampler's
+    meet: Optional[MeetConfig] = None  # its constants on the model's device
 
 
 def create_train_state(model: nn.Module, solver_cfg, class_weights=None,
                        mode: str = "predcls", loss_variant: str = "weighted_ce",
                        meet=None) -> TrainState:
-    """The state of a training run over ``model``'s parameters."""
+    """The state of a training run over ``model``'s parameters; ``meet`` (a
+    :class:`MeetConfig`) trains MEET's per-group losses, and then the
+    class weights are not used."""
     check_mode(mode)
     if mode != model.mode:
         raise ValueError(f"mode {mode!r} for a model built for {model.mode!r}")
-    if meet is not None:
-        raise NotImplementedError("MEET training comes with slice A11")
     if loss_variant != "weighted_ce":
         raise NotImplementedError(f"loss variant {loss_variant!r}: the port "
                                   "trains with the weighted cross-entropy")
     dev = next(model.parameters()).device
     cw = None if class_weights is None else torch.as_tensor(
         class_weights, dtype=torch.float32, device=dev)
-    return TrainState(model, make_optimizer(solver_cfg, model), cw)
+    if meet is not None:
+        meet = meet._replace(
+            incre_idx=torch.as_tensor(meet.incre_idx, device=dev),
+            sample_rate=torch.as_tensor(meet.sample_rate, device=dev))
+    return TrainState(model, make_optimizer(solver_cfg, model), cw, meet=meet)
 
 
 def sample_pairs(batch, generator: torch.Generator,
@@ -115,12 +127,29 @@ def batch_stats(model: nn.Module) -> Dict[str, torch.Tensor]:
             and not name.startswith(FROZEN_DETECTOR)}
 
 
+def _rel_losses(state: TrainState, rel_logits, labels, mask,
+                member=None) -> Dict[str, torch.Tensor]:
+    """``rel_loss``, the Rwt weighted cross-entropy; with MEET the per-group
+    cross-entropies instead, routed by ``member`` when given, else by a
+    draw from ``state.generator``."""
+    if state.meet is None:
+        return {"rel_loss": weighted_ce_loss(rel_logits, labels, mask,
+                                             state.class_weights)}
+    if member is None and state.generator is None:
+        raise ValueError("MEET's routing draws from state.generator: set it")
+    m = state.meet
+    return meet_losses(state.generator, rel_logits, labels, mask, m.incre_idx,
+                       m.sample_rate, m.group_sizes, member=member)
+
+
 def forward_backward(state: TrainState, batch,
-                     samples: Union[RelSample, DetSample]) -> Dict[str, torch.Tensor]:
+                     samples: Union[RelSample, DetSample],
+                     member: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
     """Train-mode forward and the loss's backward on the given pairs: the
     trainable parameters' ``.grad`` hold the step's gradients.  Returns the
-    losses, detached: ``loss`` (their sum), ``rel_loss`` and, outside
-    PredCls, ``obj_loss``."""
+    losses, detached: ``loss`` (their sum), ``rel_loss`` (with MEET the
+    ``group_*`` losses instead; ``member``, (B, P, G) bool, routes the
+    pairs in place of a draw) and, outside PredCls, ``obj_loss``."""
     model = state.model
     model.train()
     state.optimizer.zero_grad()
@@ -130,37 +159,36 @@ def forward_backward(state: TrainState, batch,
         # VETO embeds the detections' own (NMS-reduced) labels
         out = model.relate(det.features, batch.depth, dets.boxes, dets.mask,
                            dets.labels, pairs.pair_idx, det.predict_logits)
-        losses = {"rel_loss": weighted_ce_loss(out.rel_logits, pairs.labels,
-                                               pairs.mask, state.class_weights),
-                  # obj_dists is the one-hot of the detections' labels: this
-                  # term moves the loss value, not the update
-                  "obj_loss": weighted_ce_loss(out.obj_dists, samples.gt_labels,
-                                               dets.mask, None)}
-        loss = sum(losses.values())
-        loss.backward()
-        return {"loss": loss.detach(),
-                **{k: v.detach() for k, v in losses.items()}}
-    out = model(batch.images, batch.depth, batch.boxes, batch.box_mask,
-                batch.labels, batch.obj_logits, samples.pair_idx, samples.mask)
-    losses = {"rel_loss": weighted_ce_loss(out.rel_logits, samples.labels,
-                                           samples.mask, state.class_weights)}
-    if model.mode != "predcls":
-        # the cross-entropy of the predictor's obj_dists against the GT
-        # labels.  obj_dists is the one-hot of the NMS's labels and carries
-        # no gradient, in the JAX package as here: this term moves the loss
-        # value, not the update.
-        losses["obj_loss"] = weighted_ce_loss(out.obj_dists, batch.labels,
-                                              batch.box_mask, None)
+        losses = _rel_losses(state, out.rel_logits, pairs.labels, pairs.mask,
+                             member)
+        # obj_dists is the one-hot of the detections' labels: this term
+        # moves the loss value, not the update
+        losses["obj_loss"] = weighted_ce_loss(out.obj_dists, samples.gt_labels,
+                                              dets.mask, None)
+    else:
+        out = model(batch.images, batch.depth, batch.boxes, batch.box_mask,
+                    batch.labels, batch.obj_logits, samples.pair_idx,
+                    samples.mask)
+        losses = _rel_losses(state, out.rel_logits, samples.labels,
+                             samples.mask, member)
+        if model.mode != "predcls":
+            # the cross-entropy of the predictor's obj_dists against the GT
+            # labels.  obj_dists is the one-hot of the NMS's labels and
+            # carries no gradient, in the JAX package as here: this term
+            # moves the loss value, not the update.
+            losses["obj_loss"] = weighted_ce_loss(out.obj_dists, batch.labels,
+                                                  batch.box_mask, None)
     loss = sum(losses.values())
     loss.backward()
     return {"loss": loss.detach(), **{k: v.detach() for k, v in losses.items()}}
 
 
 def train_on_pairs(state: TrainState, batch,
-                   samples: Union[RelSample, DetSample],
-                   lr_scale: float) -> Dict[str, object]:
-    """Forward, loss, backward and update on the given pairs."""
-    metrics = forward_backward(state, batch, samples)
+                   samples: Union[RelSample, DetSample], lr_scale: float,
+                   member: Optional[torch.Tensor] = None) -> Dict[str, object]:
+    """Forward, loss, backward and update on the given pairs (with MEET
+    routed by ``member`` when given)."""
+    metrics = forward_backward(state, batch, samples, member)
     grad_norm = state.optimizer.step(lr_scale)
     state.step += 1
     return {**metrics, "grad_norm": grad_norm.detach(),

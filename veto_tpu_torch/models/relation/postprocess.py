@@ -8,7 +8,7 @@ from typing import NamedTuple
 
 import torch
 
-from ...ops.nms import obj_prediction_nms
+from ...ops.nms import first_argmax, obj_prediction_nms
 
 
 class RelPrediction(NamedTuple):
@@ -25,21 +25,27 @@ def postprocess_relations(rel_logits: torch.Tensor, obj_dists: torch.Tensor,
                           pair_mask: torch.Tensor) -> RelPrediction:
     """(B, P, C) logits, (B, N, num_obj) object logits → RelPrediction.
 
-    Object softmax with background zeroed, fg-predicate argmax per pair,
+    Object softmax with background zeroed (:func:`object_predictions`),
+    fg-predicate argmax per pair,
     triple score = rel · subj · obj, and a stable descending sort (the
     JAX package's ``jnp.argsort`` is stable too).
     """
-    obj_prob = torch.softmax(obj_dists.float(), dim=-1)
-    obj_prob[..., 0] = 0.0
-    obj_scores, obj_labels = obj_prob[..., 1:].max(dim=-1)
-    obj_labels = obj_labels + 1
-
+    obj_labels, obj_scores = object_predictions(obj_dists)
     rel_prob, rel_fg, rel_labels = _rel_scores(rel_logits)
     take = _triple_order(rel_fg, obj_scores, pair_idx, pair_mask)
     return RelPrediction(
         pair_idx=take(pair_idx), rel_scores=take(rel_prob),
         rel_labels=take(rel_labels), pair_mask=take(pair_mask),
-        obj_labels=obj_labels.to(torch.int32), obj_scores=obj_scores)
+        obj_labels=obj_labels, obj_scores=obj_scores)
+
+
+def object_predictions(obj_dists: torch.Tensor):
+    """Object labels (int32) and scores from the proposals' logits
+    (B, N, C): the softmax with the background zeroed, its first maximum
+    over the classes from 1 (``jnp.argmax``'s rule)."""
+    prob = torch.softmax(obj_dists.float(), dim=-1)[..., 1:]
+    idx = torch.arange(prob.shape[-1], device=prob.device).expand(prob.shape)
+    return (first_argmax(prob, idx) + 1).to(torch.int32), prob.amax(-1)
 
 
 def _rel_scores(rel_logits: torch.Tensor):
@@ -78,22 +84,32 @@ class SGDetPrediction(NamedTuple):
     pair_mask: torch.Tensor   # (B, P)
 
 
-def postprocess_relations_sgdet(rel_logits: torch.Tensor, obj_dists: torch.Tensor,
-                                pair_idx: torch.Tensor, pair_mask: torch.Tensor,
-                                boxes_per_cls: torch.Tensor, det_mask: torch.Tensor,
-                                later_nms_thres: float = 0.3) -> SGDetPrediction:
-    """The SGDet post-processor: the late ``obj_prediction_nms`` at
-    ``later_nms_thres`` re-picks each detection's class from the detector's
-    logits ``obj_dists`` (B, N, C), the final box is that class's
-    ``boxes_per_cls`` (B, N, C, 4) row, and the triplets sort by
-    rel · subj · obj score (stable)."""
+def sgdet_objects(obj_dists: torch.Tensor, boxes_per_cls: torch.Tensor,
+                  det_mask: torch.Tensor, later_nms_thres: float = 0.3):
+    """SGDet's final objects: the late ``obj_prediction_nms`` at
+    ``later_nms_thres`` re-picks each detection's class from the
+    detector's logits (B, N, C); its score is that class's softmax
+    probability (the background's zeroed) and its box that class's
+    ``boxes_per_cls`` (B, N, C, 4) row.  Returns (labels int64, scores,
+    boxes)."""
     obj_pred = obj_prediction_nms(boxes_per_cls, obj_dists, later_nms_thres,
                                   valid_mask=det_mask).long()
     obj_prob = torch.softmax(obj_dists.float(), dim=-1)
     obj_prob[..., 0] = 0.0
     obj_scores = torch.gather(obj_prob, 2, obj_pred[..., None])[..., 0]
     idx = obj_pred[..., None, None].expand(obj_pred.shape + (1, 4))
-    boxes = torch.gather(boxes_per_cls, 2, idx)[:, :, 0]
+    return obj_pred, obj_scores, torch.gather(boxes_per_cls, 2, idx)[:, :, 0]
+
+
+def postprocess_relations_sgdet(rel_logits: torch.Tensor, obj_dists: torch.Tensor,
+                                pair_idx: torch.Tensor, pair_mask: torch.Tensor,
+                                boxes_per_cls: torch.Tensor, det_mask: torch.Tensor,
+                                later_nms_thres: float = 0.3) -> SGDetPrediction:
+    """The SGDet post-processor: the final objects of :func:`sgdet_objects`
+    (the late NMS on the detector's logits ``obj_dists``), and the
+    triplets sorted by rel · subj · obj score (stable)."""
+    obj_pred, obj_scores, boxes = sgdet_objects(obj_dists, boxes_per_cls,
+                                                det_mask, later_nms_thres)
     rel_prob, rel_fg, rel_labels = _rel_scores(rel_logits)
     take = _triple_order(rel_fg, obj_scores, pair_idx, pair_mask)
     return SGDetPrediction(

@@ -232,8 +232,10 @@ class VetoEncoder(nn.Module):
 class VetoTrunk(nn.Module):
     """Embeddings → pair tokens → fusion transformer → per-pair CLS feature.
 
-    The class embedding: in PredCls a lookup of the given label; in SGCls
-    the softmax of the box head's logits times the table,
+    The class embedding: in PredCls, and in every mode with
+    ``hard_label_embed`` (MEET's, which embeds the hard label: outside
+    PredCls the predicted one), a lookup of the given label; otherwise the
+    softmax of the box head's logits times the table,
     ``softmax(logits in f32)`` rounded to the compute dtype, then a product
     in that dtype, as the JAX trunk computes it (so ``obj_embed`` gets a
     dense gradient, not a gather's)."""
@@ -243,10 +245,11 @@ class VetoTrunk(nn.Module):
                  patch_size: int = 2, depth_proj_dim: int = 512,
                  visual_proj_dim: int = 64, rgb_channels: int = 256,
                  depth_channels: int = 256, dtype: torch.dtype = torch.bfloat16,
-                 encoder_impl: str = "fused", mode: str = "predcls"):
+                 encoder_impl: str = "fused", mode: str = "predcls",
+                 hard_label_embed: bool = False):
         super().__init__()
         self.dtype, self.patch_size, self.dim = dtype, patch_size, dim
-        self.mode = mode
+        self.mode, self.hard_label_embed = mode, hard_label_embed
         pp = patch_size * patch_size
         self.obj_embed = nn.Embedding(num_obj_classes, embed_dim)
         self.pos_bn = MaskedBatchNorm(4)
@@ -283,7 +286,7 @@ class VetoTrunk(nn.Module):
                 obj_logits: Optional[torch.Tensor] = None) -> torch.Tensor:
         b, p = pair_idx.shape[:2]
         dt = self.dtype
-        if self.mode == "predcls":
+        if self.mode == "predcls" or self.hard_label_embed:
             obj_embed = self.obj_embed.weight.to(dt)[obj_labels.long()]
         else:
             probs = torch.softmax(obj_logits.float(), dim=-1).to(dt)

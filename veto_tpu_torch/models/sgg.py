@@ -22,7 +22,12 @@ the predictor sees:
     :meth:`~SGGModel.box_head`, :meth:`~SGGModel.postprocess_boxes`), each
     callable on its own.
 
-MEET (A11) and the legacy predictors raise ``NotImplementedError``.
+With ``meet_group_sizes`` the relation head is MEET's
+(:class:`~.relation.predictor_meet.MeetPredictor`: the trunk embedding the
+hard labels, G per-group heads per expert), and the nested per-expert,
+per-group logits ride in :class:`SGGForward`'s ``rel_logits`` slot, as in
+the JAX package.  The legacy predictors (and their MEET heads) raise
+``NotImplementedError``.
 
 Training: the detector is frozen (the JAX package's ``FROZEN_DETECTOR``,
 ``tools/relation_train_net.py:297``), the RPN and box head included: its
@@ -38,7 +43,7 @@ package's, so the two take the same batch.
 from __future__ import annotations
 
 import math
-from typing import Dict, NamedTuple, Sequence, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -55,6 +60,7 @@ from .detector.box_head import (
 from .detector.rpn import (
     Proposals, RPNHead, flatten_level, level_anchors, rpn_select_proposals,
 )
+from .relation.predictor_meet import MeetPredictor
 from .relation.predictor_veto import VetoPredictor
 
 MODES = ("predcls", "sgcls", "sgdet")
@@ -67,7 +73,7 @@ def check_mode(mode: str) -> None:
 
 
 class SGGForward(NamedTuple):
-    rel_logits: torch.Tensor      # (B, P, num_rel) f32
+    rel_logits: torch.Tensor      # (B, P, num_rel) f32; MEET: [e][k] (B, P, gs + 2)
     obj_dists: torch.Tensor       # (B, N, num_obj) f32
     pred_labels: torch.Tensor     # (B, N)
     predict_logits: torch.Tensor  # (B, N, num_obj) ±1000 GT injection
@@ -101,7 +107,9 @@ class SGGModel(nn.Module):
                  rpn_nms_thresh: float = 0.7, rpn_fpn_post_nms_top_n: int = 1000,
                  rpn_min_size: float = 0.0, box_score_thresh: float = 0.01,
                  box_nms_thresh: float = 0.3, box_post_nms_per_cls_topn: int = 300,
-                 nms_filter_duplicates: bool = True, detections_per_img: int = 80):
+                 nms_filter_duplicates: bool = True, detections_per_img: int = 80,
+                 meet_group_sizes: Optional[Sequence[int]] = None,
+                 meet_experts: int = 1):
         super().__init__()
         check_mode(mode)
         self.mode = mode
@@ -139,11 +147,18 @@ class SGGModel(nn.Module):
                 box_pooler_resolution ** 2 * fpn_channels, box_mlp_dim, dtype)
             self.box_predictor = BoxPredictor(box_mlp_dim, num_obj_classes)
             self.frozen += [self.box_extractor, self.box_predictor]
-        self.relation = VetoPredictor(
-            num_obj_classes, num_rel_classes, embed_dim, veto_dim, veto_layers,
-            veto_heads, veto_patch_size, veto_depth_proj_dim,
-            veto_visual_proj_dim, rgb_channels=fpn_channels, depth_channels=256,
-            dtype=dtype, encoder_impl=veto_encoder_impl, mode=mode)
+        trunk = dict(embed_dim=embed_dim, dim=veto_dim, layers=veto_layers,
+                     heads=veto_heads, patch_size=veto_patch_size,
+                     depth_proj_dim=veto_depth_proj_dim,
+                     visual_proj_dim=veto_visual_proj_dim,
+                     rgb_channels=fpn_channels, depth_channels=256, dtype=dtype,
+                     encoder_impl=veto_encoder_impl, mode=mode)
+        if meet_group_sizes is not None:
+            self.relation = MeetPredictor(meet_group_sizes, meet_experts,
+                                          num_obj_classes, **trunk)
+        else:
+            self.relation = VetoPredictor(num_obj_classes, num_rel_classes,
+                                          **trunk)
         for m in self.frozen:
             m.requires_grad_(False)
 
@@ -267,20 +282,33 @@ class SGGModel(nn.Module):
                           pred_labels=pred_labels, predict_logits=predict_logits)
 
 
+def resolve_predictor(name: str) -> str:
+    """A ``relation.predictor`` name → the base predictor, as the JAX tool
+    resolves it: a ``*_MEET`` name selects its base (the ensemble heads
+    come with ``ensemble.enabled``, not with the name).  The port has
+    VETO's; the legacy predictors and their MEET heads raise."""
+    base = name[: -len("_MEET")] if name.endswith("_MEET") else name
+    if base != "VETOPredictor":
+        raise NotImplementedError(
+            f"predictor {name!r}: the port has VETOPredictor (and its MEET "
+            "heads); the legacy predictors and their MEET heads come with "
+            "slice A14")
+    return base
+
+
 def build_model(cfg, device=None, seed: int = None) -> SGGModel:
     """SGGModel for a config, on ``device`` (default ``cuda``; raises when no
     GPU is present unless ``device="cpu"``), in eval mode, with weights
     drawn from ``seed`` (default ``cfg.solver.seed``) and the encoder that
     ``veto.encoder_impl`` names (raises ``ValueError`` on a name it does not
-    know)."""
+    know).  With ``ensemble.enabled`` the relation head is MEET's
+    (:func:`~..tools.relation_train_net.build_meet_config`)."""
+    from ..tools.relation_train_net import build_meet_config
+
     dev = resolve_device(device)
     check_mode(cfg.relation.mode)
-    if cfg.relation.predictor != "VETOPredictor":
-        raise NotImplementedError(
-            f"predictor {cfg.relation.predictor!r}: this slice ports "
-            "VETOPredictor only")
-    if cfg.ensemble.enabled:
-        raise NotImplementedError("MEET comes with slice A11")
+    resolve_predictor(cfg.relation.predictor)
+    meet = build_meet_config(cfg)
     if not cfg.model.backbone.endswith("-FPN") or any(cfg.model.stage_with_dcn):
         raise NotImplementedError(
             f"backbone {cfg.model.backbone!r}: this slice ports the ResNet-FPN "
@@ -323,6 +351,8 @@ def build_model(cfg, device=None, seed: int = None) -> SGGModel:
         box_nms_thresh=cfg.model.box_nms_thresh,
         nms_filter_duplicates=cfg.model.nms_filter_duplicates,
         detections_per_img=cfg.model.box_detections_per_img,
+        meet_group_sizes=meet.group_sizes if meet else None,
+        meet_experts=meet.experts_per_group if meet else 1,
     ).to(dev)
     init_weights(model, cfg.solver.seed if seed is None else seed)
     return model.eval()
@@ -332,7 +362,8 @@ def build_model(cfg, device=None, seed: int = None) -> SGGModel:
 def init_weights(model: nn.Module, seed: int) -> None:
     """Seeded random weights, drawn on the model's device with one
     ``torch.Generator``: LeCun-normal matrices and conv kernels (fan-in
-    over the kernel window and group), Xavier-uniform ``rel_out``, the box
+    over the kernel window and group), Xavier-uniform ``rel_out`` (and
+    MEET's ``rel_out_e{e}_g{k}``), the box
     predictor's N(0, 0.01^2) ``cls_score`` and N(0, 0.001^2) ``bbox_pred``
     and the RPN head's N(0, 0.01^2) convolutions (flax's ``normal``
     initializers), N(0, 1) CLS/position tokens,
@@ -342,7 +373,7 @@ def init_weights(model: nn.Module, seed: int) -> None:
     gen = torch.Generator(device=dev).manual_seed(seed)
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
-        if name.endswith("rel_out.weight"):
+        if leaf == "weight" and name.split(".")[-2].startswith("rel_out"):
             bound = math.sqrt(6.0 / (p.shape[0] + p.shape[1]))
             p.uniform_(-bound, bound, generator=gen)
         elif name == "box_predictor.cls_score.weight":

@@ -17,6 +17,11 @@ warm-up batch of the synthetic split, then
   post-processing what remains of the step; the host-to-card copy of the
   batch and the whole step (ending with the predictions on the host) are
   timed on the host clock;
+* with MEET (``ensemble.enabled``) also times its heads (``meet_heads``,
+  inside the predictor) and its post-processing (``meet_postprocess``,
+  the ranking or vote of the G·P candidates, inside the post-processing);
+* times ``accumulate_eval`` on the host clock, the NumPy evaluator taking
+  each batch's predictions (``accumulate_eval_s``, seconds a batch);
 * traces one more batch with ``torch.profiler`` and reports the device time
   by kernel, the port's own kernels by name, and the device's busy share of
   the step's wall time.
@@ -51,9 +56,10 @@ OWN_KERNELS = ("gemm_sm90_kernel", "pair_attention_kernel", "layernorm_kernel",
 
 def _stage_timer(named_modules, named_methods=()):
     """Forward hooks that record a CUDA event pair around each module's
-    forward, and the same around each ``(name, module, method)`` of
-    ``named_methods`` (the method wrapped on the instance); returns (events
-    list per name, remove callback)."""
+    forward, and the same around each ``(name, owner, attribute)`` of
+    ``named_methods`` (a method wrapped on its instance, or a function of
+    a Python module wrapped in place, restored by the callback); returns
+    (events list per name, remove callback)."""
     events = collections.defaultdict(list)
     handles = []
 
@@ -78,14 +84,17 @@ def _stage_timer(named_modules, named_methods=()):
             post(name=name)
             return out
 
+        wrapped.append((mod, attr, vars(mod).get(attr)))
         setattr(mod, attr, timed)
-        wrapped.append((mod, attr))
 
     def remove():
         for h in handles:
             h.remove()
-        for mod, attr in wrapped:
-            delattr(mod, attr)
+        for mod, attr, own in wrapped:
+            if own is None:
+                delattr(mod, attr)
+            else:
+                setattr(mod, attr, own)
 
     return events, remove
 
@@ -103,6 +112,19 @@ def mode_stages(model):
                 ("box_postprocess", model, "postprocess_boxes"),
                 ("relate", model, "relate")]
     return []
+
+
+def meet_stages(model, stage: str, step_module, call: str):
+    """MEET's stages (none without it), as ``named_methods``: the heads
+    (one product inside the predictor), and ``stage``, the function
+    ``call`` of ``step_module`` (the eval step's post-processing, or the
+    train step's routing and group losses)."""
+    from ..models.relation.predictor_meet import MeetPredictor
+
+    if not isinstance(model.relation, MeetPredictor):
+        return []
+    return [("meet_heads", model.relation, "heads"),
+            (stage, step_module, call)]
 
 
 DETECT_STAGES = ("rpn_head", "propose", "box_head", "box_postprocess")
@@ -124,9 +146,10 @@ def derived_stages(ms, model_mode, own):
 
 
 def profile(cfg, batches: int = 3, log=print) -> dict:
-    from ..engine.evaluate import to_numpy
+    from ..engine import evaluate
+    from ..engine.evaluate import accumulate_eval, to_numpy
     from ..models.sgg import build_model
-    from .relation_test_net import synthetic_eval_dataset
+    from .relation_test_net import make_sgg_evaluator, synthetic_eval_dataset
     from .relation_train_net import make_eval_fn
 
     model = build_model(cfg)  # cuda; raises without a card
@@ -149,22 +172,27 @@ def profile(cfg, batches: int = 3, log=print) -> dict:
     if cfg.relation.mode == "sgdet":
         stages.pop()  # the forward is not called: detect, then relate
     methods = mode_stages(model)
-    events, remove = _stage_timer(stages, methods)
-    h2d, step_s = [], []
-    for batch, _ in data[1:1 + batches]:
+    meet = meet_stages(model, "meet_postprocess", evaluate,
+                       "postprocess_meet")
+    events, remove = _stage_timer(stages, methods + meet)
+    evaluator = make_sgg_evaluator(cfg)
+    h2d, step_s, host_eval = [], [], []
+    for batch, recs in data[1:1 + batches]:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         b = batch.to(dev)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        to_numpy(step(b))
+        preds = to_numpy(step(b))
         t2 = time.perf_counter()
+        accumulate_eval(preds, recs, evaluator, input_sizes=batch.sizes)
+        host_eval.append(time.perf_counter() - t2)
         h2d.append(t1 - t0)
         step_s.append(t2 - t1)
     remove()
     torch.cuda.synchronize()
     ms = {name: float(np.mean([s.elapsed_time(e) for s, e in events[name]]))
-          for name in [n for n, _ in stages] + [n for n, _, _ in methods]}
+          for name in [n for n, _ in stages] + [n for n, _, _ in methods + meet]}
     own = [n for n, _, _ in methods]
     derived_stages(ms, cfg.relation.mode, own)
     ms["pairs_postprocess_and_copy_back"] = 1e3 * float(np.mean(step_s)) - ms["model"]
@@ -173,8 +201,12 @@ def profile(cfg, batches: int = 3, log=print) -> dict:
     for k in ["step", "host_to_card_copy", "model", "backbone",
               "depth_backbone", *own, *(["detect_other"] if "detect" in own else []),
               "roi_pooling", "relation", "encoder",
-              "predictor_without_encoder", "pairs_postprocess_and_copy_back"]:
+              "predictor_without_encoder", "pairs_postprocess_and_copy_back",
+              *[n for n, _, _ in meet]]:
         log(f"  {k:32s} {ms[k]:9.3f} ms")
+    extra["accumulate_eval_s"] = float(np.mean(host_eval))
+    log(f"  accumulate_eval (host)           {extra['accumulate_eval_s']:9.4f} s a "
+        f"batch ({[round(s, 4) for s in host_eval]})")
 
     b = data[-1][0].to(dev)
     return {"batch": bsz, "stage_ms": ms, **extra,

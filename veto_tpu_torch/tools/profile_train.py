@@ -16,6 +16,9 @@ train state, runs one warm-up step on the synthetic train split, then
   remains of the forward); the loss and the backward together; the
   optimizer update (clipping, Adam); the whole step on the host clock,
   ending after the update on the device;
+* with MEET (``ensemble.enabled``) also times its heads (``meet_heads``,
+  inside the predictor) and its routing and group losses
+  (``meet_losses``, inside the loss and backward);
 * traces one more step with ``torch.profiler`` and reports the device time
   by kernel, the port's own kernels by name, and the device's busy share of
   the step's wall time.
@@ -38,7 +41,7 @@ import numpy as np
 import torch
 
 from .profile_eval import (
-    OWN_KERNELS, _stage_timer, derived_stages, mode_stages, trace,
+    OWN_KERNELS, _stage_timer, derived_stages, meet_stages, mode_stages, trace,
 )
 
 # the backward kernels of csrc/encoder_layer_bwd.cu, csrc/roi_align.cu and
@@ -50,19 +53,23 @@ OWN_BWD_KERNELS = ("ln_backward_kernel", "splitk_reduce_kernel",
 
 
 def profile(cfg, steps: int = 3, log=print) -> dict:
+    from ..engine import train
     from ..engine.train import (
         create_train_state, forward_backward, sample_detections, sample_pairs,
     )
     from ..models.sgg import build_model
     from ..solver.optim import LRController
-    from .relation_train_net import rel_class_weights, synthetic_train_dataset
+    from .relation_train_net import (
+        build_meet_config, rel_class_weights, synthetic_train_dataset,
+    )
 
     model = build_model(cfg)  # cuda; raises without a card
     dev = next(model.parameters()).device
     state = create_train_state(model, cfg.solver, rel_class_weights(cfg),
-                               mode=cfg.relation.mode)
+                               mode=cfg.relation.mode, meet=build_meet_config(cfg))
     scale = LRController(cfg.solver).scale(0)
     gen = torch.Generator(device=dev).manual_seed(cfg.solver.seed)
+    state.generator = gen  # the sampler's, and MEET's routing
     bsz = cfg.solver.ims_per_batch
     data = [b.to(dev) for b, _ in synthetic_train_dataset(cfg, (steps + 2) * bsz)
             .batches(bsz, cfg.data.max_boxes)]
@@ -98,7 +105,8 @@ def profile(cfg, steps: int = 3, log=print) -> dict:
     if cfg.relation.mode == "sgdet":
         stages.pop()  # the forward is not called: detect, then relate
     methods = mode_stages(model)
-    events, remove = _stage_timer(stages, methods)
+    meet = meet_stages(model, "meet_losses", train, "meet_losses")
+    events, remove = _stage_timer(stages, methods + meet)
     marks, step_s = [], []
     for b in data[1:1 + steps]:
         torch.cuda.synchronize()
@@ -110,7 +118,7 @@ def profile(cfg, steps: int = 3, log=print) -> dict:
     torch.cuda.synchronize()
     own = [n for n, _, _ in methods]
     ms = {name: float(np.mean([s.elapsed_time(e) for s, e in events[name]]))
-          for name in [n for n, _ in stages] + own}
+          for name in [n for n, _ in stages] + own + [n for n, _, _ in meet]}
     spans = np.array([[marks[4 * i + k].elapsed_time(marks[4 * i + k + 1])
                        for k in range(3)] for i in range(steps)]).mean(0)
     derived_stages(ms, cfg.relation.mode, own)
@@ -123,7 +131,7 @@ def profile(cfg, steps: int = 3, log=print) -> dict:
     for k in ["step", "sampling", "model", "backbone", "depth_backbone", *own,
               *(["detect_other"] if "detect" in own else []),
               "roi_pooling", "relation", "encoder", "predictor_without_encoder",
-              "loss_and_backward", "optimizer"]:
+              "loss_and_backward", "optimizer", *[n for n, _, _ in meet]]:
         log(f"  {k:32s} {ms[k]:9.3f} ms")
 
     b = data[-1]

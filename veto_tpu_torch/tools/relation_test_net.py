@@ -18,9 +18,15 @@ Visual Genome), ``data.max_boxes`` objects at most.  Zero-shot recall uses
 ``test.zeroshot_file`` or, from files, the triplets of the split that the
 train split never has.
 
-Not yet ported (they raise): MEET (A11), other predictors, stage-wise
-recall, multi-device evaluation; the bbox-aug test-time augmentation of
-SGDet (A14) is not run.
+MEET's configurations (``configs/veto_meet_vg_predcls.yaml``,
+``configs/gqa_meet_predcls.yaml``, or any with ``ensemble.enabled``) run
+through MEET's eval step in every mode: each group's best predicate of
+each pair competes in one ranking of the G·P candidates of an image (with
+3 experts a group, after the vote of ``ensemble.voting``).
+
+Not yet ported (they raise): the legacy predictors and their MEET heads,
+stage-wise recall, multi-device evaluation; the bbox-aug test-time
+augmentation of SGDet (A14) is not run.
 """
 
 from __future__ import annotations

@@ -28,17 +28,24 @@ the detections, ``relation.num_sample_per_gt_rel`` and
   * SIGTERM: the step in flight finishes, a checkpoint is saved at the
     next iteration and the run ends cleanly; a final checkpoint at the end.
 
+With ``ensemble.enabled`` the model is MEET's (``relation.predictor``
+``VETOPredictor_MEET`` or ``VETOPredictor``; VG's or GQA-200's groups of
+``ensemble.group_split``, 3 experts a group with ``ensemble.expert_group``),
+trained on its per-group losses and validated through its eval step
+(voting by ``ensemble.voting`` with 3 experts).
+
 Each step logs the loss (in SGCls and SGDet also the object loss, which
-moves the loss value and not the update), the gradient norm, the LR scale and its
-seconds:
+moves the loss value and not the update; with MEET each group's loss),
+the gradient norm, the LR scale and its seconds:
 ``seconds`` from its batch on the device to the end of its update,
 ``step_seconds`` from the end of the previous update to the end of this
 one (waiting on the loader included), ``wait_seconds`` the part spent
 waiting for the batch.  ``metrics.jsonl`` in ``output_dir`` gets the
 losses every 30 steps and each validation's mR@100.
 
-Not yet ported (they raise): MEET (A11), the attribute/mask/keypoint heads, the other loss variants, COCO/VOC (A13) and
-Open Images (A14) data, multi-device training.
+Not yet ported (they raise): the legacy predictors and their MEET heads,
+the attribute/mask/keypoint heads, the other loss variants, COCO/VOC (A13)
+and Open Images (A14) data, multi-device training.
 """
 
 from __future__ import annotations
@@ -179,6 +186,26 @@ def rel_class_weights(cfg):
     return beta_class_weights(counts, cfg.relation.beta)
 
 
+def build_meet_config(cfg):
+    """MEET's routing constants (GQA-200's groups when ``data.dataset``
+    holds "GQA", else Visual Genome's), or None when ``ensemble.enabled``
+    is off.  ``ensemble.voting`` outside C/U and
+    ``ensemble.zero_label_padding_mode`` other than ``rand_insert`` (the
+    only routing of background pairs there is) raise ``ValueError``."""
+    from ..models.relation.predictor_meet import make_meet_config
+
+    ens = cfg.ensemble
+    if not ens.enabled:
+        return None
+    if ens.zero_label_padding_mode != "rand_insert":
+        raise ValueError(
+            f"ensemble.zero_label_padding_mode={ens.zero_label_padding_mode!r}: "
+            "MEET routes background pairs by 'rand_insert' only")
+    return make_meet_config(
+        dataset="GQA" if "GQA" in cfg.data.dataset else "VG",
+        split=ens.group_split, expert_group=ens.expert_group, voting=ens.voting)
+
+
 def load_pretrained_detector(cfg, model, log=print):
     """Import ``model.pretrained_detector_ckpt`` into ``model``'s frozen
     detector (in the layout ``model.fold_bn`` names), when it is set.
@@ -194,13 +221,18 @@ def load_pretrained_detector(cfg, model, log=print):
 def make_eval_fn(cfg, model):
     """The config's eval step (the JAX tool's ``make_eval_fn``): SGDet's
     takes ``relation.later_nms_prediction_thres`` and
-    ``test.relation_require_overlap``."""
-    from ..engine.evaluate import make_eval_step
+    ``test.relation_require_overlap``; with ``ensemble.enabled`` MEET's (the
+    JAX tool's kind "meet": its predictions are a ``MeetEval``, which
+    ``accumulate_eval`` tells apart)."""
+    from ..engine.evaluate import make_eval_step, make_meet_eval_step
 
-    return make_eval_step(model, max_pairs=cfg.relation.max_proposal_pairs,
-                          mode=cfg.relation.mode,
-                          later_nms_thres=cfg.relation.later_nms_prediction_thres,
-                          require_overlap=cfg.test.relation_require_overlap)
+    kw = dict(max_pairs=cfg.relation.max_proposal_pairs, mode=cfg.relation.mode,
+              later_nms_thres=cfg.relation.later_nms_prediction_thres,
+              require_overlap=cfg.test.relation_require_overlap)
+    meet = build_meet_config(cfg)
+    if meet is not None:
+        return make_meet_eval_step(model, meet, **kw)
+    return make_eval_step(model, **kw)
 
 
 def run_validation(model, eval_step, batches, evaluator, device,
@@ -243,8 +275,8 @@ def run_validation(model, eval_step, batches, evaluator, device,
 def train(cfg, device=None, log=print, model=None, datasets=None):
     """Train to ``solver.max_iter`` (from the latest checkpoint in
     ``output_dir/ckpt`` when there is one).  Returns the train state and
-    one dict per step run: loss, rel_loss (and obj_loss in SGCls and SGDet),
-    grad_norm, lr_scale, seconds,
+    one dict per step run: loss, rel_loss (with MEET the group_* losses
+    instead; obj_loss in SGCls and SGDet), grad_norm, lr_scale, seconds,
     step_seconds, wait_seconds, image_shape (the batch's padded (H, W))
     and, on a validation step, val_mR100.
 
@@ -275,7 +307,7 @@ def train(cfg, device=None, log=print, model=None, datasets=None):
     load_pretrained_detector(cfg, model, log)
     state = create_train_state(model, solver, rel_class_weights(cfg),
                                mode=cfg.relation.mode, loss_variant=loss_variant,
-                               meet=cfg.ensemble if cfg.ensemble.enabled else None)
+                               meet=build_meet_config(cfg))
     state.generator = torch.Generator(device=dev).manual_seed(solver.seed)
     ckpt = CheckpointManager(os.path.join(cfg.output_dir, "ckpt"))
     extra = ckpt.restore(state, log=log)
@@ -316,7 +348,7 @@ def train(cfg, device=None, log=print, model=None, datasets=None):
                            cfg.relation.require_box_overlap)
             fence()  # the update's launches included
             now = time.perf_counter()
-            losses = [k for k in ("loss", "rel_loss", "obj_loss") if k in m]
+            losses = [k for k in m if k.endswith("loss")]
             rec = {k: float(m[k]) for k in losses + ["grad_norm"]}
             rec.update(lr_scale=scale, seconds=now - t0,
                        step_seconds=now - t_prev, wait_seconds=feeder.waits[-1],

@@ -15,7 +15,8 @@ path is its torch name, with these conversions:
 
 The SGDet model's frozen heads map by the same rules: the ``rpn`` subtree
 (``conv``, ``cls_logits``, ``bbox_pred``: HWIO kernels → OIHW) and the box
-predictor's ``bbox_pred`` Dense.
+predictor's ``bbox_pred`` Dense.  So do MEET's: ``relation/trunk`` and
+each head ``relation/rel_out_e{e}_g{k}`` (a Dense) keep their names.
 
 A detector body in the unfolded layout (conv + ``FrozenBatchNorm``) loads
 into an unfolded port model as is, or is folded here (``kernel * scale``,
