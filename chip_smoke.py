@@ -156,7 +156,27 @@ catches its own failure:
     ``VETOPredictor_MEET`` and ``ensemble.enabled``): one eval batch of 8
     (B1 6, B3 3, N1 mask 2, scan 2) and one train step of 12; one eval
     batch of ``configs/gqa_meet_predcls.yaml`` (groups 5, 10, 20, 65).
-17. One JSON line ``{"kernels": [...]}`` (all nine kernels, N1 last;
+17. Detector pretraining at full width (``configs/veto_vg_sgdet.yaml``
+    with ``solver.optimizer=sgd``, ``solver.schedule=WarmupMultiStepLR``;
+    the model built with ``train_detector=True``: the ResNeXt-101 body,
+    FPN, RPN and box head trained, nothing frozen): 5 steps of 12
+    VG-shaped images through ``detector_pretrain_net.train`` (checkpoint at
+    3, validation at 4) with exact launches at every step (B3 1, B3-bwd 1,
+    N1 mask 1, scan 1, every other kernel 0) and in all (the validation's
+    two batches: B3 1, N1 2 + 2 each), finite losses, every detector tensor
+    changed; ``detector_pretest_net.evaluate`` restoring step 5 into a
+    fresh model (every tensor equal, the same detections); the checkpoint's
+    size, save and restore seconds; one step's gradients through the
+    kernels (two runs, side by side, and whether they are bit-equal)
+    against the plain versions on the same draws, at phase 10's
+    tolerances; B3 and B3-bwd alone on that step's own box pool (12 x 512
+    rois on P2-P5, the sampler's empty slots included) against their plain
+    versions, B3-bwd two runs bit-equal, device ms against the bounds; one
+    eval batch of 8 through ``detect`` and through the test-time
+    augmentation (flip, scale 0.75), timed, its launches exact, its
+    proposals and merged detections bit-equal to the plain walks' and its
+    box pools against the plain pool.
+18. One JSON line ``{"kernels": [...]}`` (all nine kernels, N1 last;
     ``launches`` from the main path's training run, or the path that runs
     each) and, last, ``{"ok": true, "device": {...}}``.
 
@@ -1871,7 +1891,7 @@ def same_train_state(a, b, what):
     sampler's generator bit-equal."""
     sa, sb = a.model.state_dict(), b.model.state_dict()
     diff = [k for k in sa if not torch.equal(sa[k], sb[k])]
-    oa, ob = a.optimizer.adam.state_dict()["state"], b.optimizer.adam.state_dict()["state"]
+    oa, ob = a.optimizer.inner.state_dict()["state"], b.optimizer.inner.state_dict()["state"]
     diff += [f"adam {i} {k}" for i in oa for k in ("step", "exp_avg", "exp_avg_sq")
              if oa[i][k].device != ob[i][k].device
              or not torch.equal(oa[i][k], ob[i][k])]
@@ -3154,6 +3174,384 @@ def phase_meet():
     return numbers
 
 
+# ------------------------------------------------------------------ phase 17
+PRETRAIN_OPTS = ("solver.optimizer=sgd", "solver.schedule=WarmupMultiStepLR",
+                 "solver.max_iter=5", "solver.checkpoint_period=3",
+                 "solver.val_period=4", "test.ims_per_batch=8")
+# a pretraining step: the box head's pool and its backward, and the RPN's
+# selection (one N1 walk of every image's levels); a detection batch: the
+# box head's pool, the RPN's walk and the per-class walks
+PRETRAIN_STEP = dict(multilevel_roi_align=1, roi_align_backward=1, nms_mask=1,
+                     nms_scan=1)
+DETECT_BATCH = dict(multilevel_roi_align=1, nms_mask=2, nms_scan=2)
+
+
+def pretrain_train(cfg, model, train_ds, val_ds):
+    """``detector_pretrain_net.train`` for 5 steps with a checkpoint at 3
+    and a validation at 4, the launches of each step read around it and the
+    run's total read after it: exact at every step, the total the steps'
+    plus the validation's batches.  Returns the state, the history and the
+    peak memory."""
+    from veto_tpu_torch.engine import pretrain
+    from veto_tpu_torch.tools.detector_pretrain_net import train
+
+    steps, val_batches = cfg.solver.max_iter, -(-len(val_ds) // cfg.test.ims_per_batch)
+    per_step = expected(**PRETRAIN_STEP)
+    counts, real = [], pretrain.detector_train_step
+
+    def counted(*args, **kw):
+        before = read_counters()
+        out = real(*args, **kw)
+        after = read_counters()
+        counts.append({k: after[k] - before[k] for k in after})
+        return out
+
+    detector = {n: p.detach().clone() for n, p in model.named_parameters()
+                if n.startswith(("backbone", "rpn", "box_"))}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    read_counters(reset=True)
+    pretrain.detector_train_step = counted
+    try:
+        state, history = train(cfg, model=model, log=lambda line: print(f"  {line}"),
+                               datasets=(train_ds, val_ds))
+    finally:
+        pretrain.detector_train_step = real
+    total = read_counters(reset=True)
+    peak = torch.cuda.max_memory_allocated()
+    want_total = {k: steps * per_step[k] + val_batches * DETECT_BATCH.get(k, 0)
+                  for k in per_step}
+    print(f"  launches a step {json.dumps(counts[0])}; the run's {json.dumps(total)} "
+          f"({steps} steps and {val_batches} validation batches)")
+    if len(history) != steps or counts != [per_step] * steps or total != want_total:
+        raise AssertionError(f"{len(history)} steps, launches {counts} / {total}, "
+                             f"want {per_step} a step, {want_total} in all")
+    keys = ("loss", "loss_objectness", "loss_rpn_box_reg", "loss_classifier",
+            "loss_box_reg", "grad_norm")
+    if not all(np.isfinite(r[k]) for r in history for k in keys):
+        raise AssertionError(f"non-finite losses: {history}")
+    if "val_mAP" not in history[3]:
+        raise AssertionError("no validation at step 4")
+    still = [n for n, p in model.named_parameters()
+             if n in detector and torch.equal(p, detector[n])]
+    # an FPN level's output conv takes no gradient when no sampled anchor or
+    # roi reads its level; everything else of the detector always does
+    if any(not n.startswith("backbone.fpn.fpn_layer") for n in still):
+        raise AssertionError(f"detector parameters unchanged: {still[:5]}")
+    print("  " + "; ".join(f"{k} {[round(r[k], 4) for r in history]}" for k in keys))
+    print(f"  every detector parameter changed but {still or 'none'}; validation "
+          f"mAP at 4: {history[3]['val_mAP']:.4f}")
+    return state, history, peak
+
+
+def pretrain_grads(state, b, budgets):
+    """One step's gradients through the kernels (twice) against the same
+    step through the plain versions, on the same draws, at
+    ``phase_train_grads``' tolerances; the two kernel runs side by side.
+    Also captures the box pool's inputs and its upstream gradient.
+    Returns (two kernel runs bit-equal, the pool's maps, rois, gradient)."""
+    from veto_tpu_torch.engine.pretrain import DetectorDraws, detector_forward_backward
+    from veto_tpu_torch.ops import cuda_lib
+
+    model = state.model
+    h, w = b.images.shape[1:3]
+    maps = [(-(-h // s), -(-w // s)) for s in model.anchor_strides]
+    num_anchors = sum(a.shape[0] for a in model.anchors(maps, b.images.device))
+    g = torch.Generator(device=DEVICE).manual_seed(5)
+    bsz = b.images.shape[0]
+    draws = DetectorDraws(*(torch.rand((bsz, n), generator=g, device=DEVICE) for n in (
+        num_anchors, num_anchors, budgets.rpn_fpn_post_nms_top_n,
+        budgets.rpn_fpn_post_nms_top_n)))
+    params = [(n, p) for n, p in model.named_parameters()]
+    pool = {}
+    real_pool = model._pool_boxes
+
+    def capture(feats, boxes, resolution):
+        out = real_pool(feats, boxes, resolution)
+        pool.update(feats=[f.detach() for f in feats[:4]], rois=boxes)
+        out.register_hook(lambda grad: pool.__setitem__("grad", grad.detach().clone()))
+        return out
+
+    def grads():
+        loss = detector_forward_backward(state, b, budgets, draws)["loss"]
+        return loss, {n: p.grad.detach().clone() for n, p in params
+                      if p.grad is not None}
+
+    model._pool_boxes = capture
+    try:
+        loss, got = grads()
+    finally:
+        del model._pool_boxes
+    loss2, again = grads()
+    with cuda_lib.plain_kernels():
+        ref_loss, ref = grads()
+    state.optimizer.zero_grad()
+    print(f"[pretrain grads] one step's gradients, kernels (two runs) vs plain, "
+          f"{bsz} images of {h}x{w}, the same draws: loss {float(loss):.6f}, "
+          f"{float(loss2):.6f} (kernels), {float(ref_loss):.6f} (plain)")
+    if got.keys() != ref.keys():
+        raise AssertionError("the two runs differ in which tensors take a gradient")
+
+    def rel(a, r):
+        d = a.float() - r.float()
+        return (float(d.norm()) / max(float(r.float().norm()), 1e-30),
+                float(d.abs().max()) / max(float(r.abs().max()), 1e-30))
+
+    rows = sorted(((rel(got[n], ref[n]), rel(again[n], ref[n]), n) for n in got),
+                  reverse=True)
+    for a, a2, n in rows[:5]:
+        print(f"  {n}: |err| / |ref| {a[0]:.3e} and {a2[0]:.3e}, max |err| "
+              f"{a[1]:.3e} and {a2[1]:.3e} of max |ref| (run 1, run 2)")
+    same = [n for n in got if torch.equal(got[n], again[n])]
+    exact = len(same) == len(got)
+    print(f"  two kernel runs: {len(same)} of {len(got)} gradient tensors bit-equal"
+          + ("" if exact else f"; the one nearest the loss that varies: "
+             f"{next(n for n, _ in reversed(params) if n in got and n not in same)}"
+             " (cuDNN's convolution backward sums in an order of its choosing)"))
+    bad = [(a, a2, n) for a, a2, n in rows
+           if max(a[0], a2[0]) > 0.1 or max(a[1], a2[1]) > 0.25
+           or not bool(torch.isfinite(got[n]).all())]
+    if bad:
+        raise AssertionError(f"gradients off: {bad[:5]}")
+    if abs(float(loss) - float(ref_loss)) > 1e-2 * abs(float(ref_loss)):
+        raise AssertionError("loss differs by more than 1%")
+    print(f"  {len(got)} gradient tensors within 10% (L2) and 25% (max) of their "
+          "plain versions in both runs")
+    return exact, pool["feats"], pool["rois"], pool["grad"]
+
+
+def pretrain_pool(feats, rois, grad, sampled):
+    """B3 and B3-bwd alone on the step's own box pool (P2-P5, 512 rois an
+    image, P = 7), the slots the sampler left empty (proposal 0 again)
+    included: against the plain versions, two runs bit-equal, device ms
+    against the bounds.  Returns the two kernels' ms and bounds."""
+    from veto_tpu_torch.ops import roi_align_windowed as rw
+
+    b, r = rois.shape[:2]
+    levels = rw.fpn_level_assignment(rois)
+    dup = r - sampled.sum(1)
+    hist = torch.bincount(levels.flatten().long(), minlength=4).tolist()
+    print(f"[pretrain pool] the step's box pool: {b} x {r} rois, P2-P5 "
+          f"{[tuple(f.shape[1:3]) for f in feats]}, rois a level {hist}; empty "
+          f"slots (proposal 0 again) an image {dup.tolist()}")
+    got = rw.multilevel_roi_align_batched(feats, rois, SCALES, 7, 2)
+    ref = rw.reference_multilevel_roi_align_batched(feats, rois, SCALES, 7, 2)
+    # the same 16 f32 products summed in another order: a few ulps of the
+    # sum of their magnitudes (the trained body's maps reach the hundreds,
+    # and their taps cancel)
+    mag = rw.reference_multilevel_roi_align_batched([f.abs() for f in feats], rois,
+                                                    SCALES, 7, 2)
+    check_close("B3 at the pretraining shape", got, ref, atol=1e-5 + 2.0 ** -20 * mag,
+                rtol=1e-5)
+    del got, ref, mag
+    need = [True] * 4
+
+    def bwd():
+        return rw._launch_backward(feats, need, rois, grad, SCALES, 7, 2)
+
+    got, again = bwd(), bwd()
+    ref = rw.reference_multilevel_roi_align_backward(feats, need, rois, grad,
+                                                     SCALES, 7, 2)
+    mag = rw.reference_multilevel_roi_align_backward(
+        [f.float() for f in feats], need, rois, grad.abs(), SCALES, 7, 2)
+    for lvl in range(4):
+        if not torch.equal(got[lvl], again[lvl]):
+            raise AssertionError(f"P{lvl + 2} grad: two kernel runs differ")
+        # one bf16 rounding of two f32 sums taken in another order (phase 7)
+        check_close(f"B3-bwd P{lvl + 2} (two runs bit-equal)", got[lvl], ref[lvl],
+                    atol=1e-5 + 2.0 ** -16 * mag[lvl], rtol=2 ** -7)
+    del got, again, ref, mag
+    fwd_ms = device_ms(lambda: rw.multilevel_roi_align_batched(feats, rois, SCALES, 7, 2),
+                       "roi_align_fwd_kernel", 10)
+    bwd_ms = device_ms(bwd, "roi_align_bwd_kernel", 10)
+    out_bytes = b * r * 49 * feats[0].shape[-1] * 4
+    fwd_bytes = roi_tap_bytes(feats, rois, levels, SCALES, 7) + rois.numel() * 4 + out_bytes
+    bwd_bytes = out_bytes + rois.numel() * 4 + sum(f.numel() * 2 for f in feats)
+    fwd_bound = max(fwd_bytes / PEAK_BYTES, out_bytes / 4 * 32 / PEAK_F32) * 1e3
+    bwd_bound = max(bwd_bytes / PEAK_BYTES, out_bytes / 4 * 32 / PEAK_F32) * 1e3
+    print(f"  B3 {fwd_ms:.4f} ms on the device, bound {fwd_bound:.4f} ms "
+          f"({fwd_bytes / 1e6:.1f} MB); B3-bwd {bwd_ms:.4f} ms, bound {bwd_bound:.4f} "
+          f"ms ({bwd_bytes / 1e6:.1f} MB: the f32 gradient read, the bf16 maps "
+          "written)")
+    return fwd_ms, fwd_bound, bwd_ms, bwd_bound
+
+
+def pretrain_tta(model, cfg, b):
+    """One eval batch through ``detect`` and through the test-time
+    augmentation (flip and scale 0.75), timed; the flip of each image
+    within its own width; the TTA's launches exact;
+    each of its kernels against its plain version on the same input: every
+    augmentation's proposals (N1 on the RPN's maps) bit-equal, every
+    augmentation's box pool (B3) at ``pretrain_pool``'s tolerance, and the
+    merged filter (N1 on the merged candidates) bit-equal."""
+    from veto_tpu_torch.engine import bbox_aug
+    from veto_tpu_torch.ops import cuda_lib
+    from veto_tpu_torch.ops import roi_align_windowed as rw
+
+    model.eval()
+    # the flip mirrors each image within its own width, its padding in place
+    widths = b.sizes[:, 0].round().long().tolist()
+    flipped = bbox_aug.hflip_images(b.images, b.sizes[:, 0])
+    for i, w in enumerate(widths):
+        if not (torch.equal(flipped[i, :, :w], torch.flip(b.images[i, :, :w], dims=[1]))
+                and torch.equal(flipped[i, :, w:], b.images[i, :, w:])):
+            raise AssertionError(f"TTA flip of image {i} ({w} wide) is not its own mirror")
+    del flipped
+    props, pools, merged = [], [], {}
+    real_propose, real_pool = model.propose, model._pool_boxes
+    real_filter = bbox_aug.filter_decoded_boxes
+
+    def propose(*args):
+        out = real_propose(*args)
+        props.append((args, out))
+        return out
+
+    def pool(feats, boxes, resolution):
+        out = real_pool(feats, boxes, resolution)
+        pools.append(([f.contiguous() for f in feats[:4]], boxes, out))
+        return out
+
+    def filt(*args, **kw):
+        out = real_filter(*args, **kw)
+        merged.update(args=args, kw=kw, out=out)
+        return out
+
+    scales = (0.75,)
+    with torch.inference_mode():
+        read_counters(reset=True)
+        model.propose, model._pool_boxes = propose, pool
+        bbox_aug.filter_decoded_boxes = filt
+        try:
+            bbox_aug.detect_tta(model, b.images, b.sizes, hflip=True, scales=scales)
+        finally:
+            del model.propose, model._pool_boxes
+            bbox_aug.filter_decoded_boxes = real_filter
+        launches = read_counters(reset=True)
+        n_aug = 2 + len(scales)
+        want = expected(multilevel_roi_align=n_aug, nms_mask=n_aug + 1,
+                        nms_scan=n_aug + 1)
+        if launches != want:
+            raise AssertionError(f"TTA launches {launches}, want {want}")
+        whats = ("identity", "flip", "scale 0.75")
+        for (args, out), (feats, boxes, pooled), what in zip(props, pools, whats):
+            with cuda_lib.plain_kernels():
+                ref = real_propose(*args)
+            for f in out._fields:
+                if not torch.equal(getattr(out, f), getattr(ref, f)):
+                    raise AssertionError(f"TTA {what}: proposals.{f} differ from plain")
+            ref = rw.reference_multilevel_roi_align_batched(feats, boxes, SCALES, 7, 2)
+            mag = rw.reference_multilevel_roi_align_batched(
+                [f.abs() for f in feats], boxes, SCALES, 7, 2)
+            check_close(f"TTA {what} box pool (B3) vs plain, proposals bit-equal",
+                        pooled, ref, atol=1e-5 + 2.0 ** -20 * mag, rtol=1e-5)
+            del ref, mag
+        with cuda_lib.plain_kernels():
+            ref = real_filter(*merged["args"], **merged["kw"])
+        for f in ref._fields:
+            if not torch.equal(getattr(merged["out"], f), getattr(ref, f)):
+                raise AssertionError(f"TTA detections.{f}: N1 differs from the plain walk")
+        del props, pools
+        detect_ms = cuda_ms(lambda: model.detect(b.images, b.sizes), 3)
+        tta_ms = cuda_ms(lambda: bbox_aug.detect_tta(model, b.images, b.sizes,
+                                                      hflip=True, scales=scales), 3)
+    n = int(merged["out"].mask.sum())
+    print(f"  TTA (flip, scale 0.75) on a batch of {b.images.shape[0]} (widths "
+          f"{min(widths)}-{max(widths)}, padded to {b.images.shape[2]}): launches "
+          f"{json.dumps({k: v for k, v in launches.items() if v})}; the merged "
+          f"filter bit-equal to the plain walk ({n} detections); detect "
+          f"{detect_ms:.1f} ms, TTA {tta_ms:.1f} ms a batch")
+    return detect_ms, tta_ms
+
+
+def phase_pretrain():
+    """Detector pretraining at full width (``configs/veto_vg_sgdet.yaml``
+    with SGD and the multistep schedule, everything trained): 5 steps of 12
+    VG-shaped images through ``detector_pretrain_net.train`` (checkpoint at
+    3, validation at 4), exact launches; ``detector_pretest_net`` restoring
+    step 5 into a fresh model; the checkpoint's size and its save and
+    restore seconds; one step's gradients against the plain versions; B3
+    and B3-bwd alone on that step's pool; one eval batch with the TTA.
+    Returns the numbers."""
+    from veto_tpu_torch.config import load_config
+    from veto_tpu_torch.engine.pretrain import create_detector_state, detector_budgets
+    from veto_tpu_torch.models.sgg import build_model
+    from veto_tpu_torch.tools.detector_pretest_net import evaluate
+    from veto_tpu_torch.tools.detector_pretrain_net import run_detection_eval
+    from veto_tpu_torch.tools.relation_train_net import batches_for
+    from veto_tpu_torch.utils.checkpoint import CheckpointManager
+
+    out = scratch_dir()
+    cfg = load_config(os.path.join(ROOT, "configs", SGDET),
+                      [*PRETRAIN_OPTS, f"output_dir={out}"])
+    budgets = detector_budgets(cfg)
+    train_ds = VGShapedDataset([False] * 60, seed=21)
+    val_ds = VGShapedDataset([False] * 16, seed=22)
+    model = build_model(cfg, train_detector=True)
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"[pretrain] detector pretraining ({SGDET}, SGD + WarmupMultiStepLR): "
+          f"{cfg.model.backbone} {cfg.model.resnet_groups}x"
+          f"{cfg.model.resnet_width_per_group}d fold_bn={cfg.model.fold_bn}, RPN "
+          f"{budgets.rpn_batch_size} anchors @ {budgets.rpn_positive_fraction}, "
+          f"{budgets.rpn_pre_nms_top_n} / {budgets.rpn_post_nms_top_n} proposals, box "
+          f"head {budgets.box_batch_size} rois @ {budgets.box_positive_fraction}, "
+          f"{n_params / 1e6:.1f}M parameters all trained, {cfg.dtype}; 5 steps of "
+          f"{cfg.solver.ims_per_batch} VG-shaped images")
+    state, history, peak = pretrain_train(cfg, model, train_ds, val_ds)
+    ms = 1e3 * float(np.mean([r["seconds"] for r in history[1:]]))
+    print(f"  after warm-up {ms:.1f} ms a step ({[round(1e3 * r['seconds'], 1) for r in history]}); "
+          f"peak memory {peak / 2 ** 30:.2f} GiB")
+    ckpt = CheckpointManager(os.path.join(out, "ckpt"))
+    if ckpt.steps() != [3, 5]:
+        raise AssertionError(f"checkpoints {ckpt.steps()}, want [3, 5]")
+    size = os.path.getsize(ckpt.path(5))
+    b_val, recs = next(iter(batches_for(cfg, val_ds, "val")(0)))
+    mine = run_detection_eval(cfg, model, [(b_val, recs)], log=lambda s: None)
+    trained = {k: v.clone() for k, v in model.state_dict().items()}
+    del state, model
+    release()
+
+    fresh = build_model(cfg, train_detector=True)
+    agg = evaluate(cfg, "val", model=fresh, dataset=val_ds,
+                   log=lambda s: print(f"  pretest: {s}"))
+    diff = [k for k, v in fresh.state_dict().items() if not torch.equal(v, trained[k])]
+    if diff:
+        raise AssertionError(f"the pretest's restore differs from the trained model: "
+                             f"{diff[:5]}")
+    again = run_detection_eval(cfg, fresh, [(b_val, recs)], log=lambda s: None)
+    if again != mine:
+        raise AssertionError(f"the restored model's detections differ: {again} vs {mine}")
+    del trained
+    state = create_detector_state(fresh, cfg.solver)
+    t0 = time.perf_counter()
+    ckpt.restore(state)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    other = CheckpointManager(os.path.join(scratch_dir(), "ckpt"))
+    t0 = time.perf_counter()
+    other.save(state.step, state)
+    save_s = time.perf_counter() - t0
+    print(f"  pretest restored step 5 into a fresh model (every tensor equal, the "
+          f"same detections): val mAP {agg['mAP']:.4f}; checkpoint "
+          f"{size / 2 ** 20:.0f} MiB (model and SGD's momentum), save {save_s:.2f} s, "
+          f"restore {restore_s:.2f} s")
+
+    b = next(batches_for(cfg, train_ds, "train")(1))[0].to(DEVICE)
+    exact, feats, rois, grad = pretrain_grads(state, b, budgets)
+    sampled = (grad.abs().amax((2, 3, 4)) > 0)  # the slots whose loss counts
+    fwd_ms, fwd_bound, bwd_ms, bwd_bound = pretrain_pool(feats, rois, grad, sampled)
+    del feats, rois, grad, b
+    release()
+    detect_ms, tta_ms = pretrain_tta(fresh, cfg, b_val.to(DEVICE))
+    del state, fresh
+    release()
+    numbers = dict(step_ms=ms, peak_gib=peak / 2 ** 30, checkpoint_mib=size / 2 ** 20,
+                   save_s=save_s, restore_s=restore_s, grads_two_runs_bit_equal=exact,
+                   b3_ms=fwd_ms, b3_bound_ms=fwd_bound, b3_bwd_ms=bwd_ms,
+                   b3_bwd_bound_ms=bwd_bound, detect_ms=detect_ms, tta_ms=tta_ms)
+    print(f"[pretrain numbers] {card()}: {json.dumps(numbers)}")
+    return numbers
+
+
 _SCRATCH = []
 
 
@@ -3208,6 +3606,7 @@ def main() -> int:
     n1, n1_launches = phase_sgdet(gen)
     kernels.append(n1)
     phase_meet()
+    phase_pretrain()
     # each kernel's launches on the training path that runs it
     launches.update(pair_attention=pa_launches["pair_attention"],
                     pair_attention_backward=pa_launches["pair_attention_backward"],

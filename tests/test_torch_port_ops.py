@@ -178,6 +178,11 @@ def test_port_imports_no_jax():
         " 'veto_tpu_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
         "assert len(mods) > 20, mods\n"
+        "new = {'veto_tpu_torch.engine.pretrain', 'veto_tpu_torch.engine.bbox_aug',\n"
+        "       'veto_tpu_torch.models.detector.losses',\n"
+        "       'veto_tpu_torch.tools.detector_pretrain_net',\n"
+        "       'veto_tpu_torch.tools.detector_pretest_net'}\n"
+        "assert new <= set(mods), new - set(mods)\n"
         "print('imported', len(mods))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)

@@ -73,7 +73,7 @@ def _same_state(a, b):
     assert sa.keys() == sb.keys()
     for k in sa:
         assert torch.equal(sa[k], sb[k]), k
-    oa, ob = a.optimizer.adam.state_dict(), b.optimizer.adam.state_dict()
+    oa, ob = a.optimizer.inner.state_dict(), b.optimizer.inner.state_dict()
     assert oa["state"].keys() == ob["state"].keys() and len(oa["state"]) > 0
     for i in oa["state"]:
         for k in ("step", "exp_avg", "exp_avg_sq"):

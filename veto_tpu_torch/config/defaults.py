@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import typing
 from dataclasses import dataclass, field
 from typing import Any, List, Optional, Tuple
 
@@ -355,7 +356,10 @@ def _coerce(obj: Any, name: str, value: Any) -> Any:
             return float(value)
         if isinstance(current, tuple):
             items = [v.strip() for v in value.strip("()[] ").split(",") if v.strip()]
-            elem = type(current[0]) if current else str
+            # an empty default names its element type only in the annotation
+            # (test.bbox_aug_scales: floats, not the strings of the command)
+            elem = (type(current[0]) if current else
+                    typing.get_args(typing.get_type_hints(type(obj))[name])[0])
             return tuple(elem(v) for v in items)
     return value
 

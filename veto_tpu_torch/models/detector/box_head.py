@@ -2,10 +2,10 @@
 ``BoxFeatureExtractor`` and ``BoxPredictor`` (the reference's
 FPN2MLPFeatureExtractor and FPNPredictor), the label assignment of
 proposals (``assign_labels_to_proposals``) and the SGDet box
-post-processing (``box_postprocess``, ``filter_decoded_boxes``: the
-reference's ``filter_results`` with ``NMS_FILTER_DUPLICATES`` and the
-``boxes_per_cls`` bookkeeping), batched over images with static budgets
-and masks.
+post-processing (``box_postprocess``: ``decode_candidates``, then
+``filter_decoded_boxes``, the reference's ``filter_results`` with
+``NMS_FILTER_DUPLICATES`` and the ``boxes_per_cls`` bookkeeping), batched
+over images with static budgets and masks.
 
 The pooled map arrives NHWC, (..., P, P, C), and is flattened in that
 order, as in the JAX package: a reference ``fc6`` (which flattens NCHW)
@@ -104,19 +104,30 @@ def box_postprocess(class_logits: torch.Tensor, box_regression: torch.Tensor,
                     detections_per_img: int = 80,
                     reg_weights: Tuple[float, ...] = (10.0, 10.0, 5.0, 5.0)
                     ) -> Detections:
-    """``filter_results`` on static shapes: softmax, per-class decode and
-    clip, then :func:`filter_decoded_boxes`.  (B, P, C) logits, (B, P, 4C)
-    deltas, (B, P, 4) proposals, (B, P) mask, (B, 2) = (w, h) sizes."""
-    b, p, c = class_logits.shape
-    prob = torch.softmax(class_logits.float(), dim=-1)
-    boxes_per_cls = decode_boxes(box_regression.float(), proposals.float(),
-                                 weights=reg_weights).reshape(b, p * c, 4)
-    boxes_per_cls = clip_to_image(boxes_per_cls, image_size).reshape(b, p, c, 4)
+    """``filter_results`` on static shapes: :func:`decode_candidates`, then
+    :func:`filter_decoded_boxes`.  (B, P, C) logits, (B, P, 4C) deltas,
+    (B, P, 4) proposals, (B, P) mask, (B, 2) = (w, h) sizes."""
+    prob, boxes_per_cls = decode_candidates(class_logits, box_regression,
+                                            proposals, image_size, reg_weights)
     return filter_decoded_boxes(
         prob, boxes_per_cls, prop_mask, score_thresh=score_thresh,
         nms_thresh=nms_thresh, post_nms_per_cls_topn=post_nms_per_cls_topn,
         nms_filter_duplicates=nms_filter_duplicates,
         detections_per_img=detections_per_img)
+
+
+def decode_candidates(class_logits: torch.Tensor, box_regression: torch.Tensor,
+                      proposals: torch.Tensor, image_size: torch.Tensor,
+                      reg_weights: Tuple[float, ...] = (10.0, 10.0, 5.0, 5.0)
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The candidates of ``filter_results``: f32 softmax scores (B, P, C)
+    and every class's decoded box clipped to the image (B, P, C, 4)."""
+    b, p, c = class_logits.shape
+    prob = torch.softmax(class_logits.float(), dim=-1)
+    boxes_per_cls = decode_boxes(box_regression.float(), proposals.float(),
+                                 weights=reg_weights).reshape(b, p * c, 4)
+    boxes_per_cls = clip_to_image(boxes_per_cls, image_size).reshape(b, p, c, 4)
+    return prob, boxes_per_cls
 
 
 def filter_decoded_boxes(prob: torch.Tensor, boxes_per_cls: torch.Tensor,

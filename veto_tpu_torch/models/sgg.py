@@ -36,6 +36,14 @@ autograd keeps none of its activations, as ``stop_gradient`` does in JAX)
 and it stays in eval mode when the model is put in train mode.  The depth
 backbone and the predictor train.
 
+Detector pretraining (``train_detector=True``, ``engine/pretrain.py``): the
+RPN and the box head are built in every mode, as the JAX model always has
+them, nothing is frozen, and :meth:`SGGModel.detector_forward` and
+:meth:`SGGModel.box_forward` run the body, the RPN head and the box head
+inside autograd (the JAX package's methods of those names, without
+``stop_gradient``); the box pool's gradient reaches P2-P5 through the
+ROIAlign backward.
+
 Layout: NHWC images, (B, N) padded boxes, (B, P) padded pairs — the JAX
 package's, so the two take the same batch.
 """
@@ -56,6 +64,7 @@ from .backbone.depth_resnet import DepthResNet18
 from .backbone.resnet import ResNetFPNBackbone
 from .detector.box_head import (
     BoxFeatureExtractor, BoxPredictor, Detections, box_postprocess,
+    decode_candidates,
 )
 from .detector.rpn import (
     Proposals, RPNHead, flatten_level, level_anchors, rpn_select_proposals,
@@ -109,7 +118,7 @@ class SGGModel(nn.Module):
                  box_nms_thresh: float = 0.3, box_post_nms_per_cls_topn: int = 300,
                  nms_filter_duplicates: bool = True, detections_per_img: int = 80,
                  meet_group_sizes: Optional[Sequence[int]] = None,
-                 meet_experts: int = 1):
+                 meet_experts: int = 1, train_detector: bool = False):
         super().__init__()
         check_mode(mode)
         self.mode = mode
@@ -138,15 +147,17 @@ class SGGModel(nn.Module):
                                           dtype)
         self.depth_backbone = DepthResNet18(dtype)
         self.frozen = [self.backbone]
-        if mode == "sgdet":
+        if mode == "sgdet" or train_detector:
             # one size a level, so len(ratios) anchors a position
             self.rpn = RPNHead(fpn_channels, 256, len(self.aspect_ratios))
             self.frozen.append(self.rpn)
-        if mode in ("sgcls", "sgdet"):
+        if mode in ("sgcls", "sgdet") or train_detector:
             self.box_extractor = BoxFeatureExtractor(
                 box_pooler_resolution ** 2 * fpn_channels, box_mlp_dim, dtype)
             self.box_predictor = BoxPredictor(box_mlp_dim, num_obj_classes)
             self.frozen += [self.box_extractor, self.box_predictor]
+        if train_detector:
+            self.frozen = []
         trunk = dict(embed_dim=embed_dim, dim=veto_dim, layers=veto_layers,
                      heads=veto_heads, patch_size=veto_patch_size,
                      depth_proj_dim=veto_depth_proj_dim,
@@ -238,16 +249,50 @@ class SGGModel(nn.Module):
         return box_postprocess(logits, deltas, proposals.boxes, proposals.mask,
                                image_sizes.float(), **self.box_cfg)
 
-    def detect(self, images: torch.Tensor,
-               image_sizes: torch.Tensor) -> DetectOutput:
-        """NHWC images (B, H, W, 3) and their (B, 2) = (w, h) sizes → the FPN
-        maps, the padded detections and their box-head logits (gathered by
-        ``orig_idx``), all outside autograd."""
+    def _cascade(self, images: torch.Tensor, image_sizes: torch.Tensor):
+        """The cascade up to the box filter, outside autograd: the FPN maps,
+        the proposals and the box head's logits and deltas on them."""
         with torch.no_grad():
             feats = self.extract_features(images)
             obj, reg = self.rpn_maps(feats)
             proposals = self.propose(obj, reg, image_sizes)
             logits, deltas = self.box_head(feats, proposals.boxes)
+            return feats, proposals, logits, deltas
+
+    def detect_candidates(self, images: torch.Tensor, image_sizes: torch.Tensor):
+        """The detection candidates before the box filter, for the test-time
+        augmentation (``engine/bbox_aug.py``): the FPN maps, every
+        proposal's softmax scores (B, P, C), its clipped per-class boxes
+        (B, P, C, 4) and the proposal mask (B, P), outside autograd."""
+        feats, proposals, logits, deltas = self._cascade(images, image_sizes)
+        with torch.no_grad():
+            prob, boxes_per_cls = decode_candidates(logits, deltas, proposals.boxes,
+                                                    image_sizes.float())
+        return feats, prob, boxes_per_cls, proposals.mask
+
+    # ------------------------------------------------ detector pretraining
+    def detector_forward(self, images: torch.Tensor):
+        """The trainable FPN pyramid (P2..P6) and the RPN head's raw maps
+        in the model's dtype, inside autograd."""
+        feats = self.backbone(images)
+        obj, reg = self.rpn(feats)
+        return feats, obj, reg
+
+    def box_forward(self, feats, rois: torch.Tensor):
+        """The trainable box head on (B, R, 4) rois: f32 class logits
+        (B, R, C) and deltas (B, R, 4C), inside autograd (the 7x7 pool's
+        gradient reaches the maps through the ROIAlign backward)."""
+        pooled = self._pool_boxes(feats, rois, self.box_pooler_resolution)
+        logits, deltas = self.box_predictor(self.box_extractor(pooled))
+        return logits.float(), deltas.float()
+
+    def detect(self, images: torch.Tensor,
+               image_sizes: torch.Tensor) -> DetectOutput:
+        """NHWC images (B, H, W, 3) and their (B, 2) = (w, h) sizes → the FPN
+        maps, the padded detections and their box-head logits (gathered by
+        ``orig_idx``), all outside autograd."""
+        feats, proposals, logits, deltas = self._cascade(images, image_sizes)
+        with torch.no_grad():
             dets = self.postprocess_boxes(logits, deltas, proposals, image_sizes)
             idx = dets.orig_idx.long()[..., None].expand(-1, -1, logits.shape[-1])
             return DetectOutput(feats, dets, torch.gather(logits, 1, idx))
@@ -296,13 +341,16 @@ def resolve_predictor(name: str) -> str:
     return base
 
 
-def build_model(cfg, device=None, seed: int = None) -> SGGModel:
+def build_model(cfg, device=None, seed: int = None,
+                train_detector: bool = False) -> SGGModel:
     """SGGModel for a config, on ``device`` (default ``cuda``; raises when no
     GPU is present unless ``device="cpu"``), in eval mode, with weights
     drawn from ``seed`` (default ``cfg.solver.seed``) and the encoder that
     ``veto.encoder_impl`` names (raises ``ValueError`` on a name it does not
     know).  With ``ensemble.enabled`` the relation head is MEET's
-    (:func:`~..tools.relation_train_net.build_meet_config`)."""
+    (:func:`~..tools.relation_train_net.build_meet_config`);
+    ``train_detector`` builds it for detector pretraining (see the module
+    docstring)."""
     from ..tools.relation_train_net import build_meet_config
 
     dev = resolve_device(device)
@@ -353,6 +401,7 @@ def build_model(cfg, device=None, seed: int = None) -> SGGModel:
         detections_per_img=cfg.model.box_detections_per_img,
         meet_group_sizes=meet.group_sizes if meet else None,
         meet_experts=meet.experts_per_group if meet else 1,
+        train_detector=train_detector,
     ).to(dev)
     init_weights(model, cfg.solver.seed if seed is None else seed)
     return model.eval()

@@ -71,6 +71,26 @@ def nonempty_mask(boxes: torch.Tensor, min_size: float = 0.0) -> torch.Tensor:
     return (ws >= min_size) & (hs >= min_size)
 
 
+def encode_boxes(reference_boxes: torch.Tensor, proposals: torch.Tensor,
+                 weights: Tuple[float, float, float, float] = (10.0, 10.0, 5.0, 5.0)
+                 ) -> torch.Tensor:
+    """``BoxCoder.encode``: the deltas (..., N, 4) that take ``proposals``
+    (..., N, 4) to ``reference_boxes`` (..., N, 4), the inverse of
+    :func:`decode_boxes` up to its clamp."""
+    ex_w = proposals[..., 2] - proposals[..., 0] + TO_REMOVE
+    ex_h = proposals[..., 3] - proposals[..., 1] + TO_REMOVE
+    ex_cx = proposals[..., 0] + 0.5 * ex_w
+    ex_cy = proposals[..., 1] + 0.5 * ex_h
+    gt_w = reference_boxes[..., 2] - reference_boxes[..., 0] + TO_REMOVE
+    gt_h = reference_boxes[..., 3] - reference_boxes[..., 1] + TO_REMOVE
+    gt_cx = reference_boxes[..., 0] + 0.5 * gt_w
+    gt_cy = reference_boxes[..., 1] + 0.5 * gt_h
+    wx, wy, ww, wh = weights
+    return torch.stack([wx * (gt_cx - ex_cx) / ex_w, wy * (gt_cy - ex_cy) / ex_h,
+                        ww * torch.log(gt_w / ex_w), wh * torch.log(gt_h / ex_h)],
+                       dim=-1)
+
+
 def decode_boxes(rel_codes: torch.Tensor, boxes: torch.Tensor,
                  weights: Tuple[float, float, float, float] = (10.0, 10.0, 5.0, 5.0)
                  ) -> torch.Tensor:

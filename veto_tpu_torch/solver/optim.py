@@ -3,36 +3,42 @@
 :func:`make_optimizer` builds the JAX package's optax chain in PyTorch:
 
     clip_by_global_norm(grad_clip_norm)
-    → per group: add_decayed_weights(wd) → scale_by_adam → scale(-lr)
+    → per group: add_decayed_weights(wd) → scale_by_adam | trace(momentum)
+      → scale(-lr)
     → scale(lr_scale)
 
-that is, ``torch.optim.Adam`` with L2 decay added to the (clipped)
-gradient, not AdamW, at ``lr = base_lr * ims_per_batch * lr_scale``.
+that is, ``torch.optim.Adam`` (``solver.optimizer=adam``) with L2 decay
+added to the (clipped) gradient, not AdamW, or ``torch.optim.SGD``
+(``sgd``: momentum, dampening 0, not Nesterov, the decay added to the
+gradient; its buffer is optax's trace, which starts at zero and takes no
+``lr_scale``), at ``lr = base_lr * ims_per_batch * lr_scale``.
 Groups follow the flax leaf name (``_label_params``): a leaf literally
 named ``bias`` — the ``.bias`` of a Dense, conv or BN — is in the bias group
 (``bias_lr_factor``, ``weight_decay_bias``); every other leaf, the flat
 encoder biases (``attn{i}_out_bias``, ``ffn{i}_fc{1,2}_bias``), the
 ``*_proj_bias`` vectors, LN ``*_scale`` and BN scales included, is in the
 weight group (``weight_decay``).  Parameters under a frozen prefix (the
-detector body) get no updates.
+detector, in relation training) get no updates; detector pretraining
+freezes nothing.
 
 :class:`LRController` is the host-side warmup + ReduceLROnPlateau state
-machine, a copy of the JAX package's.
+machine, a copy of the JAX package's; :func:`multistep_scale` the
+WarmupMultiStepLR schedule of detector pretraining.
 """
 
 from __future__ import annotations
 
-from typing import Iterable
+from typing import Callable, Iterable, Sequence
 
 import torch
 
 FROZEN_DETECTOR = ("backbone", "rpn", "box_extractor", "box_predictor")
 
 
-def param_label(name: str) -> str:
+def param_label(name: str, frozen_prefixes: Sequence[str] = FROZEN_DETECTOR) -> str:
     """'frozen' | 'bias' | 'weight' for a torch parameter name, by the rule
     of the JAX ``_label_params`` on the equivalent flax path."""
-    if any(name.split(".", 1)[0].startswith(p) for p in FROZEN_DETECTOR):
+    if any(name.split(".", 1)[0].startswith(p) for p in frozen_prefixes):
         return "frozen"
     return "bias" if name.rsplit(".", 1)[-1] == "bias" else "weight"
 
@@ -43,14 +49,16 @@ def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
 
 
 class Optimizer:
-    """Clip by global norm, then Adam per group with its learning rate and
-    L2 decay, scaled by the step's ``lr_scale``."""
+    """Clip by global norm, then Adam or SGD with momentum per group with
+    its learning rate and L2 decay, scaled by the step's ``lr_scale``.
+    ``inner`` is the ``torch.optim`` optimizer (its state is what a
+    checkpoint saves)."""
 
-    def __init__(self, cfg, model: torch.nn.Module):
-        if cfg.optimizer != "adam":
-            raise NotImplementedError(
-                f"optimizer {cfg.optimizer!r}: the port trains the relation "
-                "head with Adam; SGD (detector pretraining) is a later slice")
+    def __init__(self, cfg, model: torch.nn.Module,
+                 frozen_prefixes: Sequence[str] = FROZEN_DETECTOR):
+        if cfg.optimizer not in ("adam", "sgd"):
+            raise ValueError(f"solver.optimizer={cfg.optimizer!r}: expected "
+                             "'adam' or 'sgd'")
         rl = float(cfg.ims_per_batch) if cfg.scale_lr_by_batch else 1.0
         self.clip = cfg.grad_clip_norm
         self.base_lr = {"weight": cfg.base_lr * rl,
@@ -58,22 +66,29 @@ class Optimizer:
         decay = {"weight": cfg.weight_decay, "bias": cfg.weight_decay_bias}
         groups = {"weight": [], "bias": []}
         for name, p in model.named_parameters():
-            label = param_label(name)
+            label = param_label(name, frozen_prefixes)
             if label != "frozen":
+                if not p.requires_grad:
+                    raise ValueError(f"{name} is to train but does not "
+                                     "require a gradient")
                 groups[label].append(p)
         self.params = groups["weight"] + groups["bias"]
-        self.adam = torch.optim.Adam(
-            [dict(params=ps, lr=self.base_lr[k], weight_decay=decay[k], label=k)
-             for k, ps in groups.items() if ps],
-            betas=(0.9, 0.999), eps=1e-8)
+        param_groups = [dict(params=ps, lr=self.base_lr[k], weight_decay=decay[k],
+                             label=k) for k, ps in groups.items() if ps]
+        if cfg.optimizer == "sgd":
+            self.inner = torch.optim.SGD(param_groups, momentum=cfg.momentum)
+        else:
+            self.inner = torch.optim.Adam(param_groups, betas=(0.9, 0.999),
+                                          eps=1e-8)
 
     def zero_grad(self) -> None:
-        self.adam.zero_grad(set_to_none=True)
+        self.inner.zero_grad(set_to_none=True)
 
     def step(self, lr_scale: float) -> torch.Tensor:
         """One update from the parameters' ``.grad``; returns the global norm
         of the gradients before clipping.  A trainable parameter without a
-        gradient takes a zero one, as every leaf does in optax."""
+        gradient takes a zero one, as every leaf does in optax (so it still
+        decays, and its momentum still carries)."""
         for p in self.params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
@@ -82,15 +97,18 @@ class Optimizer:
         with torch.no_grad():
             for g in grads:  # optax: where(norm < max, g, g / norm * max)
                 g.copy_(torch.where(norm < self.clip, g, g / norm * self.clip))
-        for group in self.adam.param_groups:
+        for group in self.inner.param_groups:
             group["lr"] = self.base_lr[group["label"]] * float(lr_scale)
-        self.adam.step()
+        self.inner.step()
         return norm
 
 
-def make_optimizer(cfg, model: torch.nn.Module) -> Optimizer:
-    """The training optimizer over ``model``'s trainable parameters."""
-    return Optimizer(cfg, model)
+def make_optimizer(cfg, model: torch.nn.Module,
+                   frozen_prefixes: Sequence[str] = FROZEN_DETECTOR) -> Optimizer:
+    """The training optimizer over ``model``'s parameters outside
+    ``frozen_prefixes`` (the detector by default; detector pretraining
+    passes ``()``)."""
+    return Optimizer(cfg, model, frozen_prefixes)
 
 
 class LRController:
@@ -151,3 +169,20 @@ class LRController:
     @property
     def should_stop(self) -> bool:
         return self.num_decays >= self.cfg.max_decay_step
+
+
+def multistep_scale(cfg) -> Callable[[int], float]:
+    """The WarmupMultiStepLR multiplier of 0-based step ``step``: linear
+    warmup from ``warmup_factor`` over ``warmup_iters`` (a ``constant``
+    warmup is not applied, as in the JAX package), times ``gamma`` for each
+    milestone of ``steps`` reached."""
+
+    def scale(step: int) -> float:
+        if step < cfg.warmup_iters and cfg.warmup_method == "linear":
+            alpha = step / max(cfg.warmup_iters, 1)
+            warm = cfg.warmup_factor * (1 - alpha) + alpha
+        else:
+            warm = 1.0
+        return warm * cfg.gamma ** sum(step >= s for s in cfg.steps)
+
+    return scale

@@ -1,8 +1,8 @@
-"""Where the train step (PredCls, SGCls or SGDet) spends its time on the
-card.
+"""Where the train step (PredCls, SGCls or SGDet, or detector
+pretraining) spends its time on the card.
 
     python -m veto_tpu_torch.tools.profile_train \\
-        [--config configs/veto_vg_predcls.yaml] [--steps 3] [opts ...]
+        [--config configs/veto_vg_predcls.yaml] [--steps 3] [--pretrain] [opts ...]
 
 Builds the model of the config on ``cuda`` from seeded weights and its
 train state, runs one warm-up step on the synthetic train split, then
@@ -26,6 +26,16 @@ train state, runs one warm-up step on the synthetic train split, then
 In SGDet the synthetic GT boxes match no detection of seeded weights, so
 the sampler draws background pairs only; every shape is static, so the
 step's work is the same.
+
+With ``--pretrain`` it times the detector pretraining step instead
+(``engine/pretrain.py``, the model built with ``train_detector=True``, SGD
+at the multistep schedule's first scale) on the synthetic train split: the
+body, FPN and RPN head forward (``detector_forward``), the RPN losses
+(matching, the balanced sample, BCE and smooth-L1), the proposal
+selection (top-k, decode, N1, the top 1000), the box sampler, the box pool
+and head (``box_forward``: B3 and fc6/fc7/the predictor), the backward
+(B3-bwd, the box head, the RPN head and the trained body), the update;
+and the launches of B3, B3-bwd and N1 a step.
 
 The last line is one JSON object with these numbers and the card's name.
 It needs a card and raises without one.
@@ -141,16 +151,93 @@ def profile(cfg, steps: int = 3, log=print) -> dict:
                     OWN_KERNELS + OWN_BWD_KERNELS, log)}
 
 
+PRETRAIN_STAGES = ("body_rpn_forward", "rpn_losses", "proposal_selection",
+                   "box_sampler", "box_pool_and_head")
+
+
+def profile_pretrain(cfg, steps: int = 3, log=print) -> dict:
+    """The detector pretraining step's stage times, launches and trace."""
+    from ..engine import pretrain
+    from ..models.sgg import build_model
+    from ..ops import nms, roi_align_windowed as rw
+    from ..solver.optim import multistep_scale
+    from .relation_train_net import synthetic_train_dataset
+
+    model = build_model(cfg, train_detector=True)  # cuda; raises without a card
+    dev = next(model.parameters()).device
+    state = pretrain.create_detector_state(model, cfg.solver)
+    budgets = pretrain.detector_budgets(cfg)
+    scale = multistep_scale(cfg.solver)(0)
+    bsz = cfg.solver.ims_per_batch
+    data = [b.to(dev) for b, _ in synthetic_train_dataset(cfg, (steps + 2) * bsz)
+            .batches(bsz, cfg.data.max_boxes)]
+
+    def step(b, marks=None):
+        def mark():
+            if marks is not None:
+                marks.append(torch.cuda.Event(enable_timing=True))
+                marks[-1].record()
+        mark()
+        losses = pretrain.detector_forward_backward(state, b, budgets)
+        mark()
+        state.optimizer.step(scale)
+        mark()
+        return float(losses["loss"])
+
+    step(data[0])  # warm-up: cuDNN plans, kernel loads
+    methods = [("body_rpn_forward", model, "detector_forward"),
+               ("rpn_losses", pretrain, "rpn_losses"),
+               ("proposal_selection", pretrain, "rpn_select_proposals"),
+               ("box_sampler", pretrain, "fastrcnn_sample"),
+               ("box_pool_and_head", model, "box_forward"),
+               ("forward_and_losses", pretrain, "detector_losses")]
+    events, remove = _stage_timer([], methods)
+    marks, step_s, launches = [], [], []
+    counters = ((rw, "KERNEL_LAUNCHES"), (rw, "BWD_LAUNCHES"),
+                (nms, "MASK_LAUNCHES"), (nms, "SCAN_LAUNCHES"))
+    for b in data[1:1 + steps]:
+        before = [getattr(m, a) for m, a in counters]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(b, marks)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        launches.append([getattr(m, a) - n for (m, a), n in zip(counters, before)])
+    remove()
+    ms = {name: float(np.mean([s.elapsed_time(e) for s, e in events[name]]))
+          for name, _, _ in methods}
+    spans = np.array([[marks[3 * i + k].elapsed_time(marks[3 * i + k + 1])
+                       for k in range(2)] for i in range(steps)]).mean(0)
+    ms["forward_other"] = ms["forward_and_losses"] - sum(ms[n] for n in PRETRAIN_STAGES)
+    ms["backward"] = float(spans[0]) - ms["forward_and_losses"]
+    ms["sgd_update"] = float(spans[1])
+    ms["step"] = 1e3 * float(np.mean(step_s))
+    for k in ["step", *PRETRAIN_STAGES, "forward_other", "backward", "sgd_update"]:
+        log(f"  {k:32s} {ms[k]:9.3f} ms")
+    names = ("multilevel_roi_align", "roi_align_backward", "nms_mask", "nms_scan")
+    log(f"  launches a step: {dict(zip(names, launches[-1]))}")
+    b = data[-1]
+    return {"batch": bsz, "stage_ms": ms, "peak_gib": torch.cuda.max_memory_allocated()
+            / 2 ** 30, "launches_per_step": dict(zip(names, launches[-1])),
+            **trace(lambda: (step(b), torch.cuda.synchronize()),
+                    OWN_KERNELS + OWN_BWD_KERNELS, log)}
+
+
 def main(argv=None):
     from ..config import load_config
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--config", default="configs/veto_vg_predcls.yaml")
     parser.add_argument("--steps", type=int, default=3)
+    parser.add_argument("--pretrain", action="store_true",
+                        help="time the detector pretraining step")
     parser.add_argument("opts", nargs="*", default=[])
     args = parser.parse_args(argv)
     cfg = load_config(args.config, args.opts)
-    print(json.dumps(profile(cfg, args.steps)))
+    if args.pretrain and not any(o.startswith("solver.optimizer") for o in args.opts):
+        cfg = cfg.override("solver.optimizer", "sgd")  # as detector_pretrain_net
+    run = profile_pretrain if args.pretrain else profile
+    print(json.dumps(run(cfg, args.steps)))
 
 
 if __name__ == "__main__":

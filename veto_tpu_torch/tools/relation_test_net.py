@@ -25,8 +25,10 @@ each pair competes in one ranking of the G·P candidates of an image (with
 3 experts a group, after the vote of ``ensemble.voting``).
 
 Not yet ported (they raise): the legacy predictors and their MEET heads,
-stage-wise recall, multi-device evaluation; the bbox-aug test-time
-augmentation of SGDet (A14) is not run.
+stage-wise recall, multi-device evaluation.  The bbox-aug test-time
+augmentation (``test.bbox_aug_*``, ``engine/bbox_aug.py``) serves the
+detector tools' evaluation (``detector_pretest_net``); this tool, like the
+JAX package's, does not run it.
 """
 
 from __future__ import annotations

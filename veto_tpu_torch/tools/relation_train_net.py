@@ -44,7 +44,7 @@ waiting for the batch.  ``metrics.jsonl`` in ``output_dir`` gets the
 losses every 30 steps and each validation's mR@100.
 
 Not yet ported (they raise): the legacy predictors and their MEET heads,
-the attribute/mask/keypoint heads, the other loss variants, COCO/VOC (A13)
+the attribute/mask/keypoint heads, the other loss variants, COCO/VOC (A13b)
 and Open Images (A14) data, multi-device training.
 """
 
@@ -91,7 +91,7 @@ def build_dataset(cfg, split: str):
     if "+" in cfg.data.dataset or "COCO" in name or "VOC" in name:
         raise NotImplementedError(
             f"data.dataset={cfg.data.dataset!r}: detector pretraining data "
-            "(COCO, VOC, concatenated sets) comes with slice A13")
+            "(COCO, VOC, concatenated sets) comes with slice A13b")
     if "OI" in name or "OPEN" in name:
         raise NotImplementedError(
             f"data.dataset={cfg.data.dataset!r}: Open Images comes with slice A14")

@@ -4,9 +4,10 @@
 A checkpoint is one file, ``<dir>/model_<step>.pth``, holding everything a
 resumed run needs to continue bit-exactly: the model's ``state_dict`` (the
 trainable depth ResNet-18's and ``pos_bn``'s BatchNorm running statistics
-included), the Adam state (moments and step), the iteration, the state of
-the pair sampler's ``torch.Generator`` with its device type, and the
-host-side extras (the ``LRController`` fields).  A file is written under a
+included), the optimizer's state (Adam's moments and step, or SGD's
+momentum buffers), the iteration, the state of the samplers'
+``torch.Generator`` with its device type, and the host-side extras (the
+``LRController`` fields).  A file is written under a
 temporary name and moved into place, then the ``last_checkpoint`` pointer
 names it (as the reference's Checkpointer keeps it); the newest ``keep``
 files stay.  A checkpoint restores on any device: tensors are copied to the
@@ -46,7 +47,7 @@ class CheckpointManager:
         payload = {
             "step": int(step),
             "model": state.model.state_dict(),
-            "optimizer": state.optimizer.adam.state_dict(),
+            "optimizer": state.optimizer.inner.state_dict(),
             "generator": None if gen is None else {
                 "device": gen.device.type, "state": gen.get_state()},
             "extra": extra,
@@ -93,14 +94,20 @@ class CheckpointManager:
         """Restore ``state`` in place from ``step`` (default the latest);
         returns the saved extras, or None when there is nothing to restore
         (``state`` is then untouched).  The file is read to the host: the
-        model's tensors and Adam's moments are copied to their parameters'
-        device, Adam's step counts stay on the host as a fresh Adam keeps
-        them."""
+        model's tensors and the optimizer's state are copied to their
+        parameters' device (Adam's step counts stay on the host, as a fresh
+        Adam keeps them).  A checkpoint of another optimizer (Adam's into
+        SGD's state, say) raises ``ValueError``."""
         payload = self.load(step, map_location="cpu")
         if payload is None:
             return None
+        inner = state.optimizer.inner
+        if _groups(payload["optimizer"]["param_groups"]) != _groups(inner.param_groups):
+            raise ValueError(
+                f"{self.path(payload['step'])} holds the state of another "
+                f"optimizer than {type(inner).__name__}'s (or other groups)")
         state.model.load_state_dict(payload["model"])
-        state.optimizer.adam.load_state_dict(payload["optimizer"])
+        inner.load_state_dict(payload["optimizer"])
         state.step = payload["step"]
         saved, gen = payload["generator"], state.generator
         if saved is not None and gen is not None:
@@ -110,6 +117,11 @@ class CheckpointManager:
                 log(f"the sampler's generator was saved on {saved['device']}; "
                     f"on {gen.device.type} it restarts from its seed")
         return payload["extra"]
+
+
+def _groups(param_groups):
+    """A torch optimizer's groups by label and kind (Adam's have ``betas``)."""
+    return [(g.get("label"), "betas" in g) for g in param_groups]
 
 
 def _atomic(path: str, write) -> None:
