@@ -176,7 +176,26 @@ catches its own failure:
     augmentation (flip, scale 0.75), timed, its launches exact, its
     proposals and merged detections bit-equal to the plain walks' and its
     box pools against the plain pool.
-18. One JSON line ``{"kernels": [...]}`` (all nine kernels, N1 last;
+18. The detector's other data and heads at full width.  (a) Pretraining
+    with ``model.mask_on`` and ``model.keypoint_on``: 3 steps of 12
+    VG-shaped images with each box's mask and 17 keypoints (the masks
+    uint8 through the loader's resize and the feeder) through
+    ``detector_pretrain_net.train``, exact launches (B3 3, B3-bwd 3: the
+    box pool and the two heads' 14x14 pools; N1 1 + 1), ``loss_mask`` and
+    ``loss_kp`` finite and positive, every head tensor changed; one step's
+    gradients against the plain versions; B3 and B3-bwd alone on that
+    step's own mask pool (12 x 64 rois at P = 14) against their plain
+    versions, B3-bwd two runs bit-equal, device ms against the bounds.
+    (b) 3 PredCls relation steps with ``model.attribute_on`` on VG-shaped
+    images with attribute lists (B3 3 a step: the attribute head's 7x7
+    pool), ``attribute_loss`` positive, ``att_score`` changed, the detector
+    and its box head bit-unchanged.  (c) A COCO instances JSON and
+    ``VOC2007`` / ``VOC2012`` devkits written at VG's image sizes, routed by
+    ``build_dataset`` (``coco_2017``; ``VOC2007+VOC2012`` concatenated), the
+    pixels seeded in memory (no PIL on the card's machine): 2 pretraining
+    steps on each, exact launches; the VOC evaluator on one val batch's
+    detections (seeded weights).
+19. One JSON line ``{"kernels": [...]}`` (all nine kernels, N1 last;
     ``launches`` from the main path's training run, or the path that runs
     each) and, last, ``{"ok": true, "device": {...}}``.
 
@@ -1657,10 +1676,16 @@ class VGShapedDataset:
     triplets): raw u8 images at VG's own sizes (longest side 450-500),
     portrait where ``portrait`` says so, 20-80 boxes at the image's scale
     with 5-30 relations among them, and a 16-bit depth map; all drawn
-    from ``seed``.  It stands in for the VG files, which the card's machine
-    does not have (nor h5py or PIL to read them)."""
+    from ``seed``.  With ``attributes`` each box also carries up to 4 of
+    VG's 201 attribute ids (a third of the boxes none); with ``instances``
+    its instance mask (the ellipse inscribed in the box, uint8) and 17
+    keypoints at fixed fractions of the box, about a third of them not
+    visible; both drawn from a second seed, so the rest stays as without
+    them.  It stands in for the VG files, which the card's machine does
+    not have (nor h5py or PIL to read them)."""
 
-    def __init__(self, portrait, seed, num_obj=151, num_rel=51, max_boxes=80):
+    def __init__(self, portrait, seed, num_obj=151, num_rel=51, max_boxes=80,
+                 attributes=False, instances=False):
         rng = np.random.RandomState(seed)
         self.img_info, self.gt_classes, self.relationships = [], [], []
         self._images, self._depth, self._boxes = [], [], []
@@ -1683,6 +1708,34 @@ class VGShapedDataset:
             self._images.append(rng.randint(0, 256, (h, w, 3), dtype=np.uint8))
             self._depth.append(rng.randint(0, 65536, (h, w)).astype(np.float32))
         self.idx_list = list(range(len(portrait)))
+        extra = np.random.RandomState(seed + 7919)
+        self._attributes = self._visible = None
+        if attributes:
+            self._attributes = []
+            for b in self._boxes:
+                att = np.zeros((len(b), 10), np.int64)
+                for j in np.nonzero(extra.rand(len(b)) > 1 / 3)[0]:
+                    m = int(extra.randint(1, 5))
+                    att[j, :m] = extra.randint(1, 201, m)
+                self._attributes.append(att)
+        if instances:
+            self._visible = [(extra.rand(len(b), 17) > 1 / 3) * 2.0 for b in self._boxes]
+
+    def _instances(self, index):
+        """Each box's ellipse mask (n, h, w) uint8 and 17 keypoints (n, 17, 3)."""
+        boxes, info = self._boxes[index], self.img_info[index]
+        masks = np.zeros((len(boxes), info["height"], info["width"]), np.uint8)
+        for j, (xa, ya, xb, yb) in enumerate(boxes):
+            y0, x0 = int(ya), int(xa)
+            yy, xx = np.mgrid[y0:int(yb) + 1, x0:int(xb) + 1]
+            rx, ry = max((xb - xa) / 2, 1.0), max((yb - ya) / 2, 1.0)
+            masks[j, y0:int(yb) + 1, x0:int(xb) + 1] = (
+                ((xx - (xa + xb) / 2) / rx) ** 2 + ((yy - (ya + yb) / 2) / ry) ** 2 <= 1.0)
+        fr = (np.arange(17, dtype=np.float32) + 0.5) / 17
+        kps = np.stack([boxes[:, :1] + fr * (boxes[:, 2:3] - boxes[:, :1]),
+                        boxes[:, 1:2] + fr[::-1] * (boxes[:, 3:4] - boxes[:, 1:2]),
+                        self._visible[index]], -1).astype(np.float32)
+        return masks, kps
 
     def __len__(self):
         return len(self.idx_list)
@@ -1693,11 +1746,16 @@ class VGShapedDataset:
         n = len(self._boxes[index])
         rel_matrix = np.zeros((n, n), np.int64)
         rel_matrix[rels[:, 0], rels[:, 1]] = rels[:, 2]
-        return {"boxes": self._boxes[index].copy(),
-                "labels": self.gt_classes[index].astype(np.int32),
-                "rel_matrix": rel_matrix, "rel_tuples": rels,
-                "size": np.array([info["width"], info["height"]], np.int32),
-                "image_id": info["image_id"]}
+        rec = {"boxes": self._boxes[index].copy(),
+               "labels": self.gt_classes[index].astype(np.int32),
+               "rel_matrix": rel_matrix, "rel_tuples": rels,
+               "size": np.array([info["width"], info["height"]], np.int32),
+               "image_id": info["image_id"]}
+        if self._attributes is not None:
+            rec["attributes"] = self._attributes[index]
+        if self._visible is not None:
+            rec["masks"], rec["keypoints"] = self._instances(index)
+        return rec
 
     def load_image(self, index):
         return self._images[index].astype(np.float32) / 255.0
@@ -1985,8 +2043,8 @@ def phase_data_path(gen):
         raise AssertionError(f"val batch shapes {shapes}, want {[vl, envelope]}")
     host = val_batches[0][0]
     pageable = host_ms(lambda: host.to(DEVICE), 10)
-    pinned = {f: torch.from_numpy(np.ascontiguousarray(getattr(host, f))).pin_memory()
-              for f in vars(host)}
+    pinned = {f: torch.from_numpy(np.ascontiguousarray(a)).pin_memory()
+              for f, a in host.fields().items()}
     pinned_ms = host_ms(lambda: [t.to(DEVICE, non_blocking=True)
                                  for t in pinned.values()], 10)
     mb = sum(t.numel() * t.element_size() for t in pinned.values()) / 1e6
@@ -3186,17 +3244,23 @@ PRETRAIN_STEP = dict(multilevel_roi_align=1, roi_align_backward=1, nms_mask=1,
 DETECT_BATCH = dict(multilevel_roi_align=1, nms_mask=2, nms_scan=2)
 
 
-def pretrain_train(cfg, model, train_ds, val_ds):
-    """``detector_pretrain_net.train`` for 5 steps with a checkpoint at 3
-    and a validation at 4, the launches of each step read around it and the
-    run's total read after it: exact at every step, the total the steps'
-    plus the validation's batches.  Returns the state, the history and the
-    peak memory."""
+def pretrain_train(cfg, model, train_ds, val_ds, per_step=PRETRAIN_STEP,
+                   heads=()):
+    """``detector_pretrain_net.train`` for ``solver.max_iter`` steps (phase
+    17: 5, with a checkpoint at 3 and a validation at 4), the launches of
+    each step read around it and the run's total read after it: exact at
+    every step (``per_step``), the total the steps' plus the validation's
+    batches; the losses finite, ``heads``' losses (``loss_mask``,
+    ``loss_kp``) positive in some step (a step whose sampled rois hold no
+    positive has none).  Returns the state, the history and the peak
+    memory."""
     from veto_tpu_torch.engine import pretrain
     from veto_tpu_torch.tools.detector_pretrain_net import train
 
-    steps, val_batches = cfg.solver.max_iter, -(-len(val_ds) // cfg.test.ims_per_batch)
-    per_step = expected(**PRETRAIN_STEP)
+    steps = cfg.solver.max_iter
+    val_batches = (-(-len(val_ds) // cfg.test.ims_per_batch)
+                   * (steps // cfg.solver.val_period))
+    per_step = expected(**per_step)
     counts, real = [], pretrain.detector_train_step
 
     def counted(*args, **kw):
@@ -3227,28 +3291,35 @@ def pretrain_train(cfg, model, train_ds, val_ds):
         raise AssertionError(f"{len(history)} steps, launches {counts} / {total}, "
                              f"want {per_step} a step, {want_total} in all")
     keys = ("loss", "loss_objectness", "loss_rpn_box_reg", "loss_classifier",
-            "loss_box_reg", "grad_norm")
+            "loss_box_reg", *heads, "grad_norm")
     if not all(np.isfinite(r[k]) for r in history for k in keys):
         raise AssertionError(f"non-finite losses: {history}")
-    if "val_mAP" not in history[3]:
+    if not all(any(r[k] > 0 for r in history) for k in heads):
+        raise AssertionError(f"a head's loss is 0 at every step (no positive roi): "
+                             f"{history}")
+    if val_batches and "val_mAP" not in history[3]:
         raise AssertionError("no validation at step 4")
     still = [n for n, p in model.named_parameters()
              if n in detector and torch.equal(p, detector[n])]
     # an FPN level's output conv takes no gradient when no sampled anchor or
-    # roi reads its level; everything else of the detector always does
-    if any(not n.startswith("backbone.fpn.fpn_layer") for n in still):
+    # roi reads its level, nor the box regression when no sampled roi is
+    # positive (VOC's few objects); everything else of the detector always does
+    idle = ("backbone.fpn.fpn_layer",) + (
+        ("box_predictor.bbox_pred",) if not any(r["loss_box_reg"] for r in history) else ())
+    if any(not n.startswith(idle) for n in still):
         raise AssertionError(f"detector parameters unchanged: {still[:5]}")
     print("  " + "; ".join(f"{k} {[round(r[k], 4) for r in history]}" for k in keys))
-    print(f"  every detector parameter changed but {still or 'none'}; validation "
-          f"mAP at 4: {history[3]['val_mAP']:.4f}")
+    print(f"  every detector parameter changed but {still or 'none'}"
+          + (f"; validation mAP at 4: {history[3]['val_mAP']:.4f}" if val_batches else ""))
     return state, history, peak
 
 
-def pretrain_grads(state, b, budgets):
+def pretrain_grads(state, b, budgets, resolution=7):
     """One step's gradients through the kernels (twice) against the same
     step through the plain versions, on the same draws, at
     ``phase_train_grads``' tolerances; the two kernel runs side by side.
-    Also captures the box pool's inputs and its upstream gradient.
+    Also captures the inputs and the upstream gradient of the step's first
+    pool at ``resolution`` (7: the box head's; 14: the mask head's).
     Returns (two kernel runs bit-equal, the pool's maps, rois, gradient)."""
     from veto_tpu_torch.engine.pretrain import DetectorDraws, detector_forward_backward
     from veto_tpu_torch.ops import cuda_lib
@@ -3266,10 +3337,11 @@ def pretrain_grads(state, b, budgets):
     pool = {}
     real_pool = model._pool_boxes
 
-    def capture(feats, boxes, resolution):
-        out = real_pool(feats, boxes, resolution)
-        pool.update(feats=[f.detach() for f in feats[:4]], rois=boxes)
-        out.register_hook(lambda grad: pool.__setitem__("grad", grad.detach().clone()))
+    def capture(feats, boxes, res):
+        out = real_pool(feats, boxes, res)
+        if res == resolution and not pool:
+            pool.update(feats=[f.detach() for f in feats[:4]], rois=boxes)
+            out.register_hook(lambda grad: pool.__setitem__("grad", grad.detach().clone()))
         return out
 
     def grads():
@@ -3320,40 +3392,41 @@ def pretrain_grads(state, b, budgets):
     return exact, pool["feats"], pool["rois"], pool["grad"]
 
 
-def pretrain_pool(feats, rois, grad, sampled):
-    """B3 and B3-bwd alone on the step's own box pool (P2-P5, 512 rois an
-    image, P = 7), the slots the sampler left empty (proposal 0 again)
-    included: against the plain versions, two runs bit-equal, device ms
-    against the bounds.  Returns the two kernels' ms and bounds."""
+def pretrain_pool(feats, rois, grad, sampled, p=7, what="box"):
+    """B3 and B3-bwd alone on one of the step's own pools (P2-P5; the box
+    head's 512 rois an image at P = 7, the mask head's 64 at P = 14), the
+    slots the sampler left empty (proposal 0 again) included: against the
+    plain versions, two runs bit-equal, device ms against the bounds.
+    Returns the two kernels' ms and bounds."""
     from veto_tpu_torch.ops import roi_align_windowed as rw
 
     b, r = rois.shape[:2]
     levels = rw.fpn_level_assignment(rois)
     dup = r - sampled.sum(1)
     hist = torch.bincount(levels.flatten().long(), minlength=4).tolist()
-    print(f"[pretrain pool] the step's box pool: {b} x {r} rois, P2-P5 "
+    print(f"[pretrain pool] the step's {what} pool: {b} x {r} rois at P = {p}, P2-P5 "
           f"{[tuple(f.shape[1:3]) for f in feats]}, rois a level {hist}; empty "
           f"slots (proposal 0 again) an image {dup.tolist()}")
-    got = rw.multilevel_roi_align_batched(feats, rois, SCALES, 7, 2)
-    ref = rw.reference_multilevel_roi_align_batched(feats, rois, SCALES, 7, 2)
+    got = rw.multilevel_roi_align_batched(feats, rois, SCALES, p, 2)
+    ref = rw.reference_multilevel_roi_align_batched(feats, rois, SCALES, p, 2)
     # the same 16 f32 products summed in another order: a few ulps of the
     # sum of their magnitudes (the trained body's maps reach the hundreds,
     # and their taps cancel)
     mag = rw.reference_multilevel_roi_align_batched([f.abs() for f in feats], rois,
-                                                    SCALES, 7, 2)
-    check_close("B3 at the pretraining shape", got, ref, atol=1e-5 + 2.0 ** -20 * mag,
+                                                    SCALES, p, 2)
+    check_close(f"B3 at the pretraining {what} pool", got, ref, atol=1e-5 + 2.0 ** -20 * mag,
                 rtol=1e-5)
     del got, ref, mag
     need = [True] * 4
 
     def bwd():
-        return rw._launch_backward(feats, need, rois, grad, SCALES, 7, 2)
+        return rw._launch_backward(feats, need, rois, grad, SCALES, p, 2)
 
     got, again = bwd(), bwd()
     ref = rw.reference_multilevel_roi_align_backward(feats, need, rois, grad,
-                                                     SCALES, 7, 2)
+                                                     SCALES, p, 2)
     mag = rw.reference_multilevel_roi_align_backward(
-        [f.float() for f in feats], need, rois, grad.abs(), SCALES, 7, 2)
+        [f.float() for f in feats], need, rois, grad.abs(), SCALES, p, 2)
     for lvl in range(4):
         if not torch.equal(got[lvl], again[lvl]):
             raise AssertionError(f"P{lvl + 2} grad: two kernel runs differ")
@@ -3361,11 +3434,11 @@ def pretrain_pool(feats, rois, grad, sampled):
         check_close(f"B3-bwd P{lvl + 2} (two runs bit-equal)", got[lvl], ref[lvl],
                     atol=1e-5 + 2.0 ** -16 * mag[lvl], rtol=2 ** -7)
     del got, again, ref, mag
-    fwd_ms = device_ms(lambda: rw.multilevel_roi_align_batched(feats, rois, SCALES, 7, 2),
+    fwd_ms = device_ms(lambda: rw.multilevel_roi_align_batched(feats, rois, SCALES, p, 2),
                        "roi_align_fwd_kernel", 10)
     bwd_ms = device_ms(bwd, "roi_align_bwd_kernel", 10)
-    out_bytes = b * r * 49 * feats[0].shape[-1] * 4
-    fwd_bytes = roi_tap_bytes(feats, rois, levels, SCALES, 7) + rois.numel() * 4 + out_bytes
+    out_bytes = b * r * p * p * feats[0].shape[-1] * 4
+    fwd_bytes = roi_tap_bytes(feats, rois, levels, SCALES, p) + rois.numel() * 4 + out_bytes
     bwd_bytes = out_bytes + rois.numel() * 4 + sum(f.numel() * 2 for f in feats)
     fwd_bound = max(fwd_bytes / PEAK_BYTES, out_bytes / 4 * 32 / PEAK_F32) * 1e3
     bwd_bound = max(bwd_bytes / PEAK_BYTES, out_bytes / 4 * 32 / PEAK_F32) * 1e3
@@ -3552,6 +3625,280 @@ def phase_pretrain():
     return numbers
 
 
+HEAD_OPTS = ("model.mask_on=True", "model.keypoint_on=True")
+SHORT_RUN = ("solver.checkpoint_period=1000", "solver.val_period=1000")
+# a pretraining step with both heads: the box, mask and keypoint pools and
+# their backwards, and the RPN's selection
+HEADS_STEP = dict(multilevel_roi_align=3, roi_align_backward=3, nms_mask=1,
+                  nms_scan=1)
+
+
+def heads_pretrain():
+    """(a) Detector pretraining with the mask and keypoint heads: 3 steps of
+    12 VG-shaped images with masks and 17 keypoints a box through
+    ``detector_pretrain_net.train``; exact launches, the heads' losses
+    positive and every head tensor changed; one step's gradients against
+    the plain versions; B3 and B3-bwd alone on the step's own mask pool
+    (12 x 64 rois at P = 14).  Returns the numbers."""
+    from veto_tpu_torch.config import load_config
+    from veto_tpu_torch.engine.pretrain import detector_budgets
+    from veto_tpu_torch.models.sgg import build_model
+    from veto_tpu_torch.tools.relation_train_net import batches_for
+
+    cfg = load_config(os.path.join(ROOT, "configs", SGDET),
+                      [*PRETRAIN_OPTS, *HEAD_OPTS, *SHORT_RUN, "solver.max_iter=3",
+                       f"output_dir={scratch_dir()}"])
+    budgets = detector_budgets(cfg)
+    train_ds = VGShapedDataset([False] * 36, seed=31, instances=True)
+    val_ds = VGShapedDataset([False] * 8, seed=32, instances=True)
+    model = build_model(cfg, train_detector=True)
+    heads = {n: p.detach().clone() for n, p in model.named_parameters()
+             if n.startswith(("mask_", "keypoint_"))}
+    m = cfg.model
+    print(f"[heads: pretraining] {SGDET} with {', '.join(HEAD_OPTS)}: mask head "
+          f"{m.mask_conv_layers} at P = {m.mask_pooler_resolution}, keypoint head "
+          f"{m.keypoint_conv_layers} at P = {m.keypoint_pooler_resolution} "
+          f"({m.num_keypoints} keypoints), {budgets.head_rois_per_image} rois an image; "
+          f"{sum(p.numel() for p in heads.values()) / 1e6:.1f}M head parameters; "
+          f"3 steps of {cfg.solver.ims_per_batch} VG-shaped images")
+    state, history, peak = pretrain_train(cfg, model, train_ds, val_ds,
+                                          per_step=HEADS_STEP, heads=("loss_mask", "loss_kp"))
+    ms = 1e3 * history[-1]["seconds"]  # the first steps pick cuDNN's algorithms
+    still = [n for n, p in model.named_parameters() if n in heads and torch.equal(p, heads[n])]
+    if still:
+        raise AssertionError(f"head tensors unchanged: {still}")
+    host = next(batches_for(cfg, train_ds, "train")(1))[0]
+    mask_mb = host.masks.nbytes / 2 ** 20
+    print(f"  the third step {ms:.1f} ms "
+          f"({[round(1e3 * r['seconds'], 1) for r in history]}), the felt steps "
+          f"{[round(1e3 * r['step_seconds'], 1) for r in history]} ms; peak memory "
+          f"{peak / 2 ** 30:.2f} GiB; all {len(heads)} head tensors changed; the "
+          f"batch's masks {tuple(host.masks.shape)} uint8: {mask_mb:.0f} MiB a step "
+          f"({4 * mask_mb:.0f} MiB as f32)")
+    b = host.to(DEVICE)
+    del host
+    exact, feats, rois, grad = pretrain_grads(state, b, budgets, resolution=14)
+    sampled = grad.abs().amax((2, 3, 4)) > 0  # the positive rois: the mask loss's
+    print(f"  positive rois of the mask pool an image: {sampled.sum(1).tolist()}")
+    if not sampled.any():
+        raise AssertionError("the gradient step's mask pool has no positive roi")
+    fwd_ms, fwd_bound, bwd_ms, bwd_bound = pretrain_pool(feats, rois, grad, sampled,
+                                                         p=14, what="mask")
+    del state, model, feats, rois, grad, b
+    release()
+    return dict(step_ms=ms, peak_gib=peak / 2 ** 30, mask_mib_a_step=mask_mb,
+                grads_two_runs_bit_equal=exact, b3_p14_ms=fwd_ms,
+                b3_p14_bound_ms=fwd_bound, b3_bwd_p14_ms=bwd_ms,
+                b3_bwd_p14_bound_ms=bwd_bound)
+
+
+def heads_attribute():
+    """(b) The attribute head in relation training: 3 PredCls steps with
+    ``model.attribute_on`` on VG-shaped images whose boxes carry attribute
+    lists; exact launches (B3 3 a step: the attribute head's 7x7 pool on
+    top of PredCls's 2), ``attribute_loss`` finite and positive,
+    ``att_score`` changed, the detector and the box head under it
+    bit-unchanged.  Returns the step ms."""
+    from veto_tpu_torch.config import load_config
+    from veto_tpu_torch.models.sgg import build_model
+    from veto_tpu_torch.tools.relation_train_net import train
+
+    cfg = load_config(os.path.join(ROOT, "configs", PREDCLS),
+                      ["model.attribute_on=True", *SHORT_RUN, "solver.max_iter=3",
+                       f"output_dir={scratch_dir()}"])
+    model = build_model(cfg)
+    layers = cfg.veto.enc_layers
+    per_step = expected(fused_encoder_layer=layers, encoder_ffn_bwd=layers,
+                        encoder_att_bwd=layers, multilevel_roi_align=3,
+                        roi_align_backward=1)
+    frozen = frozen_state(model)
+    att = model.attribute_predictor.att_score.weight.detach().clone()
+    counts = []
+
+    def log(line):
+        if line.startswith("iter "):
+            counts.append(read_counters(reset=True))
+            print(f"  {line}  launches {json.dumps(counts[-1])}")
+
+    print(f"[heads: attribute] {PREDCLS} with model.attribute_on=True "
+          f"({cfg.model.num_attributes} attributes, loss weight "
+          f"{cfg.model.attribute_loss_weight}); 3 steps of {cfg.solver.ims_per_batch} "
+          "VG-shaped images with attribute lists")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    read_counters(reset=True)
+    _, history = train(cfg, model=model, log=log, datasets=(
+        VGShapedDataset([False] * 36, seed=33, attributes=True),
+        VGShapedDataset([False] * 8, seed=34, attributes=True)))
+    peak = torch.cuda.max_memory_allocated()
+    if len(history) != 3 or counts != [per_step] * 3:
+        raise AssertionError(f"{len(history)} steps, launches {counts}, want {per_step}")
+    if not all(np.isfinite(r[k]) and r[k] > 0 for r in history
+               for k in ("loss", "rel_loss", "attribute_loss")):
+        raise AssertionError(f"losses: {history}")
+    if torch.equal(model.attribute_predictor.att_score.weight, att):
+        raise AssertionError("att_score did not change")
+    for k, v in frozen_state(model).items():
+        if not torch.equal(v, frozen[k]):
+            raise AssertionError(f"frozen detector changed: {k}")
+    ms = 1e3 * history[-1]["seconds"]
+    print(f"  attribute_loss {[round(r['attribute_loss'], 4) for r in history]}; "
+          f"the third step {ms:.1f} ms "
+          f"({[round(1e3 * r['seconds'], 1) for r in history]}); peak "
+          f"{peak / 2 ** 30:.2f} GiB; att_score "
+          f"changed, {len(frozen)} detector tensors (box head included) bit-unchanged")
+    del model
+    release()
+    return dict(attribute_step_ms=ms, attribute_peak_gib=peak / 2 ** 30)
+
+
+def write_det_files(root, rng):
+    """A COCO instances JSON (train2017 24 images, val2017 8; 80 categories
+    with COCO's gaps in the ids, crowd annotations) and ``VOC2007`` /
+    ``VOC2012`` devkits (ImageSets/Main, Annotations XML with difficult
+    objects; train 12 each, val 8 and 4), all at VG's image sizes."""
+    from veto_tpu_torch.data.voc import VOC_CLASSES
+
+    def size():
+        long, short = int(rng.randint(450, 501)), int(rng.randint(300, 376))
+        return (long, short) if rng.rand() < 0.8 else (short, long)
+
+    cat_ids = [i for i in range(1, 91) if i not in (12, 26, 29, 30, 45, 66, 68, 69, 71, 83)]
+    os.makedirs(os.path.join(root, "annotations"))
+    for split, n in (("train", 24), ("val", 8)):
+        images, anns = [], []
+        for i in range(n):
+            w, h = size()
+            images.append({"id": 1000 + i, "width": w, "height": h,
+                           "file_name": f"{1000 + i:012d}.jpg"})
+            for _ in range(rng.randint(5, 31)):
+                x, y = rng.uniform(0, w * 0.8), rng.uniform(0, h * 0.8)
+                anns.append({"id": len(anns), "image_id": 1000 + i,
+                             "bbox": [x, y, rng.uniform(8, w * 0.4), rng.uniform(8, h * 0.4)],
+                             "category_id": int(rng.choice(cat_ids)),
+                             "iscrowd": int(rng.rand() < 0.05)})
+        with open(os.path.join(root, "annotations", f"instances_{split}2017.json"), "w") as f:
+            json.dump({"images": images, "annotations": anns,
+                       "categories": [{"id": c, "name": f"c{c}"} for c in cat_ids]}, f)
+    for year, splits in (("2007", (("train", 12), ("val", 8))),
+                         ("2012", (("train", 12), ("val", 4)))):
+        voc = os.path.join(root, f"VOC{year}")
+        os.makedirs(os.path.join(voc, "ImageSets", "Main"))
+        os.makedirs(os.path.join(voc, "Annotations"))
+        for split, n in splits:
+            names = [f"{year}_{split}_{i:06d}" for i in range(n)]
+            with open(os.path.join(voc, "ImageSets", "Main", f"{split}.txt"), "w") as f:
+                f.write("\n".join(names) + "\n")
+            for name in names:
+                w, h = size()
+                objs = []
+                for _ in range(rng.randint(2, 11)):
+                    x1, y1 = int(rng.randint(1, w * 0.7)), int(rng.randint(1, h * 0.7))
+                    objs.append(
+                        f"<object><name>{VOC_CLASSES[rng.randint(1, 21)]}</name>"
+                        f"<difficult>{int(rng.rand() < 0.1)}</difficult><bndbox>"
+                        f"<xmin>{x1}</xmin><ymin>{y1}</ymin>"
+                        f"<xmax>{min(x1 + int(rng.randint(10, w * 0.4)), w)}</xmax>"
+                        f"<ymax>{min(y1 + int(rng.randint(10, h * 0.4)), h)}</ymax>"
+                        "</bndbox></object>")
+                with open(os.path.join(voc, "Annotations", f"{name}.xml"), "w") as f:
+                    f.write(f"<annotation><size><width>{w}</width><height>{h}</height>"
+                            f"</size>{''.join(objs)}</annotation>")
+
+
+def heads_coco_voc():
+    """(c) COCO and VOC: the files of :func:`write_det_files`, routed by
+    ``build_dataset`` (``coco_2017``; ``VOC2007+VOC2012`` concatenated for
+    train, ``VOC2007`` for val), the pixels seeded in memory through a
+    subclass's ``load_image`` (the card's machine has no PIL); 2 pretraining
+    steps on each, exact launches; the VOC evaluator on one VOC val batch's
+    detections.  Returns the VOC mAP (seeded weights)."""
+    from veto_tpu_torch.config import load_config
+    from veto_tpu_torch.data.coco import COCODetDataset
+    from veto_tpu_torch.data.compound import ConcatDataset
+    from veto_tpu_torch.data.voc import VOCDataset
+    from veto_tpu_torch.engine.evaluate import to_numpy
+    from veto_tpu_torch.evaluation.voc_eval import VOCEvaluator
+    from veto_tpu_torch.models.sgg import build_model
+    from veto_tpu_torch.tools.relation_train_net import batches_for, build_dataset
+
+    class Pixels:
+        """Seeded u8 pixels at each image's size, in place of its file."""
+
+        def load_image(self, index):
+            info = self.img_info[index]
+            rng = np.random.RandomState(index)
+            return rng.randint(0, 256, (info["height"], info["width"], 3),
+                               dtype=np.uint8).astype(np.float32) / 255.0
+
+    class COCO(Pixels, COCODetDataset):
+        pass
+
+    class VOC(Pixels, VOCDataset):
+        pass
+
+    root = scratch_dir()
+    write_det_files(root, np.random.RandomState(35))
+
+    def in_memory(ds):
+        """The routed dataset's in-memory twin, its records checked equal."""
+        if isinstance(ds, ConcatDataset):
+            twin = ConcatDataset([in_memory(d) for d in ds.datasets])
+        elif isinstance(ds, COCODetDataset):
+            twin = COCO(ds.ann_file, ds.img_dir)
+        else:
+            twin = VOC(ds.root, ds.split)
+        same = all(np.array_equal(twin.get_groundtruth(i, inner_idx=False)["boxes"],
+                                  ds.get_groundtruth(i, inner_idx=False)["boxes"])
+                   for i in range(len(ds)))
+        if len(twin) != len(ds) or not same:
+            raise AssertionError(f"{type(ds).__name__}: the in-memory twin differs")
+        return twin
+
+    model, mAP = None, None
+    for name in ("coco_2017", "VOC2007+VOC2012"):
+        cfg = load_config(os.path.join(ROOT, "configs", SGDET),
+                          [*PRETRAIN_OPTS, *SHORT_RUN, "solver.max_iter=2",
+                           f"data.data_dir={root}", f"data.dataset={name}",
+                           f"output_dir={scratch_dir()}"])
+        train_ds = in_memory(build_dataset(cfg, "train"))
+        val_ds = in_memory(build_dataset(cfg, "val"))
+        print(f"[heads: {name}] train {type(train_ds).__name__} of {len(train_ds)} "
+              f"images, val {type(val_ds).__name__} of {len(val_ds)}; 2 pretraining "
+              "steps")
+        if model is None:
+            model = build_model(cfg, train_detector=True)
+        pretrain_train(cfg, model, train_ds, val_ds)
+    host, recs = next(iter(batches_for(cfg, val_ds, "val")(0)))
+    b = host.to(DEVICE)
+    model.eval()
+    read_counters(reset=True)
+    with torch.no_grad():
+        dets = to_numpy(model.detect(b.images, b.sizes.float()).detections)
+    if read_counters(reset=True) != expected(**DETECT_BATCH):
+        raise AssertionError("the VOC batch's detection launches differ from a batch's")
+    ev = VOCEvaluator(use_07_metric=True)
+    for i, rec in enumerate(recs):
+        m = dets.mask[i]
+        ev.add_image(dets.boxes[i][m], dets.labels[i][m], dets.scores[i][m],
+                     rec["boxes"], rec["labels"], rec["difficult"])
+    agg = ev.aggregate()
+    mAP = agg["map"]
+    print(f"  VOCEvaluator (07 11-point) on one val batch of {len(recs)}: "
+          f"{int(dets.mask.sum())} detections, mAP {mAP:.4f} (seeded weights: no "
+          "detector was trained to this)")
+    del model
+    release()
+    return dict(voc_map_seeded=mAP)
+
+
+def phase_heads():
+    """Phase 18: the detector's other data and heads at full width."""
+    numbers = {**heads_pretrain(), **heads_attribute(), **heads_coco_voc()}
+    print(f"[heads numbers] {card()}: {json.dumps(numbers)}")
+    return numbers
+
+
 _SCRATCH = []
 
 
@@ -3607,6 +3954,7 @@ def main() -> int:
     kernels.append(n1)
     phase_meet()
     phase_pretrain()
+    phase_heads()
     # each kernel's launches on the training path that runs it
     launches.update(pair_attention=pa_launches["pair_attention"],
                     pair_attention_backward=pa_launches["pair_attention_backward"],

@@ -4,8 +4,8 @@ shipped defaults still build, train and evaluate.
 
 - ``model.pretrained_detector_ckpt``: ``train`` imports the detector from
   it (slice A8a) and refuses a file that is not a checkpoint.
-- ``model.attribute_on`` / ``mask_on`` / ``keypoint_on``: the JAX
-  ``build_model`` builds those heads; the port's refuses them (A14).
+- ``model.attribute_on`` / ``mask_on`` / ``keypoint_on``: the port builds
+  those heads, as the JAX ``build_model`` does (A13b; refused before).
 - ``test.zeroshot_file`` with ``test.zeroshot_eval``: the evaluator loads
   the triplets from it (A8b) and refuses a file that holds none.
 - ``output_dir/ckpt``: ``evaluate`` restores the latest checkpoint there
@@ -83,8 +83,24 @@ def test_train_refuses_a_detector_checkpoint(tmp_path):
 
 @pytest.mark.parametrize("key", ("attribute_on", "mask_on", "keypoint_on"))
 def test_build_model_refuses_the_heads_it_does_not_build(key):
-    with pytest.raises(NotImplementedError, match=f"model.{key}.*A14"):
-        build_model(_cfg(SMALL + [f"model.{key}=True"]), "cpu")
+    """Since slice A13b the port builds all three heads (the attribute head
+    over a frozen box head, ``att_score`` trained; the mask and keypoint
+    heads trained), at the widths their keys give; none is refused."""
+    extra = {"attribute_on": ["model.num_attributes=13"],
+             "mask_on": ["model.mask_conv_layers=(16,8)"],
+             "keypoint_on": ["model.num_keypoints=5"]}[key]
+    model = build_model(_cfg(SMALL + [f"model.{key}=True", "model.box_mlp_head_dim=16",
+                                      *extra]), "cpu")
+    if key == "attribute_on":
+        assert model.attribute_predictor.att_score.weight.shape == (13, 16)
+        assert model.attribute_predictor.att_score.weight.requires_grad
+        assert not model.box_extractor.fc6.weight.requires_grad
+    elif key == "mask_on":
+        assert model.mask_extractor.mask_fcn2.weight.shape == (8, 16, 3, 3)
+        assert model.mask_predictor.conv5_mask.weight.shape == (8, 8, 2, 2)
+        assert model.mask_predictor.mask_fcn_logits.weight.shape[0] == 151
+    else:
+        assert model.keypoint_predictor.kps_score_lowres.weight.shape == (512, 5, 4, 4)
 
 
 def test_evaluator_refuses_a_zeroshot_file(tmp_path):

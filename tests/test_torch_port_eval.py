@@ -61,7 +61,7 @@ def test_eval_step_matches_jax_f32(interpret):
                              num_obj_classes=NUM_OBJ, num_rel_classes=NUM_REL,
                              max_objects=6, min_objects=3, seed=11)
     batch, recs = next(ds.batches(2, MAX_BOXES))
-    jbatch = JBatch(**{k: jnp.asarray(v) for k, v in vars(batch).items()})
+    jbatch = JBatch(**{k: jnp.asarray(v) for k, v in batch.fields().items()})
 
     jm = JModel(mode="predcls", **SMALL, dtype=jnp.float32,
                 veto_encoder_impl="fused", pooler_impl="separable",

@@ -366,7 +366,7 @@ def predcls_meet():
                              max_objects=MAX_BOXES - 2, min_objects=3,
                              max_relations=4, seed=11)
     batch, recs = next(ds.batches(2, MAX_BOXES))
-    jb = JBatch(**{k: jnp.asarray(v) for k, v in vars(batch).items()})
+    jb = JBatch(**{k: jnp.asarray(v) for k, v in batch.fields().items()})
     jm = JModel(mode="predcls", **TINY, meet_group_sizes=GROUPS, meet_experts=1,
                 dtype=jnp.float32, veto_encoder_impl="xla", pooler_impl="separable",
                 veto_remat=False, fold_bn=True)

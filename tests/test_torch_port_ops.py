@@ -170,19 +170,30 @@ def test_encoder_gelu_is_the_rational_erf():
 
 # ------------------------------------------------------ isolation & devices
 def test_port_imports_no_jax():
+    """Every module of the port imports with JAX, flax, the JAX package and
+    OpenCV blocked, and with PIL and h5py blocked too: the port reads image
+    and HDF5 files only inside the functions that read them, and needs no
+    OpenCV anywhere."""
     code = (
         "import sys\n"
-        "for m in ('jax', 'flax', 'veto_tpu'): sys.modules[m] = None\n"
+        "for m in ('jax', 'flax', 'veto_tpu', 'cv2', 'PIL', 'h5py'):\n"
+        "    sys.modules[m] = None\n"
         "import importlib, pkgutil, veto_tpu_torch\n"
         "mods = [m.name for m in pkgutil.walk_packages(veto_tpu_torch.__path__,"
         " 'veto_tpu_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
         "assert len(mods) > 20, mods\n"
-        "new = {'veto_tpu_torch.engine.pretrain', 'veto_tpu_torch.engine.bbox_aug',\n"
-        "       'veto_tpu_torch.models.detector.losses',\n"
-        "       'veto_tpu_torch.tools.detector_pretrain_net',\n"
-        "       'veto_tpu_torch.tools.detector_pretest_net'}\n"
+        "new = {'veto_tpu_torch.data.coco', 'veto_tpu_torch.data.voc',\n"
+        "       'veto_tpu_torch.data.compound', 'veto_tpu_torch.evaluation.voc_eval',\n"
+        "       'veto_tpu_torch.structures.masks', 'veto_tpu_torch.structures.keypoints',\n"
+        "       'veto_tpu_torch.models.detector.mask_head',\n"
+        "       'veto_tpu_torch.models.detector.keypoint_head',\n"
+        "       'veto_tpu_torch.models.detector.attribute_head'}\n"
         "assert new <= set(mods), new - set(mods)\n"
+        "from veto_tpu_torch.models.detector.keypoint_head import heatmaps_to_keypoints\n"
+        "import numpy as np\n"
+        "heatmaps_to_keypoints(np.zeros((1, 2, 8, 8), np.float32),\n"
+        "                      np.array([[0, 0, 20, 12]], np.float32))\n"
         "print('imported', len(mods))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)

@@ -265,7 +265,7 @@ def small_model_pair_attn():
                              max_objects=6, min_objects=4, max_relations=6,
                              seed=11)
     batch, _ = next(ds.batches(2, MAX_BOXES))
-    jbatch = JBatch(**{k: jnp.asarray(v) for k, v in vars(batch).items()})
+    jbatch = JBatch(**{k: jnp.asarray(v) for k, v in batch.fields().items()})
     jm = JModel(mode="predcls", **SMALL, dtype=jnp.float32,
                 veto_encoder_impl="pair_attn", pooler_impl="separable",
                 veto_remat=False)

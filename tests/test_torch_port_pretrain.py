@@ -25,21 +25,24 @@ import jax.numpy as jnp
 
 from veto_tpu.config import load_config as j_load_config
 from veto_tpu.config.defaults import SolverConfig as JSolverConfig
-from veto_tpu.engine import pretrain as jpretrain
 from veto_tpu.engine.batch import SGGBatch as JBatch
-from veto_tpu.engine.train import TrainState as JTrainState
 from veto_tpu.models.detector import losses as jl
 from veto_tpu.models.sgg import SGGModel as JModel
 from veto_tpu.ops.box_ops import encode_boxes as j_encode
 from veto_tpu.solver.optim import make_optimizer as j_make_optimizer
 from veto_tpu.solver.optim import multistep_scale as j_multistep
 
+from torch_port_det_steps import compiled as _compiled
+from torch_port_det_steps import draws as _draws
+from torch_port_det_steps import jax_draws as _jax_draws
+from torch_port_det_steps import keep_grads as _keep_grads
+from torch_port_det_steps import run_jax_detector_step
 from torch_port_flax_tree import flax_variables
 from veto_tpu_torch.config import SolverConfig, load_config
 from veto_tpu_torch.data.synthetic import SyntheticSGGDataset
 from veto_tpu_torch.engine import pretrain as tpretrain
 from veto_tpu_torch.engine.pretrain import (
-    DetectorBudgets, DetectorDraws, create_detector_state,
+    DetectorBudgets, create_detector_state,
     detector_forward_backward, detector_train_step,
 )
 from veto_tpu_torch.models.detector import losses as tl
@@ -63,7 +66,7 @@ BUDGETS = DetectorBudgets(rpn_batch_size=64, rpn_positive_fraction=0.5,
                           box_positive_fraction=0.25, box_fg_iou=0.5,
                           box_bg_iou=0.3, rpn_pre_nms_top_n=64,
                           rpn_post_nms_top_n=16, rpn_fpn_post_nms_top_n=16,
-                          rpn_nms_thresh=0.7)
+                          rpn_nms_thresh=0.7, head_rois_per_image=64)
 SOLVER = dict(optimizer="sgd", ims_per_batch=2, base_lr=5e-3, bias_lr_factor=2.0,
               weight_decay=0.1, weight_decay_bias=0.05, momentum=0.9,
               grad_clip_norm=5.0)
@@ -139,18 +142,6 @@ def test_match_boxes_matches_jax(low_quality):
     np.testing.assert_array_equal(got.numpy(), ref)
     assert (ref[:, 3] == 0).all() and (ref[:, 17] == 0).all()
     assert {-2, -1}.issubset(set(got.flatten().tolist()))
-
-
-@jax.jit
-def _split_keys(keys):
-    return jax.vmap(jax.random.split)(keys)
-
-
-def _draws(keys, n):
-    """``balanced_sample``'s two uniforms of each key: (B, n) each."""
-    kp, kn = jnp.moveaxis(_split_keys(keys), 1, 0)
-    uniform = jax.vmap(lambda k: jax.random.uniform(k, (n,)))
-    return _t(uniform(kp)), _t(uniform(kn))
 
 
 @pytest.mark.parametrize("batch_size,fraction", [(16, 0.5), (64, 0.25)])
@@ -302,14 +293,6 @@ def _batch():
     return next(ds.batches(2, MAX_BOXES))[0]
 
 
-def _compiled(fn, *args):
-    """``jax.jit(fn)`` compiled for ``args`` with the CPU backend's LLVM
-    optimisations off: the same XLA program (fusions and all), compiled in
-    half the time."""
-    return jax.jit(fn).lower(*args).compile(
-        compiler_options={"xla_backend_optimization_level": 0})
-
-
 def _port_model(fold_bn=True, seed=0):
     from veto_tpu_torch.models.sgg import init_weights
 
@@ -317,26 +300,6 @@ def _port_model(fold_bn=True, seed=0):
                      veto_encoder_impl="xla", train_detector=True)
     init_weights(model, seed)
     return model
-
-
-def _keep_grads(inner):
-    """``inner`` (an ``inject_hyperparams`` optimizer) whose state also
-    keeps the step's raw gradients, so one jitted ``make_detector_train_step``
-    gives the losses, the gradients and the update."""
-    class State(tuple):
-        hyperparams = property(lambda self: self[0].hyperparams)
-
-    jax.tree_util.register_pytree_node(
-        State, lambda s: (tuple(s), None), lambda _, c: State(c))
-
-    def init(params):
-        return State((inner.init(params), jax.tree.map(jnp.zeros_like, params)))
-
-    def update(grads, state, params=None):
-        upd, s = inner.update(grads, state[0], params)
-        return upd, State((s, grads))
-
-    return optax.GradientTransformation(init, update)
 
 
 @pytest.fixture(scope="module")
@@ -348,7 +311,7 @@ def step_setup():
     parameters, the proposals of its selection (recorded by a debug
     callback in the JAX package's ``rpn_select_proposals``) and its draws."""
     batch = _batch()
-    jb = JBatch(**{k: jnp.asarray(v) for k, v in vars(batch).items()})
+    jb = JBatch(**{k: jnp.asarray(v) for k, v in batch.fields().items()})
     model = _port_model()
     jm = JModel(mode="sgdet", **TINY, fold_bn=True, dtype=jnp.float32,
                 veto_encoder_impl="xla", pooler_impl="separable", veto_remat=False)
@@ -356,52 +319,19 @@ def step_setup():
         jm, model, jax.random.PRNGKey(0), jb.images[:1], jb.depth[:1], jb.boxes[:1],
         jb.box_mask[:1], jb.labels[:1], jb.obj_logits[:1],
         jnp.zeros((1, 4, 2), jnp.int32), jnp.ones((1, 4), bool))
-    params = variables["params"]
-    tx = _keep_grads(j_make_optimizer(JSolverConfig(**SOLVER), params,
+    tx = _keep_grads(j_make_optimizer(JSolverConfig(**SOLVER), variables["params"],
                                       frozen_prefixes=()))
     rng = jax.random.PRNGKey(11)
-    state = JTrainState(step=jnp.asarray(0, jnp.int32), params=params,
-                        batch_stats=variables["batch_stats"],
-                        opt_state=jax.jit(tx.init)(params),
-                        rng=rng)
-    seen = []
-    select = jpretrain.rpn_select_proposals
-
-    def recorded(*args):
-        out = select(*args)
-        jax.debug.callback(lambda *x: seen.append([np.asarray(a) for a in x]),
-                           *out, ordered=True)  # one call an image, in order
-        return out
-
-    jpretrain.rpn_select_proposals = recorded
-    try:
-        step = jpretrain.make_detector_train_step(
-            jm, tx, rpn_batch_size=BUDGETS.rpn_batch_size,
-            box_batch_size=BUDGETS.box_batch_size,
-            rpn_pre_nms_top_n=BUDGETS.rpn_pre_nms_top_n,
-            rpn_post_nms_top_n=BUDGETS.rpn_post_nms_top_n,
-            rpn_fpn_post_nms_top_n=BUDGETS.rpn_fpn_post_nms_top_n)
-        args = (state, jb, jnp.asarray(LR_SCALE, jnp.float32))
-        new, metrics = _compiled(step, *args)(*args)
-        jax.block_until_ready(metrics)
-    finally:
-        jpretrain.rpn_select_proposals = select
-    assert len(seen) == 2
-    proposals = Proposals(*(_t(np.stack([s[i] for s in seen])) for i in range(3)))
+    metrics, grads, new_params, proposals = run_jax_detector_step(
+        jm, variables, tx, jb, rng, LR_SCALE, rpn_batch_size=BUDGETS.rpn_batch_size,
+        box_batch_size=BUDGETS.box_batch_size,
+        rpn_pre_nms_top_n=BUDGETS.rpn_pre_nms_top_n,
+        rpn_post_nms_top_n=BUDGETS.rpn_post_nms_top_n,
+        rpn_fpn_post_nms_top_n=BUDGETS.rpn_fpn_post_nms_top_n)
+    assert proposals[0].shape[0] == 2
     return dict(batch=batch, model=model, jm=jm, variables=variables, rng=rng,
-                metrics=jax.tree.map(np.asarray, metrics),
-                grads=jax.tree.map(np.asarray, new.opt_state[1]),
-                new_params=jax.tree.map(np.asarray, new.params), proposals=proposals)
-
-
-def _jax_draws(rng, b, num_anchors, num_props):
-    """The step's uniforms as ``make_detector_train_step`` derives them
-    (``veto_tpu/engine/pretrain.py:61-64`` and ``balanced_sample``)."""
-    step_rng = jax.random.fold_in(rng, 0)
-    out = []
-    for stream, n in ((0, num_anchors), (1, num_props)):
-        out += _draws(jax.random.split(jax.random.fold_in(step_rng, stream), b), n)
-    return DetectorDraws(*out)
+                metrics=metrics, grads=grads, new_params=new_params,
+                proposals=Proposals(*proposals))
 
 
 def _flax_named(tree):

@@ -195,7 +195,7 @@ def sgcls_variables():
                              max_objects=6, min_objects=4, max_relations=6,
                              seed=11)
     batch, recs = next(ds.batches(2, MAX_BOXES))
-    jbatch = JBatch(**{k: jnp.asarray(v) for k, v in vars(batch).items()})
+    jbatch = JBatch(**{k: jnp.asarray(v) for k, v in batch.fields().items()})
     jm = JModel(mode="sgcls", **SMALL, dtype=jnp.float32,
                 veto_encoder_impl="fused", pooler_impl="separable",
                 veto_remat=False)

@@ -321,7 +321,7 @@ def sgdet_setup():
                              max_objects=MAX_BOXES - 2, min_objects=3,
                              max_relations=4, seed=3)
     batch, recs = next(ds.batches(2, MAX_BOXES))
-    jb = JBatch(**{k: jnp.asarray(v) for k, v in vars(batch).items()})
+    jb = JBatch(**{k: jnp.asarray(v) for k, v in batch.fields().items()})
     jm = JModel(mode="sgdet", **TINY, dtype=jnp.float32, veto_encoder_impl="xla",
                 pooler_impl="separable", veto_remat=False)
     variables = jax.jit(jm.init, static_argnames="method")(

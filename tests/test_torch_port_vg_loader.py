@@ -32,7 +32,7 @@ from veto_tpu_torch.evaluation.sgg_eval import (
 )
 
 FIELDS = ("images", "depth", "boxes", "box_mask", "labels", "obj_logits",
-          "rel_matrix", "sizes")
+          "rel_matrix", "sizes", "attributes")
 
 
 @pytest.fixture(scope="module")

@@ -18,7 +18,10 @@ The port's copy of the JAX loader, with the port's own collate
   * ``iterations(max_iter, start_iter)`` yields ``max_iter - start_iter``
     batches.  As in the JAX loader, the index stream restarts at epoch 0
     whatever ``start_iter`` is: a resumed run does not continue the
-    interrupted run's data stream.
+    interrupted run's data stream;
+  * a record's boxes follow its image's resize, and so do its keypoints and
+    instance masks when it carries them (:func:`resize_instances`; the JAX
+    loader scales boxes only, and is never given masks).
 """
 
 from __future__ import annotations
@@ -61,14 +64,30 @@ def load_pixels(dataset, inner: int, min_size: int, max_size: int, pixel_mean,
     return image, depth, (h0, w0), (oh, ow)
 
 
+def resize_instances(rec: Dict, h0: int, w0: int, oh: int, ow: int) -> Dict:
+    """A copy of ``rec`` with its boxes, and its keypoints and instance masks
+    when it carries them, taken from the (h0, w0) image to its (oh, ow)
+    resize: boxes and keypoints scale, masks resample to the nearest source
+    pixel (pixel centres; they stay 0/1)."""
+    sy, sx = oh / h0, ow / w0
+    out = dict(rec)
+    out["boxes"] = rec["boxes"] * np.array([sx, sy, sx, sy], np.float32)
+    if rec.get("keypoints") is not None:
+        kps = np.array(rec["keypoints"], np.float32)
+        kps[..., 0] *= sx
+        kps[..., 1] *= sy
+        out["keypoints"] = kps
+    if rec.get("masks") is not None and (oh, ow) != (h0, w0):
+        rows = np.minimum(((np.arange(oh) + 0.5) * (h0 / oh)).astype(np.int64), h0 - 1)
+        cols = np.minimum(((np.arange(ow) + 0.5) * (w0 / ow)).astype(np.int64), w0 - 1)
+        out["masks"] = rec["masks"][:, rows][:, :, cols]
+    return out
+
+
 def finish_record(rec: Dict, pixels) -> Dict:
     image, depth, (h0, w0), (oh, ow) = pixels
-    # boxes scale with the resize
-    sy, sx = oh / h0, ow / w0
-    boxes = rec["boxes"] * np.array([sx, sy, sx, sy], np.float32)
-    out = dict(rec)
-    out.update(image=image, depth=depth, boxes=boxes,
-               size=np.array([ow, oh], np.int32))
+    out = resize_instances(rec, h0, w0, oh, ow)
+    out.update(image=image, depth=depth, size=np.array([ow, oh], np.int32))
     return out
 
 
@@ -204,10 +223,8 @@ class SGGLoader:
                         depth=np.empty((bsz, ph, pw, 1), np.float32),
                         recs=[], futs=[])
                 slot = len(buf["recs"])
-                rec = dict(ds.get_groundtruth(i, inner_idx=False))
-                sy, sx = oh / h0, ow / w0
-                rec["boxes"] = rec["boxes"] * np.array([sx, sy, sx, sy],
-                                                       np.float32)
+                rec = resize_instances(ds.get_groundtruth(i, inner_idx=False),
+                                       h0, w0, oh, ow)
                 rec["size"] = np.array([ow, oh], np.int32)
                 buf["recs"].append(rec)
                 buf["futs"].append(ex.submit(task, inner, oh, ow,

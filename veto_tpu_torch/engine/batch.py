@@ -31,11 +31,20 @@ class SGGBatch:
     obj_logits: Any  # (B, N, num_obj) detector logits (PredCls: one-hot)
     rel_matrix: Any  # (B, N, N) int32 GT predicate matrix (0 = none)
     sizes: Any       # (B, 2) int32 (width, height) before padding
+    attributes: Any = None  # (B, N, 10) int32 attribute ids (0 = none)
+    masks: Any = None       # (B, N, H, W) uint8 0/1 instance masks, or None
+    keypoints: Any = None   # (B, N, K, 3) float32 [x, y, visibility], or None
+
+    def fields(self) -> Dict[str, Any]:
+        """The fields that hold an array (masks and keypoints only when the
+        batch carries them)."""
+        return {f.name: getattr(self, f.name) for f in dataclasses.fields(self)
+                if getattr(self, f.name) is not None}
 
     def to(self, device) -> "SGGBatch":
         """The same batch as torch tensors on ``device`` (a pageable copy)."""
-        return SGGBatch(**{f.name: torch.as_tensor(getattr(self, f.name)).to(device)
-                           for f in dataclasses.fields(self)})
+        return SGGBatch(**{k: torch.as_tensor(v).to(device)
+                           for k, v in self.fields().items()})
 
 
 _END = object()
@@ -96,8 +105,8 @@ class DeviceFeeder:
                     raise item
                 batch, recs, event = item
                 consumer.wait_event(event)
-                for f in dataclasses.fields(batch):
-                    getattr(batch, f.name).record_stream(consumer)
+                for t in batch.fields().values():
+                    t.record_stream(consumer)
                 self.waits.append(wait)
                 yield batch, recs
         finally:
@@ -130,15 +139,15 @@ class DeviceFeeder:
                         return
                     fields = {}
                     with torch.cuda.stream(side):
-                        for f in dataclasses.fields(host):
-                            arr = np.ascontiguousarray(getattr(host, f.name))
-                            key = (f.name, arr.shape, arr.dtype.str)
+                        for name, arr in host.fields().items():
+                            arr = np.ascontiguousarray(arr)
+                            key = (name, arr.shape, arr.dtype.str)
                             buf = pinned.get(key)
                             if buf is None:
                                 buf = pinned[key] = torch.from_numpy(arr).pin_memory()
                             else:
                                 buf.copy_(torch.from_numpy(arr))
-                            fields[f.name] = buf.to(self.device, non_blocking=True)
+                            fields[name] = buf.to(self.device, non_blocking=True)
                     event = torch.cuda.Event()
                     event.record(side)
                     # the pinned buffers are reused for the next batch of

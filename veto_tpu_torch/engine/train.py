@@ -31,6 +31,16 @@ from ``state.generator`` after the pair sampler's draws of the same step
 (the JAX package folds the step's key instead), so a resumed run stays
 bit-equal.  The other loss variants (label smoothing, LDAM, balanced
 norm) raise ``NotImplementedError``.
+
+Attributes (a model with ``attribute_on``, PredCls and SGCls, as in the
+JAX package): ``attribute_loss`` over every box's attribute list joins the
+losses, with ``state.attribute_cfg`` (``create_train_state(attribute_cfg=)``,
+the tools pass ``model.attribute_*``); its negatives rank one uniform a
+box drawn from ``state.generator`` after the other draws of the step (or
+``attribute_draws=``).  ``att_score`` trains; the frozen box head's fc6 /
+fc7 under it take no gradient, and ``grad_norm`` counts none for them
+(the JAX step's global norm counts the gradient its attribute loss sends
+into that frozen box head: ROADMAP queue C).
 """
 
 from __future__ import annotations
@@ -41,6 +51,7 @@ from typing import Dict, NamedTuple, Optional, Union
 import torch
 from torch import nn
 
+from ..models.detector.attribute_head import attribute_loss
 from ..models.detector.box_head import assign_labels_to_proposals
 from ..models.relation.predictor_meet import MeetConfig, meet_losses
 from ..models.relation.predictor_veto import weighted_ce_loss
@@ -59,14 +70,17 @@ class TrainState:
     step: int = 0  # updates applied so far
     generator: Optional[torch.Generator] = None  # the pair sampler's
     meet: Optional[MeetConfig] = None  # its constants on the model's device
+    attribute_cfg: Optional[dict] = None  # attribute_loss's keyword arguments
 
 
 def create_train_state(model: nn.Module, solver_cfg, class_weights=None,
                        mode: str = "predcls", loss_variant: str = "weighted_ce",
-                       meet=None) -> TrainState:
+                       meet=None, attribute_cfg: Optional[dict] = None) -> TrainState:
     """The state of a training run over ``model``'s parameters; ``meet`` (a
     :class:`MeetConfig`) trains MEET's per-group losses, and then the
-    class weights are not used."""
+    class weights are not used; ``attribute_cfg`` holds
+    :func:`attribute_loss`'s keyword arguments (its defaults when None)
+    for a model with ``attribute_on``."""
     check_mode(mode)
     if mode != model.mode:
         raise ValueError(f"mode {mode!r} for a model built for {model.mode!r}")
@@ -80,7 +94,8 @@ def create_train_state(model: nn.Module, solver_cfg, class_weights=None,
         meet = meet._replace(
             incre_idx=torch.as_tensor(meet.incre_idx, device=dev),
             sample_rate=torch.as_tensor(meet.sample_rate, device=dev))
-    return TrainState(model, make_optimizer(solver_cfg, model), cw, meet=meet)
+    return TrainState(model, make_optimizer(solver_cfg, model), cw, meet=meet,
+                      attribute_cfg=attribute_cfg)
 
 
 def sample_pairs(batch, generator: torch.Generator,
@@ -142,14 +157,32 @@ def _rel_losses(state: TrainState, rel_logits, labels, mask,
                        m.sample_rate, m.group_sizes, member=member)
 
 
+def _attribute_loss(state: TrainState, logits, batch,
+                    draws: Optional[torch.Tensor]) -> torch.Tensor:
+    """The attribute loss of every box of the batch, its negatives ranked by
+    ``draws`` ((B * N,) uniforms), else by a draw from ``state.generator``."""
+    b, n = batch.box_mask.shape
+    if draws is None:
+        if state.generator is None:
+            raise ValueError("the attribute loss draws from state.generator: set it")
+        draws = torch.rand(b * n, generator=state.generator, device=logits.device)
+    return attribute_loss(logits.reshape(b * n, -1), batch.attributes.reshape(b * n, -1),
+                          batch.box_mask.reshape(-1), draws,
+                          **(state.attribute_cfg or {})).loss
+
+
 def forward_backward(state: TrainState, batch,
                      samples: Union[RelSample, DetSample],
-                     member: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+                     member: Optional[torch.Tensor] = None,
+                     attribute_draws: Optional[torch.Tensor] = None
+                     ) -> Dict[str, torch.Tensor]:
     """Train-mode forward and the loss's backward on the given pairs: the
     trainable parameters' ``.grad`` hold the step's gradients.  Returns the
     losses, detached: ``loss`` (their sum), ``rel_loss`` (with MEET the
     ``group_*`` losses instead; ``member``, (B, P, G) bool, routes the
-    pairs in place of a draw) and, outside PredCls, ``obj_loss``."""
+    pairs in place of a draw), with ``attribute_on`` ``attribute_loss``
+    (``attribute_draws``, (B * N,) uniforms, rank its negatives in place of
+    a draw) and, outside PredCls, ``obj_loss``."""
     model = state.model
     model.train()
     state.optimizer.zero_grad()
@@ -171,6 +204,9 @@ def forward_backward(state: TrainState, batch,
                     samples.mask)
         losses = _rel_losses(state, out.rel_logits, samples.labels,
                              samples.mask, member)
+        if out.attribute_logits is not None:
+            losses["attribute_loss"] = _attribute_loss(
+                state, out.attribute_logits, batch, attribute_draws)
         if model.mode != "predcls":
             # the cross-entropy of the predictor's obj_dists against the GT
             # labels.  obj_dists is the one-hot of the NMS's labels and
@@ -185,10 +221,12 @@ def forward_backward(state: TrainState, batch,
 
 def train_on_pairs(state: TrainState, batch,
                    samples: Union[RelSample, DetSample], lr_scale: float,
-                   member: Optional[torch.Tensor] = None) -> Dict[str, object]:
+                   member: Optional[torch.Tensor] = None,
+                   attribute_draws: Optional[torch.Tensor] = None) -> Dict[str, object]:
     """Forward, loss, backward and update on the given pairs (with MEET
-    routed by ``member`` when given)."""
-    metrics = forward_backward(state, batch, samples, member)
+    routed by ``member``, the attribute loss's negatives ranked by
+    ``attribute_draws``, when given)."""
+    metrics = forward_backward(state, batch, samples, member, attribute_draws)
     grad_norm = state.optimizer.step(lr_scale)
     state.step += 1
     return {**metrics, "grad_norm": grad_norm.detach(),

@@ -20,6 +20,19 @@ class Conv2d(nn.Conv2d):
         return self._conv_forward(x, self.weight.to(x.dtype), b)
 
 
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """``nn.ConvTranspose2d`` computing in the input's dtype (NCHW, any
+    memory format).  Its weight is (in, out, kh, kw), the true transpose of
+    a convolution; flax's ``ConvTranspose`` kernel is the same map spatially
+    flipped (``utils/jax_weights.py`` converts)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b = None if self.bias is None else self.bias.to(x.dtype)
+        return F.conv_transpose2d(x, self.weight.to(x.dtype), b, self.stride,
+                                  self.padding, self.output_padding, self.groups,
+                                  self.dilation)
+
+
 class Dense(nn.Linear):
     """``nn.Linear`` computing in a fixed dtype (flax ``nn.Dense(dtype=)``):
     input, weight and bias are cast to ``dtype`` first."""

@@ -44,6 +44,21 @@ inside autograd (the JAX package's methods of those names, without
 ``stop_gradient``); the box pool's gradient reaches P2-P5 through the
 ROIAlign backward.
 
+The detector's other heads, built as the JAX model builds them:
+
+  * ``attribute_on``: :class:`~.detector.attribute_head.AttributePredictor`
+    over the box head's fc7 features of the GT boxes
+    (:meth:`SGGModel.attribute_forward`: the box head's own 7x7 pool, one
+    more B3 launch, and the frozen fc6/fc7, so no gradient reaches the
+    maps); the forward's ``attribute_logits``.  The box head's fc6/fc7 are
+    built for it in every mode, frozen in relation training as the JAX
+    package freezes them; ``att_score`` trains.
+  * ``mask_on`` and ``keypoint_on``: the mask and keypoint heads
+    (:meth:`SGGModel.mask_forward`, :meth:`SGGModel.keypoint_forward`),
+    each with its own 14x14 pool of the rois on P2-P5 (a B3 launch each,
+    whose backward B3-bwd takes their gradient into the maps), trained in
+    detector pretraining (``engine/pretrain.py``).
+
 Layout: NHWC images, (B, N) padded boxes, (B, P) padded pairs — the JAX
 package's, so the two take the same batch.
 """
@@ -62,10 +77,13 @@ from ..ops.nms import obj_prediction_nms
 from ..ops.roi_align_windowed import multilevel_roi_align_batched
 from .backbone.depth_resnet import DepthResNet18
 from .backbone.resnet import ResNetFPNBackbone
+from .detector.attribute_head import AttributePredictor
 from .detector.box_head import (
     BoxFeatureExtractor, BoxPredictor, Detections, box_postprocess,
     decode_candidates,
 )
+from .detector.keypoint_head import KeypointFeatureExtractor, KeypointPredictor
+from .detector.mask_head import MaskFeatureExtractor, MaskPredictor
 from .detector.rpn import (
     Proposals, RPNHead, flatten_level, level_anchors, rpn_select_proposals,
 )
@@ -86,6 +104,8 @@ class SGGForward(NamedTuple):
     obj_dists: torch.Tensor       # (B, N, num_obj) f32
     pred_labels: torch.Tensor     # (B, N)
     predict_logits: torch.Tensor  # (B, N, num_obj) ±1000 GT injection
+    # (B, N, num_attributes) f32 with ``attribute_on``, else None
+    attribute_logits: Optional[torch.Tensor] = None
 
 
 class DetectOutput(NamedTuple):
@@ -118,7 +138,14 @@ class SGGModel(nn.Module):
                  box_nms_thresh: float = 0.3, box_post_nms_per_cls_topn: int = 300,
                  nms_filter_duplicates: bool = True, detections_per_img: int = 80,
                  meet_group_sizes: Optional[Sequence[int]] = None,
-                 meet_experts: int = 1, train_detector: bool = False):
+                 meet_experts: int = 1, train_detector: bool = False,
+                 attribute_on: bool = False, num_attributes: int = 201,
+                 mask_on: bool = False,
+                 mask_conv_layers: Sequence[int] = (256, 256, 256, 256),
+                 mask_pooler_resolution: int = 14, keypoint_on: bool = False,
+                 num_keypoints: int = 17,
+                 keypoint_conv_layers: Sequence[int] = (512,) * 8,
+                 keypoint_pooler_resolution: int = 14):
         super().__init__()
         check_mode(mode)
         self.mode = mode
@@ -151,11 +178,31 @@ class SGGModel(nn.Module):
             # one size a level, so len(ratios) anchors a position
             self.rpn = RPNHead(fpn_channels, 256, len(self.aspect_ratios))
             self.frozen.append(self.rpn)
-        if mode in ("sgcls", "sgdet") or train_detector:
+        box_head = mode in ("sgcls", "sgdet") or train_detector
+        if box_head or attribute_on:  # the attribute head reads fc7
             self.box_extractor = BoxFeatureExtractor(
                 box_pooler_resolution ** 2 * fpn_channels, box_mlp_dim, dtype)
+            self.frozen.append(self.box_extractor)
+        if box_head:
             self.box_predictor = BoxPredictor(box_mlp_dim, num_obj_classes)
-            self.frozen += [self.box_extractor, self.box_predictor]
+            self.frozen.append(self.box_predictor)
+        self.attribute_on, self.mask_on, self.keypoint_on = (
+            attribute_on, mask_on, keypoint_on)
+        if attribute_on:
+            self.attribute_predictor = AttributePredictor(box_mlp_dim,
+                                                          num_attributes, dtype)
+        if mask_on:
+            self.mask_pooler_resolution = mask_pooler_resolution
+            self.mask_extractor = MaskFeatureExtractor(
+                fpn_channels, mask_conv_layers, dtype=dtype)
+            self.mask_predictor = MaskPredictor(
+                mask_conv_layers[-1], num_obj_classes, mask_conv_layers[-1], dtype)
+        if keypoint_on:
+            self.keypoint_pooler_resolution = keypoint_pooler_resolution
+            self.keypoint_extractor = KeypointFeatureExtractor(
+                fpn_channels, keypoint_conv_layers, dtype)
+            self.keypoint_predictor = KeypointPredictor(
+                keypoint_conv_layers[-1], num_keypoints, dtype)
         if train_detector:
             self.frozen = []
         trunk = dict(embed_dim=embed_dim, dim=veto_dim, layers=veto_layers,
@@ -286,6 +333,35 @@ class SGGModel(nn.Module):
         logits, deltas = self.box_predictor(self.box_extractor(pooled))
         return logits.float(), deltas.float()
 
+    def _roi_head(self, feats, rois: torch.Tensor, resolution: int,
+                  extractor, predictor) -> torch.Tensor:
+        """(B, R, 4) rois → the head's (B, R, ...) output from its own
+        ``resolution`` pool (one B3 launch), inside autograd."""
+        pooled = self._pool_boxes(feats, rois, resolution)
+        b, r = pooled.shape[:2]
+        out = predictor(extractor(pooled.reshape((b * r,) + pooled.shape[2:])))
+        return out.reshape((b, r) + out.shape[1:])
+
+    def mask_forward(self, feats, rois: torch.Tensor) -> torch.Tensor:
+        """The mask head on (B, R, 4) rois: (B, R, 2M, 2M, num_obj) f32
+        logits (M = ``mask_pooler_resolution``)."""
+        return self._roi_head(feats, rois, self.mask_pooler_resolution,
+                              self.mask_extractor, self.mask_predictor)
+
+    def keypoint_forward(self, feats, rois: torch.Tensor) -> torch.Tensor:
+        """The keypoint head on (B, R, 4) rois: (B, R, 4M, 4M, K) f32 heatmap
+        logits (M = ``keypoint_pooler_resolution``)."""
+        return self._roi_head(feats, rois, self.keypoint_pooler_resolution,
+                              self.keypoint_extractor, self.keypoint_predictor)
+
+    def attribute_forward(self, feats, boxes: torch.Tensor) -> torch.Tensor:
+        """(B, N, 4) boxes → (B, N, num_attributes) f32 attribute logits from
+        the box head's fc7 features (its own 7x7 pool).  In relation training
+        the maps and fc6/fc7 are frozen, so only ``att_score`` records a
+        gradient."""
+        pooled = self._pool_boxes(feats, boxes, self.box_pooler_resolution)
+        return self.attribute_predictor(self.box_extractor(pooled))
+
     def detect(self, images: torch.Tensor,
                image_sizes: torch.Tensor) -> DetectOutput:
         """NHWC images (B, H, W, 3) and their (B, 2) = (w, h) sizes → the FPN
@@ -321,10 +397,13 @@ class SGGModel(nn.Module):
             predict_logits = F.one_hot(
                 obj_labels.long(), self.num_obj_classes).float() * 2000.0 - 1000.0
             pred_labels = obj_labels
+        att_logits = (self.attribute_forward(feats, boxes) if self.attribute_on
+                      else None)
         out = self.relate(feats, depth, boxes, box_mask, pred_labels, pair_idx,
                           predict_logits)
         return SGGForward(rel_logits=out.rel_logits, obj_dists=out.obj_dists,
-                          pred_labels=pred_labels, predict_logits=predict_logits)
+                          pred_labels=pred_labels, predict_logits=predict_logits,
+                          attribute_logits=att_logits)
 
 
 def resolve_predictor(name: str) -> str:
@@ -361,12 +440,7 @@ def build_model(cfg, device=None, seed: int = None,
         raise NotImplementedError(
             f"backbone {cfg.model.backbone!r}: this slice ports the ResNet-FPN "
             "bodies without deformable convs")
-    heads = [k for k in ("attribute_on", "mask_on", "keypoint_on")
-             if getattr(cfg.model, k)]
-    if heads:
-        raise NotImplementedError(
-            f"model.{', model.'.join(heads)}: the attribute, mask and keypoint "
-            "heads come with slice A14")
+    m = cfg.model
     model = SGGModel(
         num_obj_classes=cfg.model.num_obj_classes,
         num_rel_classes=cfg.relation.num_classes, mode=cfg.relation.mode,
@@ -402,6 +476,12 @@ def build_model(cfg, device=None, seed: int = None,
         meet_group_sizes=meet.group_sizes if meet else None,
         meet_experts=meet.experts_per_group if meet else 1,
         train_detector=train_detector,
+        attribute_on=m.attribute_on, num_attributes=m.num_attributes,
+        mask_on=m.mask_on, mask_conv_layers=m.mask_conv_layers,
+        mask_pooler_resolution=m.mask_pooler_resolution,
+        keypoint_on=m.keypoint_on, num_keypoints=m.num_keypoints,
+        keypoint_conv_layers=m.keypoint_conv_layers,
+        keypoint_pooler_resolution=m.keypoint_pooler_resolution,
     ).to(dev)
     init_weights(model, cfg.solver.seed if seed is None else seed)
     return model.eval()
@@ -413,9 +493,12 @@ def init_weights(model: nn.Module, seed: int) -> None:
     ``torch.Generator``: LeCun-normal matrices and conv kernels (fan-in
     over the kernel window and group), Xavier-uniform ``rel_out`` (and
     MEET's ``rel_out_e{e}_g{k}``), the box
-    predictor's N(0, 0.01^2) ``cls_score`` and N(0, 0.001^2) ``bbox_pred``
-    and the RPN head's N(0, 0.01^2) convolutions (flax's ``normal``
-    initializers), N(0, 1) CLS/position tokens,
+    predictor's N(0, 0.01^2) ``cls_score`` and N(0, 0.001^2) ``bbox_pred``,
+    the RPN head's N(0, 0.01^2) convolutions and the attribute head's
+    N(0, 0.01^2) ``att_score`` (flax's ``normal`` initializers), the mask
+    and keypoint heads' kernels He-normal over their fan-out, truncated at
+    2 sigma (flax's ``variance_scaling(2, "fan_out", "truncated_normal")``),
+    N(0, 1) CLS/position tokens,
     N(0, 1/embed_dim) embeddings, unit scales, zero biases and BN
     statistics of a unit normal."""
     dev = next(model.parameters()).device
@@ -429,8 +512,15 @@ def init_weights(model: nn.Module, seed: int) -> None:
             p.normal_(0.0, 0.01, generator=gen)
         elif name == "box_predictor.bbox_pred.weight":
             p.normal_(0.0, 0.001, generator=gen)
-        elif name.startswith("rpn.") and leaf == "weight":
+        elif (name.startswith("rpn.") and leaf == "weight"
+              or name == "attribute_predictor.att_score.weight"):
             p.normal_(0.0, 0.01, generator=gen)
+        elif name.startswith(("mask_", "keypoint_")) and leaf == "weight":
+            # (O, I, kh, kw), a transposed convolution's (I, O, kh, kw)
+            out_ch = p.shape[1] if "conv5_mask" in name or "kps_score" in name \
+                else p.shape[0]
+            std = math.sqrt(2.0 / (out_ch * p.shape[2] * p.shape[3])) / .87962566103423978
+            nn.init.trunc_normal_(p, 0.0, 1.0, -2.0, 2.0, generator=gen).mul_(std)
         elif leaf in ("cls_token", "pos_embedding"):
             p.normal_(0.0, 1.0, generator=gen)
         elif name.endswith("obj_embed.weight"):

@@ -25,8 +25,12 @@ parameter of the model is in the optimizer, nothing frozen.
   * ``metrics.jsonl`` in ``output_dir`` gets the losses every 30 steps, and
     the log a line every 100.
 
-The mask and keypoint heads (``model.mask_on``, ``model.keypoint_on``)
-raise, as do COCO, VOC and concatenated datasets (slices A13b, A14).
+With ``model.mask_on`` / ``model.keypoint_on`` the mask and keypoint
+heads train in the same step (``loss_mask``, ``loss_kp``).  The data
+follow ``data.dataset`` as in ``relation_train_net.build_dataset``: Visual
+Genome, GQA-200, COCO instances (``coco_2017``, ``coco_2014``), Pascal VOC
+(``VOC2007``, ``VOC2012``) and concatenations of them (``A+B``, train
+only).
 """
 
 from __future__ import annotations
@@ -84,8 +88,8 @@ def run_detection_eval(cfg, model, batches, log=print):
 def train(cfg, device=None, log=print, model=None, datasets=None):
     """Pretrain the detector to ``solver.max_iter`` (from the latest
     checkpoint in ``output_dir/ckpt`` when there is one).  Returns the
-    train state and one dict per step run: the four losses, loss,
-    grad_norm, lr_scale, seconds (batch on the device to the end of the
+    train state and one dict per step run: the four losses (and
+    ``loss_mask`` / ``loss_kp`` with those heads), loss, grad_norm, lr_scale, seconds (batch on the device to the end of the
     update), step_seconds, wait_seconds, image_shape and, on a validation
     step, val_mAP.  ``model`` is an already built model (with
     ``train_detector=True``), ``datasets`` a (train, val) pair of
@@ -94,7 +98,7 @@ def train(cfg, device=None, log=print, model=None, datasets=None):
 
     from ..engine.batch import DeviceFeeder
     from ..engine.pretrain import (
-        LOSSES, create_detector_state, detector_budgets, detector_train_step,
+        create_detector_state, detector_budgets, detector_train_step,
     )
     from ..models.sgg import build_model
     from ..solver.optim import multistep_scale
@@ -148,12 +152,13 @@ def train(cfg, device=None, log=print, model=None, datasets=None):
                        image_shape=tuple(batch.images.shape[1:3]))
             history.append(rec)
             meters.update(time=rec["step_seconds"])
+            losses = [k for k in m if k.startswith("loss_")]
             if it % 30 == 0:
-                writer.write(it, {k: rec[k] for k in ("loss", *LOSSES, "grad_norm",
+                writer.write(it, {k: rec[k] for k in ("loss", *losses, "grad_norm",
                                                       "lr_scale")})
             if it % 100 == 0:
                 log(f"iter {it}/{solver.max_iter}  loss {rec['loss']:.4f}  "
-                    + "  ".join(f"{k} {rec[k]:.4f}" for k in LOSSES)
+                    + "  ".join(f"{k} {rec[k]:.4f}" for k in losses)
                     + f"  grad_norm {rec['grad_norm']:.4f}  lr_scale {scale:.4f}  "
                     f"{rec['seconds']:.3f} s on {dev}  "
                     f"eta {meters.eta_string(it + 1, solver.max_iter)}")

@@ -35,7 +35,10 @@ body, FPN and RPN head forward (``detector_forward``), the RPN losses
 selection (top-k, decode, N1, the top 1000), the box sampler, the box pool
 and head (``box_forward``: B3 and fc6/fc7/the predictor), the backward
 (B3-bwd, the box head, the RPN head and the trained body), the update;
-and the launches of B3, B3-bwd and N1 a step.
+and the launches of B3, B3-bwd and N1 a step.  With ``model.mask_on`` /
+``model.keypoint_on`` also the heads' stage (``head_losses``: the roi
+selection and re-match, each head's 14x14 pool and convolutions, its
+loss; of it ``mask_head`` and ``keypoint_head``, the two forwards).
 
 The last line is one JSON object with these numbers and the card's name.
 It needs a card and raises without one.
@@ -191,6 +194,12 @@ def profile_pretrain(cfg, steps: int = 3, log=print) -> dict:
                ("box_sampler", pretrain, "fastrcnn_sample"),
                ("box_pool_and_head", model, "box_forward"),
                ("forward_and_losses", pretrain, "detector_losses")]
+    heads = model.mask_on or model.keypoint_on
+    if heads:  # head_losses holds the two forwards: they are not summed
+        methods += [("head_losses", pretrain, "_head_losses")] + [
+            (f"{h}_head", model, f"{h}_forward") for h in ("mask", "keypoint")
+            if getattr(model, f"{h}_on")]
+    stages = PRETRAIN_STAGES + (("head_losses",) if heads else ())
     events, remove = _stage_timer([], methods)
     marks, step_s, launches = [], [], []
     counters = ((rw, "KERNEL_LAUNCHES"), (rw, "BWD_LAUNCHES"),
@@ -208,11 +217,12 @@ def profile_pretrain(cfg, steps: int = 3, log=print) -> dict:
           for name, _, _ in methods}
     spans = np.array([[marks[3 * i + k].elapsed_time(marks[3 * i + k + 1])
                        for k in range(2)] for i in range(steps)]).mean(0)
-    ms["forward_other"] = ms["forward_and_losses"] - sum(ms[n] for n in PRETRAIN_STAGES)
+    ms["forward_other"] = ms["forward_and_losses"] - sum(ms[n] for n in stages)
     ms["backward"] = float(spans[0]) - ms["forward_and_losses"]
     ms["sgd_update"] = float(spans[1])
     ms["step"] = 1e3 * float(np.mean(step_s))
-    for k in ["step", *PRETRAIN_STAGES, "forward_other", "backward", "sgd_update"]:
+    for k in ["step", *[n for n, _, _ in methods if n != "forward_and_losses"],
+              "forward_other", "backward", "sgd_update"]:
         log(f"  {k:32s} {ms[k]:9.3f} ms")
     names = ("multilevel_roi_align", "roi_align_backward", "nms_mask", "nms_scan")
     log(f"  launches a step: {dict(zip(names, launches[-1]))}")

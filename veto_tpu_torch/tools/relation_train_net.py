@@ -43,9 +43,12 @@ one (waiting on the loader included), ``wait_seconds`` the part spent
 waiting for the batch.  ``metrics.jsonl`` in ``output_dir`` gets the
 losses every 30 steps and each validation's mR@100.
 
+With ``model.attribute_on`` the attribute head trains beside the relation
+head on each box's attribute list (``model.attribute_*`` as the JAX tool
+passes them: :func:`attribute_config`).
+
 Not yet ported (they raise): the legacy predictors and their MEET heads,
-the attribute/mask/keypoint heads, the other loss variants, COCO/VOC (A13b)
-and Open Images (A14) data, multi-device training.
+the other loss variants, Open Images data (A14), multi-device training.
 """
 
 from __future__ import annotations
@@ -61,7 +64,9 @@ _CTRL_FIELDS = ("best", "bad_epochs", "cooldown_counter", "num_decays")
 
 
 def synthetic_train_dataset(cfg, num_images: int = 64):
-    """The synthetic train split at the config's train input shape."""
+    """The synthetic train split at the config's train input shape (with
+    each box's mask and keypoints when ``model.mask_on`` /
+    ``model.keypoint_on`` train those heads)."""
     from ..data.synthetic import SyntheticSGGDataset
 
     div = cfg.data.size_divisibility
@@ -74,28 +79,53 @@ def synthetic_train_dataset(cfg, num_images: int = 64):
                                    up(cfg.data.max_size_train)),
         num_obj_classes=cfg.model.num_obj_classes,
         num_rel_classes=cfg.relation.num_classes,
-        max_objects=cfg.data.max_boxes, seed=cfg.solver.seed)
+        max_objects=cfg.data.max_boxes, seed=cfg.solver.seed,
+        with_masks=cfg.model.mask_on,
+        with_keypoints=cfg.model.num_keypoints if cfg.model.keypoint_on else 0)
 
 
 def build_dataset(cfg, split: str):
-    """The ``split`` ("train", "val", "test") of the data the config names:
-    the synthetic corpus when ``data.data_dir`` is empty, else the VG or
-    GQA-200 files under it (the JAX tool's layout)."""
+    """The ``split`` ("train", "val", "test") of the data the config names,
+    routed by ``data.dataset`` as the JAX tool routes it: the synthetic
+    corpus when ``data.data_dir`` is empty; ``A+B`` concatenates its parts
+    for "train" (val and test take the first-named part); a name holding
+    COCO reads ``annotations/instances_{train|val}{year}.json`` (2017
+    unless the name holds another "201x" year, then 2014); VOC reads the
+    ``VOC2007`` or ``VOC2012`` subdirectory the name's year names, when it
+    exists, else ``data_dir`` itself; GQA the GQA-200 files; anything else
+    the Visual Genome files.  Open Images raises (slice A14)."""
     if not cfg.data.data_dir:
         if split == "train":
             return synthetic_train_dataset(cfg)
         from .relation_test_net import synthetic_eval_dataset
 
         return synthetic_eval_dataset(cfg)
+    d = cfg.data.data_dir
+    if "+" in cfg.data.dataset and split == "train":
+        from ..data.compound import ConcatDataset
+
+        return ConcatDataset([build_dataset(cfg.override("data.dataset", part), split)
+                              for part in cfg.data.dataset.split("+")])
     name = cfg.data.dataset.split("+")[0].upper()
-    if "+" in cfg.data.dataset or "COCO" in name or "VOC" in name:
-        raise NotImplementedError(
-            f"data.dataset={cfg.data.dataset!r}: detector pretraining data "
-            "(COCO, VOC, concatenated sets) comes with slice A13b")
+    if "COCO" in name:
+        from ..data.coco import COCODetDataset
+
+        year = "2017" if "2017" in name or "201" not in name else "2014"
+        coco_split = "train" if split == "train" else "val"
+        return COCODetDataset(
+            ann_file=os.path.join(d, "annotations",
+                                  f"instances_{coco_split}{year}.json"),
+            img_dir=os.path.join(d, f"{coco_split}{year}"))
     if "OI" in name or "OPEN" in name:
         raise NotImplementedError(
             f"data.dataset={cfg.data.dataset!r}: Open Images comes with slice A14")
-    d = cfg.data.data_dir
+    if "VOC" in name:
+        from ..data.voc import VOCDataset
+
+        for year in ("2007", "2012"):
+            if year in name and os.path.isdir(os.path.join(d, f"VOC{year}")):
+                return VOCDataset(os.path.join(d, f"VOC{year}"), split)
+        return VOCDataset(d, split)
     resampling = ({"repeat_factor": cfg.data.repeat_factor,
                    "instance_drop_rate": cfg.data.instance_drop_rate}
                   if cfg.data.resampling and split == "train" else None)
@@ -206,6 +236,19 @@ def build_meet_config(cfg):
         split=ens.group_split, expert_group=ens.expert_group, voting=ens.voting)
 
 
+def attribute_config(cfg):
+    """``attribute_loss``'s keyword arguments from ``model.attribute_*``
+    (the JAX tool's ``attribute_cfg``), or None without ``attribute_on``."""
+    m = cfg.model
+    if not m.attribute_on:
+        return None
+    return dict(loss_weight=m.attribute_loss_weight,
+                bgfg_sample=m.attribute_bgfg_sample,
+                bgfg_ratio=m.attribute_bgfg_ratio,
+                use_binary_loss=m.attribute_use_binary_loss,
+                pos_weight=m.attribute_pos_weight)
+
+
 def load_pretrained_detector(cfg, model, log=print):
     """Import ``model.pretrained_detector_ckpt`` into ``model``'s frozen
     detector (in the layout ``model.fold_bn`` names), when it is set.
@@ -276,7 +319,8 @@ def train(cfg, device=None, log=print, model=None, datasets=None):
     """Train to ``solver.max_iter`` (from the latest checkpoint in
     ``output_dir/ckpt`` when there is one).  Returns the train state and
     one dict per step run: loss, rel_loss (with MEET the group_* losses
-    instead; obj_loss in SGCls and SGDet), grad_norm, lr_scale, seconds,
+    instead; obj_loss in SGCls and SGDet; attribute_loss with
+    ``model.attribute_on``), grad_norm, lr_scale, seconds,
     step_seconds, wait_seconds, image_shape (the batch's padded (H, W))
     and, on a validation step, val_mR100.
 
@@ -307,7 +351,8 @@ def train(cfg, device=None, log=print, model=None, datasets=None):
     load_pretrained_detector(cfg, model, log)
     state = create_train_state(model, solver, rel_class_weights(cfg),
                                mode=cfg.relation.mode, loss_variant=loss_variant,
-                               meet=build_meet_config(cfg))
+                               meet=build_meet_config(cfg),
+                               attribute_cfg=attribute_config(cfg))
     state.generator = torch.Generator(device=dev).manual_seed(solver.seed)
     ckpt = CheckpointManager(os.path.join(cfg.output_dir, "ckpt"))
     extra = ckpt.restore(state, log=log)

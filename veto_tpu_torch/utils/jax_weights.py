@@ -6,6 +6,11 @@ no JAX to run.  The port names its modules after the flax tree, so a leaf's
 path is its torch name, with these conversions:
 
   * conv kernels HWIO → OIHW (grouped ``(3, 3, C/G, C)`` → ``(C, C/G, 3, 3)``);
+  * the two transposed-convolution kernels (the mask head's ``conv5_mask``
+    and the keypoint head's ``kps_score_lowres``): flax's ``ConvTranspose``
+    does not flip its kernel, torch's ``ConvTranspose2d`` is the true
+    transpose of a convolution, so (kh, kw, I, O) → (I, O, kh, kw) with
+    both spatial axes reversed;
   * Dense kernels ``(in, out)`` → Linear weights ``(out, in)``;
   * norm ``scale`` → ``weight``; ``embedding`` → ``weight``;
   * ``batch_stats`` ``mean``/``var`` → ``running_mean``/``running_var``;
@@ -33,6 +38,8 @@ import torch
 _FOLD_PAIRS = {"stem_conv": "stem_bn", "conv1": "bn1", "conv2": "bn2",
                "conv3": "bn3", "downsample_conv": "downsample_bn"}
 _STATS = {"mean": "running_mean", "var": "running_var"}
+# flax ``nn.ConvTranspose`` modules (by their last path key)
+CONV_TRANSPOSE = ("conv5_mask", "kps_score_lowres")
 
 
 def _leaves(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Iterator:
@@ -77,7 +84,10 @@ def flax_to_state_dict(variables: Mapping,
         *mod, leaf = path
         if leaf == "kernel":
             leaf = "weight"
-            arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
+            if mod[-1] in CONV_TRANSPOSE:
+                arr = arr[::-1, ::-1].transpose(2, 3, 0, 1)
+            else:
+                arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
         elif leaf in ("scale", "embedding"):
             leaf = "weight"
         sd[".".join(mod + [leaf])] = torch.from_numpy(np.ascontiguousarray(arr))
