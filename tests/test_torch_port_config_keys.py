@@ -16,8 +16,9 @@ shipped defaults still build, train and evaluate.
   build, train and evaluate (A10), and ``relation.require_box_overlap`` and
   ``test.relation_require_overlap`` reach the SGDet pair sampler and test
   pairs; ``ensemble.enabled`` builds MEET's predictor (A11), a
-  ``VETOPredictor_MEET`` name without it the plain VETO one, and the legacy
-  ``*_MEET`` predictors raise, naming slice A14;
+  ``VETOPredictor_MEET`` name without it the plain VETO one, the four
+  ported legacy ``*_MEET`` predictors their MEET heads, and the legacy
+  predictors still to come raise, naming their slice of A14;
   ``model.box_pooler_resolution`` and ``model.box_mlp_head_dim`` shape the
   SGCls box head.
 """
@@ -209,7 +210,8 @@ def test_sgdet_and_meet_still_raise():
     MEET: ``ensemble.enabled`` builds ``MeetPredictor`` (SGCls here: its
     trunk embeds the hard labels), ``VETOPredictor_MEET`` without it the
     plain VETO predictor, as the JAX tool resolves the name; a legacy
-    ``*_MEET`` predictor still raises, naming its slice, A14."""
+    ``*_MEET`` predictor of the ported four builds its MEET heads, and one
+    still to come raises, naming its slice of A14."""
     from veto_tpu_torch.models.relation.predictor_meet import MeetPredictor
     from veto_tpu_torch.models.relation.predictor_veto import VetoPredictor
 
@@ -228,8 +230,14 @@ def test_sgdet_and_meet_still_raise():
     plain = build_model(_cfg(SMALL + ["relation.predictor=VETOPredictor_MEET"]),
                         "cpu").relation
     assert isinstance(plain, VetoPredictor) and not plain.trunk.hard_label_embed
+    motifs = build_model(_cfg(SMALL + ["relation.predictor=MotifPredictor_MEET",
+                                       "ensemble.enabled=True",
+                                       "relation.context_hidden_dim=16",
+                                       "relation.context_pooling_dim=32"]),
+                         "cpu").relation
+    assert motifs.meet_heads.rel_out_e0_g4.weight.shape == (12 + 2, 32)
     with pytest.raises(NotImplementedError, match="A14"):
-        build_model(_cfg(SMALL + ["relation.predictor=MotifPredictor_MEET",
+        build_model(_cfg(SMALL + ["relation.predictor=BGNNPredictor_MEET",
                                   "ensemble.enabled=True"]), "cpu")
 
 

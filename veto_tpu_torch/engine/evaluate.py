@@ -14,6 +14,15 @@ candidates of an image (voting with 3 experts a group); the object labels
 and scores come from the proposals' logits (in SGDet from the late NMS).
 Results stay padded and masked, one shape per batch.  Every step runs
 under ``torch.inference_mode``.
+
+The legacy predictors take the same steps: their relation output is
+post-processed with the proposals' ``predict_logits``, and their refined
+``obj_dists`` are dropped, as the JAX package drops them
+(``OBJECT_CLASSIFICATION_REFINE`` is off in every shipped config).  In
+SGDet their ``relate`` gets the true image sizes and the detections'
+``boxes_per_cls`` (the Motifs and Transformer late NMS of their refined
+labels); in SGDet MEET it gets neither, as the JAX package's MEET step
+calls it (ROADMAP queue C).
 """
 
 from __future__ import annotations
@@ -72,7 +81,9 @@ def _sgdet_eval_step(model, max_pairs, later_nms_thres, require_overlap):
             dets.mask, dets.scores, max_pairs=max_pairs, boxes=dets.boxes,
             require_overlap=require_overlap)
         out = model.relate(det.features, batch.depth, dets.boxes, dets.mask,
-                           dets.labels, pair_idx, det.predict_logits)
+                           dets.labels, pair_idx, det.predict_logits,
+                           image_sizes=batch.sizes,
+                           boxes_per_cls=dets.boxes_per_cls)
         # the late NMS reads the detector's logits on the kept detections,
         # not the predictor's one-hot obj_dists (OBJECT_CLASSIFICATION_REFINE
         # is off in every shipped config)

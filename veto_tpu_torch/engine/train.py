@@ -32,6 +32,21 @@ from ``state.generator`` after the pair sampler's draws of the same step
 bit-equal.  The other loss variants (label smoothing, LDAM, balanced
 norm) raise ``NotImplementedError``.
 
+The legacy predictors (Motifs, VCTree, Transformer, TransLike, and their
+MEET heads), as in the JAX package: their refined ``obj_dists`` carry a
+gradient, so ``obj_loss`` (SGCls, SGDet) trains their object classifier;
+in SGDet the predictor embeds the GT-assigned labels of the detections
+(the Motifs decoder teacher-forces them), with the true image sizes and
+the detections' ``boxes_per_cls``; VCTree adds ``binary_loss``, the
+masked mean BCE of its pair scores against the GT relatedness of the
+valid boxes.  VCTree's SGCls / SGDet decoder samples its feedback labels
+with Gumbel noise, drawn from ``state.generator`` after the pair sampler
+and before MEET's routing, fresh every step (``forward_backward(...,
+gumbel=)`` takes it instead).  Their BatchNorms (the union features'
+rect convs, the position and score nets) update their running
+statistics in the forward, and ``batch_stats`` reports them with the
+rest.
+
 Attributes (a model with ``attribute_on``, PredCls and SGCls, as in the
 JAX package): ``attribute_loss`` over every box's attribute list joins the
 losses, with ``state.attribute_cfg`` (``create_train_state(attribute_cfg=)``,
@@ -56,7 +71,7 @@ from ..models.detector.box_head import assign_labels_to_proposals
 from ..models.relation.predictor_meet import MeetConfig, meet_losses
 from ..models.relation.predictor_veto import weighted_ce_loss
 from ..models.relation.sampling import (
-    DetRelSample, RelSample, detect_relsample, gtbox_relsample,
+    DetRelSample, RelSample, binary_relatedness, detect_relsample, gtbox_relsample,
 )
 from ..models.sgg import DetectOutput, check_mode
 from ..solver.optim import FROZEN_DETECTOR, Optimizer, make_optimizer
@@ -157,6 +172,37 @@ def _rel_losses(state: TrainState, rel_logits, labels, mask,
                        m.sample_rate, m.group_sizes, member=member)
 
 
+def _binary_loss(bi_preds: torch.Tensor, binary_rel: torch.Tensor,
+                 box_mask: torch.Tensor) -> torch.Tensor:
+    """VCTree's auxiliary pair-relatedness loss: the BCE of the (B, N, N)
+    logits against ``binary_rel > 0``, the mean over the pairs of valid
+    boxes."""
+    y = (binary_rel > 0).float()
+    logits = bi_preds.float()
+    bce = (torch.clamp(logits, min=0) - logits * y
+           + torch.log1p(torch.exp(-logits.abs())))
+    m2 = (box_mask[:, :, None] & box_mask[:, None, :]).float()
+    return (bce * m2).sum() / torch.clamp(m2.sum(), min=1.0)
+
+
+def draw_gumbel(model: nn.Module, num_boxes: int, batch_size: int,
+                generator: Optional[torch.Generator]) -> Optional[torch.Tensor]:
+    """VCTree's training decoder noise (B, N, C - 1), ``-log(-log(u))`` of
+    uniforms from ``generator`` (as ``jax.random.gumbel`` draws it), for a
+    model whose predictor samples; None for every other model."""
+    ctx = getattr(model, "relation", None)
+    ctx = getattr(ctx, "context_layer", None)
+    if not hasattr(ctx, "pair_scores") or model.mode == "predcls":
+        return None
+    if generator is None:
+        raise ValueError("VCTree's decoder noise draws from state.generator: set it")
+    dev = next(model.parameters()).device
+    u = torch.rand((batch_size, num_boxes, ctx.num_obj_classes - 1),
+                   generator=generator, device=dev)
+    tiny = torch.finfo(torch.float32).tiny
+    return -torch.log(-torch.log(torch.clamp(u, min=tiny)))
+
+
 def _attribute_loss(state: TrainState, logits, batch,
                     draws: Optional[torch.Tensor]) -> torch.Tensor:
     """The attribute loss of every box of the batch, its negatives ranked by
@@ -174,7 +220,8 @@ def _attribute_loss(state: TrainState, logits, batch,
 def forward_backward(state: TrainState, batch,
                      samples: Union[RelSample, DetSample],
                      member: Optional[torch.Tensor] = None,
-                     attribute_draws: Optional[torch.Tensor] = None
+                     attribute_draws: Optional[torch.Tensor] = None,
+                     gumbel: Optional[torch.Tensor] = None
                      ) -> Dict[str, torch.Tensor]:
     """Train-mode forward and the loss's backward on the given pairs: the
     trainable parameters' ``.grad`` hold the step's gradients.  Returns the
@@ -182,36 +229,60 @@ def forward_backward(state: TrainState, batch,
     ``group_*`` losses instead; ``member``, (B, P, G) bool, routes the
     pairs in place of a draw), with ``attribute_on`` ``attribute_loss``
     (``attribute_draws``, (B * N,) uniforms, rank its negatives in place of
-    a draw) and, outside PredCls, ``obj_loss``."""
+    a draw), outside PredCls ``obj_loss`` and for VCTree ``binary_loss``
+    (its SGCls / SGDet decoder's noise ``gumbel`` (B, N, C - 1) in place of
+    a draw)."""
     model = state.model
     model.train()
     state.optimizer.zero_grad()
+    legacy = getattr(model, "legacy", False)
     if isinstance(samples, DetSample):
         det, pairs = samples.det, samples.pairs
         dets = det.detections
-        # VETO embeds the detections' own (NMS-reduced) labels
+        if gumbel is None:
+            gumbel = draw_gumbel(model, dets.boxes.shape[1], dets.boxes.shape[0],
+                                 state.generator)
+        # VETO embeds the detections' own (NMS-reduced) labels, the legacy
+        # contexts their GT-assigned ones
         out = model.relate(det.features, batch.depth, dets.boxes, dets.mask,
-                           dets.labels, pairs.pair_idx, det.predict_logits)
+                           samples.gt_labels if legacy else dets.labels,
+                           pairs.pair_idx, det.predict_logits,
+                           image_sizes=batch.sizes, boxes_per_cls=dets.boxes_per_cls,
+                           gumbel=gumbel)
         losses = _rel_losses(state, out.rel_logits, pairs.labels, pairs.mask,
                              member)
-        # obj_dists is the one-hot of the detections' labels: this term
-        # moves the loss value, not the update
+        if out.binary_preds is not None:
+            losses["binary_loss"] = _binary_loss(out.binary_preds, pairs.binary_rel,
+                                                 dets.mask)
+        # VETO's obj_dists is the one-hot of the detections' labels: this
+        # term moves the loss value, not the update; a legacy predictor's
+        # refined logits train on it
         losses["obj_loss"] = weighted_ce_loss(out.obj_dists, samples.gt_labels,
                                               dets.mask, None)
     else:
+        if gumbel is None:
+            gumbel = draw_gumbel(model, batch.boxes.shape[1], batch.boxes.shape[0],
+                                 state.generator)
         out = model(batch.images, batch.depth, batch.boxes, batch.box_mask,
                     batch.labels, batch.obj_logits, samples.pair_idx,
-                    samples.mask)
+                    samples.mask, gumbel=gumbel)
         losses = _rel_losses(state, out.rel_logits, samples.labels,
                              samples.mask, member)
+        if out.binary_preds is not None:
+            binary_rel = samples.binary_rel
+            if binary_rel is None:
+                binary_rel = binary_relatedness(batch.rel_matrix, batch.box_mask)
+            losses["binary_loss"] = _binary_loss(out.binary_preds, binary_rel,
+                                                 batch.box_mask)
         if out.attribute_logits is not None:
             losses["attribute_loss"] = _attribute_loss(
                 state, out.attribute_logits, batch, attribute_draws)
         if model.mode != "predcls":
             # the cross-entropy of the predictor's obj_dists against the GT
-            # labels.  obj_dists is the one-hot of the NMS's labels and
-            # carries no gradient, in the JAX package as here: this term
-            # moves the loss value, not the update.
+            # labels.  VETO's obj_dists is the one-hot of the NMS's labels
+            # and carries no gradient, in the JAX package as here: this term
+            # moves the loss value, not the update; a legacy predictor's
+            # refined logits train on it.
             losses["obj_loss"] = weighted_ce_loss(out.obj_dists, batch.labels,
                                                   batch.box_mask, None)
     loss = sum(losses.values())
@@ -222,11 +293,13 @@ def forward_backward(state: TrainState, batch,
 def train_on_pairs(state: TrainState, batch,
                    samples: Union[RelSample, DetSample], lr_scale: float,
                    member: Optional[torch.Tensor] = None,
-                   attribute_draws: Optional[torch.Tensor] = None) -> Dict[str, object]:
+                   attribute_draws: Optional[torch.Tensor] = None,
+                   gumbel: Optional[torch.Tensor] = None) -> Dict[str, object]:
     """Forward, loss, backward and update on the given pairs (with MEET
     routed by ``member``, the attribute loss's negatives ranked by
-    ``attribute_draws``, when given)."""
-    metrics = forward_backward(state, batch, samples, member, attribute_draws)
+    ``attribute_draws``, VCTree's decoder fed ``gumbel``, when given)."""
+    metrics = forward_backward(state, batch, samples, member, attribute_draws,
+                               gumbel)
     grad_norm = state.optimizer.step(lr_scale)
     state.step += 1
     return {**metrics, "grad_norm": grad_norm.detach(),

@@ -56,27 +56,63 @@ class BatchNorm2d(nn.BatchNorm2d):
     ``use_running_average=False``): the batch statistics over (N, H, W),
     computed in f32 with flax's fast variance ``max(E[x^2] - E[x]^2, 0)``,
     gradients flowing through them; the running statistics become
-    ``0.9 running + 0.1 batch``, the biased batch variance included (torch's
-    own ``F.batch_norm`` would store the unbiased one).  ``momentum=0.1`` is
-    torch's name for flax's ``momentum=0.9``.
+    ``momentum * running + (1 - momentum) * batch``, the biased batch
+    variance included (torch's own ``F.batch_norm`` would store the
+    unbiased one).  ``momentum`` is flax's (the kept share, default 0.9);
+    torch's attribute of that name holds ``1 - momentum``.
     """
 
-    def __init__(self, features: int):
-        super().__init__(features, eps=1e-5, momentum=0.1)
+    def __init__(self, features: int, momentum: float = 0.9):
+        super().__init__(features, eps=1e-5, momentum=1.0 - momentum)
+        self.keep = momentum
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _flax_batch_norm(self, x, (0, 2, 3), (-1, 1, 1))
+
+
+class BatchNorm1d(nn.BatchNorm1d):
+    """:class:`BatchNorm2d`'s arithmetic over the last axis of (..., F): in
+    training the statistics of every row of every leading axis, padded rows
+    included, as flax's ``BatchNorm`` takes them."""
+
+    def __init__(self, features: int, momentum: float = 0.9):
+        super().__init__(features, eps=1e-5, momentum=1.0 - momentum)
+        self.keep = momentum
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _flax_batch_norm(self, x, tuple(range(x.dim() - 1)), (-1,))
+
+
+def _flax_batch_norm(bn, x: torch.Tensor, dims, view) -> torch.Tensor:
+    xf = x.float()
+    if bn.training:
+        mean = xf.mean(dim=dims)
+        var = torch.clamp((xf * xf).mean(dim=dims) - mean * mean, min=0.0)
+        keep = bn.keep
+        with torch.no_grad():
+            bn.running_mean.copy_(keep * bn.running_mean + (1.0 - keep) * mean)
+            bn.running_var.copy_(keep * bn.running_var + (1.0 - keep) * var)
+    else:
+        mean, var = bn.running_mean, bn.running_var
+    mul = torch.rsqrt(var + bn.eps) * bn.weight
+    y = (xf - mean.view(view)) * mul.view(view)
+    return (y + bn.bias.view(view)).to(x.dtype)
+
+
+class LayerNorm(nn.Module):
+    """flax's ``LayerNorm`` (epsilon 1e-6) over the last axis: statistics in
+    f32 with the fast variance ``max(E[x^2] - E[x]^2, 0)``, ``(x - mean) *
+    (rsqrt(var + eps) * scale) + bias`` in f32, cast to the input dtype."""
+
+    def __init__(self, features: int, eps: float = 1e-6):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.float()
-        if self.training:
-            mean = xf.mean(dim=(0, 2, 3))
-            var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
-            keep = 1.0 - self.momentum
-            with torch.no_grad():
-                self.running_mean.copy_(keep * self.running_mean
-                                        + (1.0 - keep) * mean)
-                self.running_var.copy_(keep * self.running_var
-                                       + (1.0 - keep) * var)
-        else:
-            mean, var = self.running_mean, self.running_var
-        mul = torch.rsqrt(var + self.eps) * self.weight
-        y = (xf - mean[:, None, None]) * mul[:, None, None]
-        return (y + self.bias[:, None, None]).to(x.dtype)
+        mean = xf.mean(-1, keepdim=True)
+        var = torch.clamp((xf * xf).mean(-1, keepdim=True) - mean * mean, min=0.0)
+        y = (xf - mean) * (torch.rsqrt(var + self.eps) * self.weight)
+        return (y + self.bias).to(x.dtype)

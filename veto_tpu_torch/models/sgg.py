@@ -26,8 +26,22 @@ With ``meet_group_sizes`` the relation head is MEET's
 (:class:`~.relation.predictor_meet.MeetPredictor`: the trunk embedding the
 hard labels, G per-group heads per expert), and the nested per-expert,
 per-group logits ride in :class:`SGGForward`'s ``rel_logits`` slot, as in
-the JAX package.  The legacy predictors (and their MEET heads) raise
-``NotImplementedError``.
+the JAX package.
+
+The legacy predictors (``predictor`` one of :data:`LEGACY_PORTED`: Motifs,
+VCTree, Transformer, TransLike; with ``meet_group_sizes`` their MEET
+heads) take the JAX package's legacy route through the model: no depth
+backbone; the boxes pooled 7x7 on P2-P5 into a trainable copy of the box
+MLP (``rel_box_extractor``, ``context_pooling_dim`` wide), the pairs'
+union boxes pooled 7x7 into the union features (``union_extractor``), so
+two B3 launches a forward (three in SGCls, with the box head's own pool);
+the predictor gets the GT labels (teacher-forced by the Motifs decoder in
+training) and the proposals' logits, and refines the object labels
+itself.  :class:`SGGForward` then carries the predictor's refined
+``obj_dists`` and labels, and VCTree's ``binary_preds``.  Image sizes
+default to the padded input's, as in the JAX model; SGDet passes the
+true ones and the detections' ``boxes_per_cls``.  The other legacy names
+raise ``NotImplementedError`` (:func:`resolve_predictor`).
 
 Training: the detector is frozen (the JAX package's ``FROZEN_DETECTOR``,
 ``tools/relation_train_net.py:297``), the RPN and box head included: its
@@ -87,10 +101,30 @@ from .detector.mask_head import MaskFeatureExtractor, MaskPredictor
 from .detector.rpn import (
     Proposals, RPNHead, flatten_level, level_anchors, rpn_select_proposals,
 )
+from .relation.legacy import PREDICTORS as LEGACY_PORTED
 from .relation.predictor_meet import MeetPredictor
 from .relation.predictor_veto import VetoPredictor
+from .relation.union_features import UnionFeatureExtractor
 
 MODES = ("predcls", "sgcls", "sgdet")
+# the JAX model's legacy predictors (``SGGModel.LEGACY_PREDICTORS``) and,
+# for those still missing, the slice of the port that brings each
+LEGACY_PREDICTORS = ("TransformerPredictor", "TransLikePredictor", "IMPPredictor",
+                     "MotifPredictor", "VCTreePredictor", "BGNNPredictor",
+                     "GPSNetPredictor", "MSDNPredictor", "CausalAnalysisPredictor",
+                     "KERNPredictor", "NaivePredictor", "RelatednessTestPredictor",
+                     "AGRCNNPredictor")
+_IMP_BGNN = ("the next slice (IMP and the BGNN family, with "
+             "PairwiseFeatureExtractor and rel_proposal)")
+_KERN_ETC = "the slice of KERN, AGRCNN, Naive and RelatednessTest"
+_LEGACY_TO_COME = {
+    "IMPPredictor": _IMP_BGNN, "BGNNPredictor": _IMP_BGNN,
+    "GPSNetPredictor": _IMP_BGNN, "MSDNPredictor": _IMP_BGNN,
+    "CausalAnalysisPredictor": "the CausalPredictor slice "
+                               "(LSTMContext.effect_analysis)",
+    "KERNPredictor": _KERN_ETC, "AGRCNNPredictor": _KERN_ETC,
+    "NaivePredictor": _KERN_ETC, "RelatednessTestPredictor": _KERN_ETC,
+}
 
 
 def check_mode(mode: str) -> None:
@@ -106,6 +140,8 @@ class SGGForward(NamedTuple):
     predict_logits: torch.Tensor  # (B, N, num_obj) ±1000 GT injection
     # (B, N, num_attributes) f32 with ``attribute_on``, else None
     attribute_logits: Optional[torch.Tensor] = None
+    # (B, N, N) f32 VCTree pair-relatedness logits, else None
+    binary_preds: Optional[torch.Tensor] = None
 
 
 class DetectOutput(NamedTuple):
@@ -145,10 +181,17 @@ class SGGModel(nn.Module):
                  mask_pooler_resolution: int = 14, keypoint_on: bool = False,
                  num_keypoints: int = 17,
                  keypoint_conv_layers: Sequence[int] = (512,) * 8,
-                 keypoint_pooler_resolution: int = 14):
+                 keypoint_pooler_resolution: int = 14,
+                 predictor: str = "VETOPredictor", context_hidden_dim: int = 512,
+                 context_pooling_dim: int = 4096):
         super().__init__()
         check_mode(mode)
+        if resolve_predictor(predictor) != predictor:
+            raise ValueError(f"predictor {predictor!r}: give the base name "
+                             f"{resolve_predictor(predictor)!r}")
         self.mode = mode
+        self.predictor = predictor
+        self.legacy = predictor in LEGACY_PORTED
         self.num_obj_classes = num_obj_classes
         self.anchor_sizes = tuple(anchor_sizes)
         self.anchor_strides = tuple(anchor_strides)
@@ -172,7 +215,8 @@ class SGGModel(nn.Module):
         self.backbone = ResNetFPNBackbone(stage_blocks, groups, width_per_group,
                                           fpn_channels, fold_bn, stride_in_1x1,
                                           dtype)
-        self.depth_backbone = DepthResNet18(dtype)
+        if not self.legacy:  # the legacy route reads no depth
+            self.depth_backbone = DepthResNet18(dtype)
         self.frozen = [self.backbone]
         if mode == "sgdet" or train_detector:
             # one size a level, so len(ratios) anchors a position
@@ -211,7 +255,20 @@ class SGGModel(nn.Module):
                      visual_proj_dim=veto_visual_proj_dim,
                      rgb_channels=fpn_channels, depth_channels=256, dtype=dtype,
                      encoder_impl=veto_encoder_impl, mode=mode)
-        if meet_group_sizes is not None:
+        if self.legacy:
+            meet = ({} if meet_group_sizes is None else
+                    dict(meet_group_sizes=meet_group_sizes, meet_experts=meet_experts))
+            self.relation = LEGACY_PORTED[predictor](
+                num_obj_classes=num_obj_classes, num_rel_classes=num_rel_classes,
+                hidden_dim=context_hidden_dim, pooling_dim=context_pooling_dim,
+                in_channels=context_pooling_dim, mode=mode, dtype=dtype, **meet)
+            # the trainable relation copy of the box MLP, and the union features
+            self.rel_box_extractor = BoxFeatureExtractor(
+                box_pooler_resolution ** 2 * fpn_channels, context_pooling_dim, dtype)
+            self.union_extractor = UnionFeatureExtractor(
+                box_pooler_resolution, self.pooler_scales, pooler_sampling_ratio,
+                context_pooling_dim, fpn_channels, dtype)
+        elif meet_group_sizes is not None:
             self.relation = MeetPredictor(meet_group_sizes, meet_experts,
                                           num_obj_classes, **trunk)
         else:
@@ -374,7 +431,24 @@ class SGGModel(nn.Module):
             return DetectOutput(feats, dets, torch.gather(logits, 1, idx))
 
     def relate(self, feats, depth, boxes, box_mask, obj_labels, pair_idx,
-               obj_logits=None):
+               obj_logits=None, image_sizes=None, boxes_per_cls=None, gumbel=None):
+        """The relation head over (B, N) boxes and (B, P) pairs.  The legacy
+        predictors also take the (B, 2) = (w, h) ``image_sizes`` (default:
+        the padded input's, from ``depth``), SGDet's ``boxes_per_cls`` and
+        VCTree's training decoder's ``gumbel`` noise (B, N, C - 1); VETO's
+        read neither."""
+        if self.legacy:
+            if image_sizes is None:
+                h, w = depth.shape[1:3]
+                image_sizes = torch.tensor([[w, h]], dtype=torch.float32,
+                                           device=boxes.device).expand(boxes.shape[0], 2)
+            image_sizes = image_sizes.float()
+            pooled = self._pool_boxes(feats, boxes, self.box_pooler_resolution)
+            roi_vec = self.rel_box_extractor(pooled)
+            union = self.union_extractor(feats, boxes, pair_idx, image_sizes)
+            return self.relation(boxes, box_mask, obj_labels, obj_logits, pair_idx,
+                                 roi_vec, union, image_sizes, boxes_per_cls,
+                                 gumbel=gumbel)
         depth_feat = self.depth_backbone(depth).contiguous()
         roi_feats = self._pool_boxes(feats, boxes, self.pooler_resolution)
         depth_roi = multilevel_roi_align_batched(
@@ -384,10 +458,10 @@ class SGGModel(nn.Module):
                              depth_roi, obj_logits)
 
     def forward(self, images, depth, boxes, box_mask, obj_labels, obj_logits,
-                pair_idx, pair_mask) -> SGGForward:
+                pair_idx, pair_mask, gumbel=None) -> SGGForward:
         """The JAX ``SGGModel.__call__`` signature; ``obj_logits`` and
         ``pair_mask`` are unused here (padded pairs are masked later, in
-        post-processing)."""
+        post-processing).  ``gumbel``: VCTree's training decoder noise."""
         feats = self.extract_features(images)
         if self.mode == "sgcls":
             predict_logits = self._box_logits(feats, boxes)
@@ -399,6 +473,15 @@ class SGGModel(nn.Module):
             pred_labels = obj_labels
         att_logits = (self.attribute_forward(feats, boxes) if self.attribute_on
                       else None)
+        if self.legacy:
+            # the legacy contexts embed the GT labels (and refine their own)
+            out = self.relate(feats, depth, boxes, box_mask, obj_labels, pair_idx,
+                              predict_logits, gumbel=gumbel)
+            return SGGForward(rel_logits=out.rel_logits, obj_dists=out.obj_dists,
+                              pred_labels=out.obj_preds,
+                              predict_logits=predict_logits,
+                              attribute_logits=att_logits,
+                              binary_preds=out.binary_preds)
         out = self.relate(feats, depth, boxes, box_mask, pred_labels, pair_idx,
                           predict_logits)
         return SGGForward(rel_logits=out.rel_logits, obj_dists=out.obj_dists,
@@ -409,15 +492,23 @@ class SGGModel(nn.Module):
 def resolve_predictor(name: str) -> str:
     """A ``relation.predictor`` name → the base predictor, as the JAX tool
     resolves it: a ``*_MEET`` name selects its base (the ensemble heads
-    come with ``ensemble.enabled``, not with the name).  The port has
-    VETO's; the legacy predictors and their MEET heads raise."""
+    come with ``ensemble.enabled``, not with the name), and
+    ``TransLike_MEET`` is ``TransLikePredictor``.  The port has VETO's and
+    the four legacy predictors that take MEET heads; another legacy name
+    raises ``NotImplementedError`` naming the slice that brings it, an
+    unknown one ``ValueError``."""
     base = name[: -len("_MEET")] if name.endswith("_MEET") else name
-    if base != "VETOPredictor":
+    if base == "TransLike":
+        base = "TransLikePredictor"
+    if base == "VETOPredictor" or base in LEGACY_PORTED:
+        return base
+    if base in _LEGACY_TO_COME:
         raise NotImplementedError(
-            f"predictor {name!r}: the port has VETOPredictor (and its MEET "
-            "heads); the legacy predictors and their MEET heads come with "
-            "slice A14")
-    return base
+            f"predictor {name!r}: the port has VETOPredictor and "
+            f"{', '.join(LEGACY_PORTED)} (with their MEET heads); {base} comes "
+            f"with {_LEGACY_TO_COME[base]}, ROADMAP queue A14")
+    raise ValueError(f"predictor {name!r}: no such relation predictor (the JAX "
+                     f"model's: VETOPredictor, {', '.join(LEGACY_PREDICTORS)})")
 
 
 def build_model(cfg, device=None, seed: int = None,
@@ -434,7 +525,7 @@ def build_model(cfg, device=None, seed: int = None,
 
     dev = resolve_device(device)
     check_mode(cfg.relation.mode)
-    resolve_predictor(cfg.relation.predictor)
+    predictor = resolve_predictor(cfg.relation.predictor)
     meet = build_meet_config(cfg)
     if not cfg.model.backbone.endswith("-FPN") or any(cfg.model.stage_with_dcn):
         raise NotImplementedError(
@@ -482,6 +573,9 @@ def build_model(cfg, device=None, seed: int = None,
         keypoint_on=m.keypoint_on, num_keypoints=m.num_keypoints,
         keypoint_conv_layers=m.keypoint_conv_layers,
         keypoint_pooler_resolution=m.keypoint_pooler_resolution,
+        predictor=predictor,
+        context_hidden_dim=cfg.relation.context_hidden_dim,
+        context_pooling_dim=cfg.relation.context_pooling_dim,
     ).to(dev)
     init_weights(model, cfg.solver.seed if seed is None else seed)
     return model.eval()
@@ -494,6 +588,9 @@ def init_weights(model: nn.Module, seed: int) -> None:
     over the kernel window and group), Xavier-uniform ``rel_out`` (and
     MEET's ``rel_out_e{e}_g{k}``), the box
     predictor's N(0, 0.01^2) ``cls_score`` and N(0, 0.001^2) ``bbox_pred``,
+    the legacy heads' explicit (in, out) matrices (``*_w``, ``bi_freq_prior``)
+    LeCun-normal over their first axis, their class embeddings N(0, 1) and
+    the frequency bias zero, as the JAX model builds it,
     the RPN head's N(0, 0.01^2) convolutions and the attribute head's
     N(0, 0.01^2) ``att_score`` (flax's ``normal`` initializers), the mask
     and keypoint heads' kernels He-normal over their fan-out, truncated at
@@ -521,8 +618,14 @@ def init_weights(model: nn.Module, seed: int) -> None:
                 else p.shape[0]
             std = math.sqrt(2.0 / (out_ch * p.shape[2] * p.shape[3])) / .87962566103423978
             nn.init.trunc_normal_(p, 0.0, 1.0, -2.0, 2.0, generator=gen).mul_(std)
-        elif leaf in ("cls_token", "pos_embedding"):
+        elif leaf in ("cls_token", "pos_embedding", "obj_embed") or name.endswith(
+                ("obj_embed1.weight", "obj_embed2.weight")):
             p.normal_(0.0, 1.0, generator=gen)
+        elif leaf.endswith("_w") or leaf == "bi_freq_prior":
+            # the legacy heads' explicit (in, out) matrices
+            p.normal_(0.0, p.shape[0] ** -0.5, generator=gen)
+        elif leaf.endswith("_b") or leaf == "obj_baseline":
+            p.zero_()
         elif name.endswith("obj_embed.weight"):
             p.normal_(0.0, p.shape[1] ** -0.5, generator=gen)
         elif p.dim() == 4:          # conv (O, I/G, kh, kw)

@@ -124,3 +124,34 @@ def decode_boxes(rel_codes: torch.Tensor, boxes: torch.Tensor,
                        pred_cx + 0.5 * pred_w - 1.0,
                        pred_cy + 0.5 * pred_h - 1.0], dim=-1)
     return out.reshape(rel_codes.shape)
+
+
+def box_union(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
+    """Elementwise enclosing box of two aligned sets (..., 4)."""
+    return torch.cat([torch.minimum(boxes1[..., :2], boxes2[..., :2]),
+                      torch.maximum(boxes1[..., 2:], boxes2[..., 2:])], dim=-1)
+
+
+def encode_box_info(boxes: torch.Tensor, size: torch.Tensor) -> torch.Tensor:
+    """The 9-d normalized box geometry of the legacy contexts: (w/W, h/H,
+    cx/W, cy/H, x1/W, y1/H, x2/W, y2/H, wh/(WH)) of (..., N, 4) boxes in an
+    image of ``size`` (..., 2) = (width, height)."""
+    wid = size[..., None, 0].to(boxes.dtype)
+    hei = size[..., None, 1].to(boxes.dtype)
+    wh = boxes[..., 2:] - boxes[..., :2] + 1.0
+    xy = boxes[..., :2] + 0.5 * wh
+    w, h = wh[..., 0], wh[..., 1]
+    x, y = xy[..., 0], xy[..., 1]
+    x1, y1, x2, y2 = boxes.unbind(-1)
+    return torch.stack([w / wid, h / hei, x / wid, y / hei, x1 / wid, y1 / hei,
+                        x2 / wid, y2 / hei, w * h / (wid * hei)], dim=-1)
+
+
+def resize_boxes(boxes: torch.Tensor, src_size: torch.Tensor,
+                 dst_size: torch.Tensor) -> torch.Tensor:
+    """(..., N, 4) boxes scaled from an image of ``src_size`` to one of
+    ``dst_size`` (each (..., 2) = (width, height); ``BoxList.resize``)."""
+    ratio = dst_size.to(boxes.dtype) / src_size.to(boxes.dtype)
+    rw, rh = ratio[..., None, 0], ratio[..., None, 1]
+    return torch.stack([boxes[..., 0] * rw, boxes[..., 1] * rh,
+                        boxes[..., 2] * rw, boxes[..., 3] * rh], dim=-1)

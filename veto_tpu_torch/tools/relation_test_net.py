@@ -24,8 +24,16 @@ through MEET's eval step in every mode: each group's best predicate of
 each pair competes in one ranking of the G·P candidates of an image (with
 3 experts a group, after the vote of ``ensemble.voting``).
 
-Not yet ported (they raise): the legacy predictors and their MEET heads,
-stage-wise recall, multi-device evaluation.  The bbox-aug test-time
+``relation.predictor`` also takes the legacy ``MotifPredictor``,
+``VCTreePredictor``, ``TransformerPredictor`` and ``TransLikePredictor``
+(``relation.context_hidden_dim`` / ``context_pooling_dim`` wide), each with
+its MEET heads under ``ensemble.enabled`` (``*_MEET`` names, and
+``TransLike_MEET``, select the same base, as in the JAX tool).
+
+Not yet ported (they raise ``NotImplementedError``, naming the slice that
+brings them): the other legacy predictors (IMP, the BGNN family, Causal,
+KERN, AGRCNN, Naive, RelatednessTest), stage-wise recall, multi-device
+evaluation.  The bbox-aug test-time
 augmentation (``test.bbox_aug_*``, ``engine/bbox_aug.py``) serves the
 detector tools' evaluation (``detector_pretest_net``); this tool, like the
 JAX package's, does not run it.

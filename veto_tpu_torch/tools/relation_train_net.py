@@ -47,8 +47,17 @@ With ``model.attribute_on`` the attribute head trains beside the relation
 head on each box's attribute list (``model.attribute_*`` as the JAX tool
 passes them: :func:`attribute_config`).
 
-Not yet ported (they raise): the legacy predictors and their MEET heads,
-the other loss variants, Open Images data (A14), multi-device training.
+``relation.predictor`` also takes the legacy ``MotifPredictor``,
+``VCTreePredictor``, ``TransformerPredictor`` and ``TransLikePredictor``,
+each with its MEET heads under ``ensemble.enabled`` (``*_MEET`` names, and
+``TransLike_MEET``, select the same base, as in the JAX tool); in SGCls
+and SGDet their refined object logits train on ``obj_loss``, and VCTree
+adds ``binary_loss``.
+
+Not yet ported (they raise ``NotImplementedError``): the other legacy
+predictors (IMP, the BGNN family, Causal, KERN, AGRCNN, Naive,
+RelatednessTest: their slices of A14), the other loss variants, Open
+Images data (A14), multi-device training.
 """
 
 from __future__ import annotations

@@ -23,6 +23,16 @@ The SGDet model's frozen heads map by the same rules: the ``rpn`` subtree
 predictor's ``bbox_pred`` Dense.  So do MEET's: ``relation/trunk`` and
 each head ``relation/rel_out_e{e}_g{k}`` (a Dense) keep their names.
 
+The legacy heads' leaves map by the same rules (``nn.Embed`` tables,
+1-D BatchNorm statistics, the rect convs' HWIO kernels, the union fc6,
+whose rows are already in the (h, w, c) order the port flattens in);
+their explicit parameters (the decoders' and TreeLSTMs' ``*_w`` / ``*_b``,
+``bi_freq_prior``, ``obj_baseline``) keep their names and layout.  One
+conversion is structural: a flax ``OptimizedLSTMCell`` (the keys ``ii``,
+``if``, ``ig``, ``io`` without bias, ``hi``, ``hf``, ``hg``, ``ho`` with
+bias) becomes the port's stacked ``weight_ih`` (4H, D), ``weight_hh``
+(4H, H) and ``bias`` (4H), gate rows in (i, f, g, o) order.
+
 A detector body in the unfolded layout (conv + ``FrozenBatchNorm``) loads
 into an unfolded port model as is, or is folded here (``kernel * scale``,
 ``bias = bn.bias``) for a folded one.
@@ -50,6 +60,24 @@ def _leaves(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Iterator:
             yield prefix + (k,), np.array(v, dtype=np.float32)  # a copy
 
 
+_LSTM_GATES = ("i", "f", "g", "o")
+_LSTM_KEYS = {f"{side}{g}" for side in "ih" for g in _LSTM_GATES}
+
+
+def stack_lstm_cells(tree: Mapping) -> Dict:
+    """``tree`` with every flax ``OptimizedLSTMCell`` subtree replaced by
+    the stacked ``weight_ih`` / ``weight_hh`` / ``bias`` of the port's
+    ``LSTMDirection``."""
+    if set(tree) == _LSTM_KEYS:
+        k = {n: np.asarray(v["kernel"], np.float32) for n, v in tree.items()}
+        return {"weight_ih": np.concatenate([k[f"i{g}"] for g in _LSTM_GATES], 1).T,
+                "weight_hh": np.concatenate([k[f"h{g}"] for g in _LSTM_GATES], 1).T,
+                "bias": np.concatenate([np.asarray(tree[f"h{g}"]["bias"], np.float32)
+                                        for g in _LSTM_GATES])}
+    return {k: stack_lstm_cells(v) if isinstance(v, Mapping) else v
+            for k, v in tree.items()}
+
+
 def fold_frozen_bn(body: Mapping) -> Dict:
     """An unfolded detector-body tree in the folded layout: each (conv,
     FrozenBatchNorm) pair becomes a conv with ``kernel * scale`` (output
@@ -74,7 +102,7 @@ def flax_to_state_dict(variables: Mapping,
                        fold_bn: bool = False) -> Dict[str, torch.Tensor]:
     """Convert a flax variables tree; ``fold_bn`` folds an unfolded detector
     body (``params/backbone/body``) into the folded layout first."""
-    params = variables["params"]
+    params = stack_lstm_cells(variables["params"])
     body = params.get("backbone", {}).get("body", {})
     if fold_bn and "stem_bn" in body:
         params = {**params, "backbone": {**params["backbone"],
