@@ -195,9 +195,35 @@ catches its own failure:
     pixels seeded in memory (no PIL on the card's machine): 2 pretraining
     steps on each, exact launches; the VOC evaluator on one val batch's
     detections (seeded weights).
-19. One JSON line ``{"kernels": [...]}`` (all nine kernels, N1 last;
+19. The legacy relation head at full width (``relation.predictor`` =
+    ``MotifPredictor``, ``VCTreePredictor``, ``TransformerPredictor``,
+    ``TransLikePredictor``; ``context_hidden_dim`` 512,
+    ``context_pooling_dim`` 4096, bf16, the frozen R-101 body shared by
+    the builds).  Each of the four in PredCls: one eval batch of 8 (2048
+    pairs an image) through ``evaluate`` with exact launches (B3 2: the
+    boxes' 7x7 pool into the relation box MLP and the union boxes' 7x7
+    pool; B1 0, B3-bwd 0, every other kernel 0), its relation logits
+    through the kernels against the plain versions at phase 5's tolerances
+    (VCTree: the count of forest nodes that differ between the two runs,
+    then the logits with the plain run's forest given to both), the
+    context's ms (VCTree: the tree build's and one TreeLSTM pass's), the
+    eval forward's busy share; 2 train steps of 12 through ``train`` (B3 2
+    a step, no B3-bwd: the body is frozen and no depth is read; finite
+    losses, ``binary_loss`` for VCTree, every trainable tensor changed,
+    every trainable BatchNorm's statistics updated, the detector
+    bit-unchanged) and one step's gradients against the plain versions, in
+    f32 (in bf16 from seeded weights the legacy steps are chaotic: a
+    rounding flip of a pooled feature moves an attention layer's gradients
+    by tens of %).  Motifs and VCTree in SGCls (B3 3) and SGDet (B3 3, N1 mask 2, scan 2;
+    the train step on GT from detections): one eval batch and one train
+    step each.  ``MotifPredictor_MEET`` with ``ensemble.enabled``: one eval
+    batch, its group logits against the plain versions, one train step.
+    B3 alone on the eval batch's 16,384 union rois at 7x7 against its
+    plain version, device ms against its bound (bytes).
+20. One JSON line ``{"kernels": [...]}`` (all nine kernels, N1 last;
     ``launches`` from the main path's training run, or the path that runs
-    each) and, last, ``{"ok": true, "device": {...}}``.
+    each, B3's with phase 19's counted runs added) and, last,
+    ``{"ok": true, "device": {...}}``.
 
 Every f32 comparison runs with TF32 off (``torch.backends.cudnn.allow_tf32``
 and ``torch.backends.cuda.matmul.allow_tf32`` are set False below), so the
@@ -211,6 +237,7 @@ import contextlib
 import ctypes
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -1541,6 +1568,13 @@ def phase_train(steps=5, opts=(), encoder=("fused_encoder_layer",
     return state, total
 
 
+# gradients that are 0 analytically (by their name's end): a bias under a
+# BatchNorm with batch statistics (the legacy heads' position, box and
+# overlap nets) and the attention keys' bias (the softmax ignores a shift
+# of the keys)
+ANALYTIC_ZERO = ("pos_fc1.bias", "box_fc.bias", "overlap_fc.bias", "w_ks.bias")
+
+
 def phase_train_grads(state, opts=(), what="main path", b=None, config=PREDCLS,
                       exact_floor=False, samples=None):
     """One step's gradients through the kernels against the same step
@@ -1578,9 +1612,19 @@ def phase_train_grads(state, opts=(), what="main path", b=None, config=PREDCLS,
                             pairs.labels, pairs.mask, state.meet.incre_idx,
                             state.meet.sample_rate)
 
+    # VCTree: every run of the step on one forest, the plain run's (the
+    # greedy build is an argmax that a last-bit difference can flip)
+    rel = state.model.relation
+    tree = hasattr(rel, "last_forest")
+
     def grads():
         loss = forward_backward(state, b, samples, member)["loss"]
         return loss, {n: p.grad.detach().clone() for n, p in params}
+
+    if tree:
+        with cuda_lib.plain_kernels():
+            grads()
+        rel.forest = rel.last_forest
 
     def compare(got, ref):
         """(|err| / |ref| in L2, max |err| / max |ref|, name, finite) per
@@ -1599,6 +1643,9 @@ def phase_train_grads(state, opts=(), what="main path", b=None, config=PREDCLS,
     with cuda_lib.plain_kernels():
         ref_loss, ref = grads()
     state.optimizer.zero_grad()
+    if tree:
+        rel.forest = None
+        print("  (VCTree: every run on the plain run's forest)")
     print(f"  loss {float(loss):.6f} (kernels), {float(ref_loss):.6f} (plain)")
     # The floor: what two kernel runs of one step differ by.  Every kernel
     # of the port sums in a fixed order (B3-bwd has no atomics),
@@ -1622,7 +1669,17 @@ def phase_train_grads(state, opts=(), what="main path", b=None, config=PREDCLS,
               f"{len(varies)} of {len(params)} tensors vary, the one nearest the "
               f"loss in parameter order {varies[0]} (|err| / |ref| "
               f"{next(r[0] for r in compare(again, got) if r[2] == varies[0]):.3e})")
-    rows = compare(got, ref)
+    # a gradient that is 0 analytically holds only rounding, in both runs:
+    # held to 1e-2 of the step's largest |g| instead
+    top = max(float(ref[n].abs().max()) for n, _ in params)
+    zero = [n for n, _ in params if n.endswith(ANALYTIC_ZERO)]
+    if zero:
+        worst = max(float(t[n].abs().max()) for t in (got, ref) for n in zero)
+        print(f"  {len(zero)} gradients 0 analytically ({', '.join(zero)}): "
+              f"largest |g| {worst:.3e}, of the step's largest {top:.3e}")
+        if worst > 1e-2 * top:
+            raise AssertionError(f"analytically zero gradients reach {worst}")
+    rows = [r for r in compare(got, ref) if r[2] not in zero]
     for rel_l2, rel_max, n, _ in rows[:4]:
         print(f"  {n}: |err| / |ref| {rel_l2:.3e}, max |err| {rel_max:.3e} of max |ref|")
     bad = [r for r in rows if r[0] > 0.1 or r[1] > 0.25 or not r[3]]
@@ -3899,6 +3956,346 @@ def phase_heads():
     return numbers
 
 
+# ------------------------------------------------------------------ phase 19
+LEGACY = ("MotifPredictor", "VCTreePredictor", "TransformerPredictor",
+          "TransLikePredictor")
+LEGACY_STEPS = 2  # PredCls train steps a predictor
+LEGACY_B3 = {"total": 0}  # B3 launches on the legacy paths' counted runs
+
+
+def legacy_cfg(config, predictor, opts=()):
+    """The config with ``relation.predictor`` and 8 images an eval batch."""
+    from veto_tpu_torch.config import load_config
+
+    return load_config(os.path.join(ROOT, "configs", config),
+                       ["test.ims_per_batch=8", f"relation.predictor={predictor}",
+                        f"output_dir={scratch_dir()}", *opts])
+
+
+def legacy_model(cfg, body):
+    """A full-width legacy model of ``cfg`` on the card, seeded, eval mode,
+    its frozen detector body the one of ``body`` (a state dict, shared by
+    the builds: the seeded draw gives every build the same body) when
+    given; returns the model and its body's state dict."""
+    from veto_tpu_torch.models.sgg import build_model
+
+    t0 = time.perf_counter()
+    model = build_model(cfg)
+    if body is not None:
+        model.backbone.load_state_dict(body)
+    print(f"  built {cfg.relation.predictor} ({cfg.relation.mode}, hidden "
+          f"{cfg.relation.context_hidden_dim}, pooling "
+          f"{cfg.relation.context_pooling_dim}, {cfg.dtype}) in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return model, model.backbone.state_dict()
+
+
+def flat_logits(out):
+    """The relation logits as a list of tensors (MEET's [e][k] flattened)."""
+    if torch.is_tensor(out):
+        return [out]
+    return [t for e in out for t in e]
+
+
+def check_legacy_logits(model, cfg, b, what):
+    """One eval batch's relation logits through the kernels against the
+    plain versions, at phase 5's tolerances; VCTree first reports how many
+    forest nodes (left, right, parent, root) of the two runs differ, then
+    compares the logits with the plain run's forest given to both."""
+    from veto_tpu_torch.models.relation.legacy.vctree import forest_differences
+    from veto_tpu_torch.ops import cuda_lib
+
+    rel = model.relation
+    got = eval_logits(model, cfg, b)
+    tree = getattr(rel, "last_forest", None)
+    with cuda_lib.plain_kernels():
+        ref = eval_logits(model, cfg, b)
+    note = ""
+    if tree is not None:
+        plain_tree = rel.last_forest
+        diff = forest_differences(tree, plain_tree)
+        rel.forest = plain_tree
+        try:
+            got = eval_logits(model, cfg, b)
+        finally:
+            rel.forest = None
+        note = (f"; the two runs' forests differ at {diff} of "
+                f"{int(plain_tree.in_tree.sum())} nodes, the logits compared on "
+                "the plain run's forest")
+    print(f"  {what}: kernels vs plain{note}")
+    for i, (g, r) in enumerate(zip(flat_logits(got), flat_logits(ref))):
+        if g.dtype != torch.float32:
+            raise AssertionError(f"{what}: logits {g.dtype}")
+        check_close(f"{what} logits {i}", g, r, atol=0.05 * float(r.abs().max()),
+                    rtol=0.0, mean_tol=0.01 * float(r.abs().mean()))
+    return got
+
+
+def legacy_evaluate(model, cfg, what, per_batch):
+    """One eval batch of 8 through ``relation_test_net.evaluate`` at exact
+    launches; returns its ms and peak memory."""
+    ms, peak, _ = counted_evaluate(model, cfg, 1, what, per_batch)
+    LEGACY_B3["total"] += per_batch["multilevel_roi_align"]
+    return ms, peak
+
+
+def legacy_train(model, cfg, per_step, what, steps, datasets=None):
+    """``relation_train_net.train`` for ``steps`` full-width steps: exact
+    launches at every step, finite losses (``binary_loss`` for VCTree),
+    every trainable tensor changed, the frozen detector bit-unchanged, every
+    trainable BatchNorm's statistics updated.  Returns the state, ms a step
+    (the last) and the peak memory."""
+    from veto_tpu_torch.tools.relation_train_net import train
+
+    cfg = cfg.override("solver.max_iter", steps)
+    frozen = frozen_state(model)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()
+              if p.requires_grad}
+    stats0 = {n: b.clone() for n, b in model.named_buffers()
+              if not n.startswith("backbone.")
+              and n.endswith(("running_mean", "running_var"))}
+    counts = []
+
+    def log(line):
+        if line.startswith("iter "):
+            counts.append(read_counters(reset=True))
+            line += f"  launches {json.dumps(counts[-1])}"
+        print(f"  {line}")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    read_counters(reset=True)
+    try:
+        state, history = train(cfg, model=model, log=log, datasets=datasets)
+    finally:  # a checkpoint of the full-width model holds about 1.7 GB
+        shutil.rmtree(cfg.output_dir, ignore_errors=True)
+    peak = torch.cuda.max_memory_allocated()
+    if counts != [per_step] * steps:
+        raise AssertionError(f"{what}: launches {counts}, want {per_step} a step")
+    LEGACY_B3["total"] += per_step["multilevel_roi_align"] * steps
+    keys = [k for k in history[-1] if k.endswith("loss")] + ["grad_norm"]
+    if not all(np.isfinite(r[k]) for r in history for k in keys):
+        raise AssertionError(f"{what}: non-finite losses: {history}")
+    if cfg.relation.predictor.startswith("VCTree") and "binary_loss" not in keys:
+        raise AssertionError(f"{what}: no binary_loss")
+    for k, v in frozen_state(model).items():
+        if not torch.equal(v, frozen[k]):
+            raise AssertionError(f"{what}: frozen detector changed: {k}")
+    still = [n for n, p in model.named_parameters()
+             if p.requires_grad and torch.equal(p, before[n])]
+    same = [n for n, b in model.named_buffers()
+            if n in stats0 and torch.equal(b, stats0[n])]
+    if still or same:
+        raise AssertionError(f"{what}: unchanged: {still} {same}")
+    ms = 1e3 * history[-1]["seconds"]
+    print(f"  [{what}] {steps} step(s): {', '.join(f'{k} {history[-1][k]:.4f}' for k in keys)}"
+          f" (the last); {[round(1e3 * r['seconds'], 1) for r in history]} ms a step; "
+          f"peak memory {peak / 2 ** 30:.2f} GiB; {len(before)} trainable tensors "
+          f"changed, {len(stats0)} BatchNorm statistics updated, {len(frozen)} "
+          "detector tensors bit-unchanged")
+    return state, ms, peak
+
+
+def legacy_context_ms(model, cfg, b):
+    """ms by CUDA events of the predictor's context (the LSTMs / the tree
+    passes / the attention stacks) on one eval batch's inputs, and for
+    VCTree of the tree build and one bidirectional TreeLSTM pass."""
+    from veto_tpu_torch.models.relation.legacy.vctree import build_vctree
+
+    seen = {}
+    ctx = model.relation.context_layer
+    hooks = [ctx.register_forward_pre_hook(
+        lambda m, args, kw: seen.__setitem__("ctx", (args, kw)), with_kwargs=True)]
+    if hasattr(ctx, "obj_ctx_rnn") and hasattr(ctx, "pair_scores"):
+        hooks.append(ctx.obj_ctx_rnn.register_forward_pre_hook(
+            lambda m, args: seen.__setitem__("tree", args)))
+    try:
+        eval_logits(model, cfg, b)
+    finally:
+        for h in hooks:
+            h.remove()
+    args, kw = seen["ctx"]
+    out = {}
+    with torch.inference_mode():
+        out["context_ms"] = cuda_ms(lambda: ctx(*args, **kw), 3, warmup=1)
+        if "tree" in seen:
+            obj_pre, forest = seen["tree"]
+            mask = args[2]
+            scores = torch.rand(mask.shape + mask.shape[-1:], device=DEVICE)
+            out["tree_build_ms"] = cuda_ms(lambda: build_vctree(scores, mask), 3, 1)
+            out["bi_tree_lstm_ms"] = cuda_ms(lambda: ctx.obj_ctx_rnn(obj_pre, forest),
+                                             3, 1)
+    return out
+
+
+def legacy_predcls(predictor, b, body, numbers):
+    """One predictor in PredCls: an eval batch (B3 2: the box pool and the
+    union pool; no other kernel), its logits through the kernels against the
+    plain versions, the context's ms, the eval's busy share; then
+    ``LEGACY_STEPS`` train steps (B3 2 a step, no B3-bwd: the body is frozen
+    and no depth is read) and one step's gradients against the plain
+    versions (in f32: :func:`legacy_grads_f32`)."""
+    cfg = legacy_cfg(PREDCLS, predictor)
+    model, body = legacy_model(cfg, body)
+    per = expected(multilevel_roi_align=2)
+    eval_ms, eval_peak = legacy_evaluate(model, cfg, f"{predictor} PredCls eval", per)
+    check_legacy_logits(model, cfg, b, f"{predictor} PredCls")
+    fwd = lambda: eval_logits(model, cfg, b)  # noqa: E731
+    wall, busy = cuda_ms(fwd, 2, 1), busy_ms(fwd, 2)
+    ctx = legacy_context_ms(model, cfg, b)
+    state, train_ms, train_peak = legacy_train(model, cfg, per, f"{predictor} train",
+                                               LEGACY_STEPS)
+    del state, model
+    release()
+    legacy_grads_f32(predictor)
+    numbers[predictor] = dict(eval_ms=eval_ms, eval_forward_ms=wall,
+                              eval_busy_share=busy / wall,
+                              eval_peak_gib=eval_peak / 2 ** 30, train_ms=train_ms,
+                              train_peak_gib=train_peak / 2 ** 30, **ctx)
+    print(f"  [{predictor}] eval forward {wall:.1f} ms by CUDA events, {busy:.1f} ms "
+          f"busy on the device ({busy / wall:.2f}); context {json.dumps(ctx)}")
+    return body
+
+
+def legacy_grads_f32(predictor):
+    """One PredCls step's gradients through the kernels against the plain
+    versions, the model (body included) in f32.  In bf16 from seeded
+    weights the legacy heads' steps are chaotic: the relation logits reach
+    the hundreds (loss 30-90), and a bf16 rounding flip of a pooled feature
+    (B3 and its plain version differ in the last f32 bits) moved the
+    Transformer's first attention layer's gradients by 19% (L2) in the first
+    card run; in f32 the comparison is well posed."""
+    from veto_tpu_torch.engine.train import create_train_state
+    from veto_tpu_torch.tools.relation_train_net import (
+        build_meet_config, rel_class_weights,
+    )
+
+    cfg = legacy_cfg(PREDCLS, predictor, ("dtype=float32",))
+    model, _ = legacy_model(cfg, None)
+    state = create_train_state(model, cfg.solver, rel_class_weights(cfg),
+                               mode=cfg.relation.mode, meet=build_meet_config(cfg))
+    phase_train_grads(state, (f"relation.predictor={predictor}", "dtype=float32"),
+                      what=f"{predictor} PredCls, f32")
+    del state, model
+    release()
+
+
+def legacy_other_modes(predictor, body, numbers):
+    """One predictor in SGCls (B3 3: the box head's pool too) and in SGDet
+    (B3 3: the box head's pool of the proposals, then the box and union
+    pools of the detections; N1 mask 2, scan 2: the RPN's and the
+    per-class walks): one eval batch and one train step each (SGDet's on
+    GT taken from detections, as phase 15's)."""
+    cfg = legacy_cfg(SGCLS, predictor)
+    model, body = legacy_model(cfg, body)
+    per = expected(multilevel_roi_align=3)
+    eval_ms, eval_peak = legacy_evaluate(model, cfg, f"{predictor} SGCls eval", per)
+    _, train_ms, train_peak = legacy_train(model, cfg, per, f"{predictor} SGCls train", 1)
+    numbers[f"{predictor} sgcls"] = dict(eval_ms=eval_ms, train_ms=train_ms,
+                                         eval_peak_gib=eval_peak / 2 ** 30,
+                                         train_peak_gib=train_peak / 2 ** 30)
+    del model
+    release()
+
+    from veto_tpu_torch.tools.relation_test_net import synthetic_eval_dataset
+    from veto_tpu_torch.tools.relation_train_net import build_dataset
+
+    cfg = legacy_cfg(SGDET, predictor)
+    model, body = legacy_model(cfg, body)
+    batch, _ = next(synthetic_eval_dataset(cfg, 8).batches(8, cfg.data.max_boxes))
+    sigma = draw_cls_score(model, cfg, batch.to(DEVICE))
+    per = expected(multilevel_roi_align=3, nms_mask=2, nms_scan=2)
+    eval_ms, eval_peak = legacy_evaluate(model, cfg, f"{predictor} SGDet eval", per)
+    datasets = (detected_gt_dataset(model, cfg), build_dataset(cfg, "val"))
+    _, train_ms, train_peak = legacy_train(model, cfg, per, f"{predictor} SGDet train",
+                                           1, datasets)
+    numbers[f"{predictor} sgdet"] = dict(eval_ms=eval_ms, train_ms=train_ms,
+                                         eval_peak_gib=eval_peak / 2 ** 30,
+                                         train_peak_gib=train_peak / 2 ** 30,
+                                         cls_score_sigma=sigma)
+    del model
+    release()
+    return body
+
+
+def legacy_union_pool(b):
+    """B3 alone on one eval batch's union boxes: 8 images x 2048 pairs =
+    16,384 rois at 7x7 on the frozen body's P2-P5, against its plain
+    version; device ms against the bound (bytes: the taps the rois read,
+    the rois, the f32 output)."""
+    from veto_tpu_torch.config import load_config
+    from veto_tpu_torch.models.relation.sampling import prepare_test_pairs
+    from veto_tpu_torch.models.relation.union_features import union_boxes
+    from veto_tpu_torch.models.sgg import build_model
+    from veto_tpu_torch.ops import roi_align_windowed as rw
+
+    cfg = load_config(os.path.join(ROOT, "configs", PREDCLS),
+                      ["relation.predictor=MotifPredictor"])
+    model = build_model(cfg)
+    with torch.inference_mode():
+        feats = [f.contiguous() for f in model.extract_features(b.images)[:4]]
+        pi, _ = prepare_test_pairs(b.box_mask, b.box_mask.float(),
+                                   cfg.relation.max_proposal_pairs)
+        rois = union_boxes(b.boxes, pi)[0].contiguous()
+    del model
+    p = 7
+    levels = rw.fpn_level_assignment(rois)
+    share = [round(float((levels == k).float().mean()), 3) for k in range(4)]
+    got = rw.multilevel_roi_align_batched(feats, rois, SCALES, p, 2)
+    ref = rw.reference_multilevel_roi_align_batched(feats, rois, SCALES, p, 2)
+    err = check_close(f"union pool, {rois.shape[0]} x {rois.shape[1]} rois", got, ref,
+                      atol=1e-5, rtol=1e-5)
+    del got, ref
+    ms = device_ms(lambda: rw.multilevel_roi_align_batched(feats, rois, SCALES, p, 2),
+                   "roi_align_fwd_kernel", 10)
+    plain_ms = cuda_ms(lambda: rw.reference_multilevel_roi_align_batched(
+        feats, rois, SCALES, p, 2), 2, 1)
+    c = feats[0].shape[-1]
+    out_bytes = rois.shape[0] * rois.shape[1] * p * p * c * 4
+    in_bytes = roi_tap_bytes(feats, rois, levels, SCALES, p) + rois.numel() * 4
+    bound = (in_bytes + out_bytes) / PEAK_BYTES * 1e3
+    print(f"  union pool: rois by level P2-P5 {share}; kernel {ms:.4f} ms on the "
+          f"device, plain {plain_ms:.3f} ms; moves {in_bytes / 1e6:.1f} MB of taps "
+          f"and rois + {out_bytes / 1e6:.1f} MB out -> bound {bound:.4f} ms (bytes), "
+          f"{(in_bytes + out_bytes) / ms / 1e6:.0f} GB/s")
+    return dict(rois=int(rois.shape[0] * rois.shape[1]), level_share=share, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound, max_abs_err=err)
+
+
+def phase_legacy():
+    """Phase 19: the legacy relation head at full width (see the module
+    docstring).  Returns its numbers."""
+    from veto_tpu_torch.tools.relation_test_net import synthetic_eval_dataset
+
+    print("[legacy] the legacy relation head at full width: Motifs, VCTree, "
+          "Transformer, TransLike (context_hidden_dim 512, context_pooling_dim "
+          "4096, bf16) on the frozen R-101 body, seeded weights")
+    cfg = legacy_cfg(PREDCLS, "MotifPredictor")
+    batch, _ = next(synthetic_eval_dataset(cfg, 8).batches(8, cfg.data.max_boxes))
+    b = batch.to(DEVICE)
+    numbers, body = {}, None
+    for predictor in LEGACY:
+        body = legacy_predcls(predictor, b, body, numbers)
+    for predictor in LEGACY[:2]:
+        body = legacy_other_modes(predictor, body, numbers)
+
+    meet = ("ensemble.enabled=true",)
+    cfg = legacy_cfg(PREDCLS, "MotifPredictor_MEET", meet)
+    model, body = legacy_model(cfg, body)
+    per = expected(multilevel_roi_align=2)
+    eval_ms, _ = legacy_evaluate(model, cfg, "MotifPredictor_MEET eval", per)
+    check_legacy_logits(model, cfg, b, "MotifPredictor_MEET")
+    _, train_ms, _ = legacy_train(model, cfg, per, "MotifPredictor_MEET train", 1)
+    numbers["MotifPredictor_MEET"] = dict(eval_ms=eval_ms, train_ms=train_ms)
+    del model
+    release()
+    numbers["union_pool"] = legacy_union_pool(b)
+    numbers["b3_launches"] = LEGACY_B3["total"]
+    release()
+    print(f"[legacy numbers] {card()}: {json.dumps(numbers)}")
+    return numbers
+
+
 _SCRATCH = []
 
 
@@ -3955,11 +4352,14 @@ def main() -> int:
     phase_meet()
     phase_pretrain()
     phase_heads()
-    # each kernel's launches on the training path that runs it
+    phase_legacy()
+    # each kernel's launches on the training path that runs it; B3's also
+    # those of the legacy paths' counted runs (phase 19)
     launches.update(pair_attention=pa_launches["pair_attention"],
                     pair_attention_backward=pa_launches["pair_attention_backward"],
                     encoder_mono_bwd=mono_launches["encoder_mono_bwd"],
                     greedy_nms=n1_launches)
+    launches["multilevel_roi_align"] += LEGACY_B3["total"]
     for k in kernels:
         k["launches"] = launches[k["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -35,7 +35,7 @@ from veto_tpu.ops import box_ops as jbox
 from torch_port_legacy_case import (
     B, MEET_REL, NUM_OBJ, NUM_REL, check_train_step, class_weights, compare_outputs,
     jax_eval, jax_model, jax_train, jax_variables, make_inputs, port_eval, port_model,
-    init_method, jax_train64, relate_args, shallow_attention, solver, t_,
+    TOOL_OPTS, init_method, jax_train64, relate_args, shallow_attention, solver, t_,
     train_samples,
 )
 
@@ -97,6 +97,33 @@ def test_centerx_perm_ties_and_padding_are_bit_equal(case):
     np.testing.assert_array_equal(perm.numpy(), np.asarray(jp))
     np.testing.assert_array_equal(inv.numpy(), np.asarray(ji))
     assert (mask[1][perm[1].numpy()] == [True] * 4 + [False] * 2).all()
+
+
+def test_frequency_bias_matches_jax():
+    """``FrequencyBias``: the hard lookup of (subject, object) class pairs
+    exactly, and ``index_with_probability`` (the soft lookup over two class
+    distributions) within 1e-6 of its largest |value|, on a seeded table."""
+    from veto_tpu.models.relation.freq_bias import FrequencyBias as JFreq
+    from veto_tpu_torch.models.relation.freq_bias import FrequencyBias
+
+    rng = np.random.RandomState(2)
+    table = rng.randn(NUM_OBJ * NUM_OBJ, NUM_REL).astype(np.float32)
+    pairs = rng.randint(0, NUM_OBJ, (B, 5, 2)).astype(np.int32)
+    prob = rng.dirichlet(np.ones(NUM_OBJ), (B, 5, 2)).transpose(0, 1, 3, 2)
+    prob = prob.astype(np.float32)
+    jf = JFreq(num_obj_classes=NUM_OBJ, num_rel_classes=NUM_REL)
+    v = {"params": {"obj_baseline": jnp.asarray(table)}}
+    hard, soft = jax.jit(lambda p, q: (
+        jf.apply(v, p), jf.apply(v, q, method="index_with_probability")))(
+        jnp.asarray(pairs), jnp.asarray(prob))
+    fb = FrequencyBias(NUM_OBJ, NUM_REL)
+    with torch.no_grad():
+        fb.obj_baseline.copy_(t_(table))
+        np.testing.assert_array_equal(fb(t_(pairs)).numpy(), np.asarray(hard))
+        got = fb.index_with_probability(t_(prob)).numpy()
+    np.testing.assert_allclose(got, np.asarray(soft), rtol=0,
+                               atol=1e-6 * float(np.abs(np.asarray(soft)).max()))
+    assert not FrequencyBias(NUM_OBJ, NUM_REL).obj_baseline.any()
 
 
 @pytest.mark.parametrize("mode", ["sgcls", "sgdet"])
@@ -235,16 +262,6 @@ def test_resolve_predictor_names():
             resolve_predictor(name)
     with pytest.raises(ValueError):
         resolve_predictor("NoSuchPredictor")
-
-
-TOOL_OPTS = ["model.stage_blocks=(1,1,1,1)", "data.min_size_train=64",
-             "data.max_size_train=96", "data.min_size_test=64", "data.max_size_test=96",
-             "data.max_boxes=6", "relation.batch_size_per_image=16",
-             "relation.max_proposal_pairs=30", "solver.ims_per_batch=2",
-             "test.ims_per_batch=8", "relation.context_hidden_dim=16",
-             "relation.context_pooling_dim=32", "solver.max_iter=1",
-             "solver.val_period=1", "solver.checkpoint_period=1",
-             "dtype=float32"]
 
 
 @pytest.mark.parametrize("predictor", ["MotifPredictor", "TransformerPredictor",

@@ -35,6 +35,16 @@ from veto_tpu_torch.data.predicate_stats import predicate_counts
 from veto_tpu_torch.utils.jax_weights import flax_to_state_dict
 
 B, N, P_TRAIN = 2, 6, 16
+# the relation tools on the CPU: toy sizes, one train step and its validation
+TOOL_OPTS = ["model.stage_blocks=(1,1,1,1)", "data.min_size_train=64",
+             "data.max_size_train=96", "data.min_size_test=64", "data.max_size_test=96",
+             "data.max_boxes=6", "relation.batch_size_per_image=16",
+             "relation.max_proposal_pairs=30", "solver.ims_per_batch=2",
+             "test.ims_per_batch=8", "relation.context_hidden_dim=16",
+             "relation.context_pooling_dim=32", "solver.max_iter=1",
+             "solver.val_period=1", "solver.checkpoint_period=1",
+             "dtype=float32"]
+
 NUM_OBJ, NUM_REL, MEET_REL = 8, 7, 51
 SIZES = np.array([[64, 64], [56, 48]], np.float32)  # (w, h) before padding
 TINY = dict(num_obj_classes=NUM_OBJ, stage_blocks=(1, 1, 1, 1), groups=1,
@@ -259,7 +269,7 @@ def port_batch(x):
 
 
 def port_rel_sample(s):
-    return RelSample(t_(s.pair_idx), t_(s.labels), t_(s.mask), t_(s.binary_rel))
+    return RelSample(t_(s.pair_idx), t_(s.labels), t_(s.mask))
 
 
 def jax_train(jm, variables, x, s, mode, cw, rel_losses=None, box_head=False,

@@ -190,14 +190,13 @@ def draw_gumbel(model: nn.Module, num_boxes: int, batch_size: int,
     """VCTree's training decoder noise (B, N, C - 1), ``-log(-log(u))`` of
     uniforms from ``generator`` (as ``jax.random.gumbel`` draws it), for a
     model whose predictor samples; None for every other model."""
-    ctx = getattr(model, "relation", None)
-    ctx = getattr(ctx, "context_layer", None)
-    if not hasattr(ctx, "pair_scores") or model.mode == "predcls":
+    head = model.relation
+    if not getattr(head, "samples_labels", False):
         return None
     if generator is None:
         raise ValueError("VCTree's decoder noise draws from state.generator: set it")
     dev = next(model.parameters()).device
-    u = torch.rand((batch_size, num_boxes, ctx.num_obj_classes - 1),
+    u = torch.rand((batch_size, num_boxes, head.num_obj_classes - 1),
                    generator=generator, device=dev)
     tiny = torch.finfo(torch.float32).tiny
     return -torch.log(-torch.log(torch.clamp(u, min=tiny)))
@@ -251,8 +250,9 @@ def forward_backward(state: TrainState, batch,
                            gumbel=gumbel)
         losses = _rel_losses(state, out.rel_logits, pairs.labels, pairs.mask,
                              member)
-        if out.binary_preds is not None:
-            losses["binary_loss"] = _binary_loss(out.binary_preds, pairs.binary_rel,
+        binary_preds = getattr(out, "binary_preds", None)  # VCTree's
+        if binary_preds is not None:
+            losses["binary_loss"] = _binary_loss(binary_preds, pairs.binary_rel,
                                                  dets.mask)
         # VETO's obj_dists is the one-hot of the detections' labels: this
         # term moves the loss value, not the update; a legacy predictor's
@@ -269,11 +269,9 @@ def forward_backward(state: TrainState, batch,
         losses = _rel_losses(state, out.rel_logits, samples.labels,
                              samples.mask, member)
         if out.binary_preds is not None:
-            binary_rel = samples.binary_rel
-            if binary_rel is None:
-                binary_rel = binary_relatedness(batch.rel_matrix, batch.box_mask)
-            losses["binary_loss"] = _binary_loss(out.binary_preds, binary_rel,
-                                                 batch.box_mask)
+            losses["binary_loss"] = _binary_loss(
+                out.binary_preds, binary_relatedness(batch.rel_matrix, batch.box_mask),
+                batch.box_mask)
         if out.attribute_logits is not None:
             losses["attribute_loss"] = _attribute_loss(
                 state, out.attribute_logits, batch, attribute_draws)

@@ -95,15 +95,15 @@ def pair_classes(obj_preds: torch.Tensor, pair_idx: torch.Tensor) -> torch.Tenso
 
 class _PairHead(nn.Module):
     """The head / tail split of the edge context (``post_emb``) and the
-    pair representation ``post_cat`` of each pair's head and tail."""
+    pair representation ``post_cat`` of each pair's head and tail.  The
+    union features arrive ``pooling_dim`` wide (``SGGModel`` builds them
+    so), so the JAX modules' ``up_dim`` projection is never built."""
 
-    def __init__(self, hidden_dim, pooling_dim, in_channels, dtype, relu_emb=False):
+    def __init__(self, hidden_dim, pooling_dim, dtype, relu_emb=False):
         super().__init__()
         self.hidden_dim, self.relu_emb = hidden_dim, relu_emb
         self.post_emb = Dense(hidden_dim, hidden_dim * 2, dtype=dtype)
         self.post_cat = Dense(hidden_dim * 2, pooling_dim, dtype=dtype)
-        if pooling_dim != in_channels:
-            self.up_dim = Dense(in_channels, pooling_dim, dtype=dtype)
 
     def prod(self, edge_ctx: torch.Tensor, pair_idx: torch.Tensor) -> torch.Tensor:
         """(B, P, 2 hidden) joined head and tail representations."""
@@ -113,10 +113,6 @@ class _PairHead(nn.Module):
         h = self.hidden_dim
         return torch.cat([gather_rows(rep[..., :h], pair_idx[..., 0]),
                           gather_rows(rep[..., h:], pair_idx[..., 1])], -1)
-
-    def union(self, union_features: torch.Tensor, dtype) -> torch.Tensor:
-        uf = union_features.to(dtype)
-        return self.up_dim(uf) if hasattr(self, "up_dim") else uf
 
 
 class TransformerPredictor(_PairHead):
@@ -130,13 +126,11 @@ class TransformerPredictor(_PairHead):
                  embed_dim: int = 200, hidden_dim: int = 512, pooling_dim: int = 4096,
                  in_channels: int = 4096, obj_layers: int = 4, edge_layers: int = 2,
                  heads: int = 8, inner_dim: int = 2048, k_dim: int = 64,
-                 v_dim: int = 64, mode: str = "predcls", use_vision: bool = True,
-                 use_bias: bool = False,
+                 v_dim: int = 64, mode: str = "predcls", use_bias: bool = False,
                  meet_group_sizes: Optional[Sequence[int]] = None,
                  meet_experts: int = 1, dtype: torch.dtype = torch.float32):
-        super().__init__(hidden_dim, pooling_dim,
-                         in_channels if use_vision else pooling_dim, dtype)
-        self.dtype, self.use_vision = dtype, use_vision
+        super().__init__(hidden_dim, pooling_dim, dtype)
+        self.dtype = dtype
         ctx = SHAContext if self.context_type == "sha" else TransformerContext
         self.context_layer = ctx(num_obj_classes, embed_dim, hidden_dim, in_channels,
                                  obj_layers, edge_layers, heads, inner_dim, k_dim,
@@ -159,9 +153,7 @@ class TransformerPredictor(_PairHead):
             roi_features, boxes, box_mask, obj_labels, predict_logits, image_sizes,
             boxes_per_cls)
         prod_rep = self.prod(edge_ctx, pair_idx)
-        ctx_gate = self.post_cat(prod_rep)
-        visual_rep = (ctx_gate * self.union(union_features, self.dtype)
-                      if self.use_vision else ctx_gate)
+        visual_rep = self.post_cat(prod_rep) * union_features.to(self.dtype)
         if self.meet:
             return LegacyOutput(obj_dists, None, obj_preds,
                                 group_logits=self.meet_heads(visual_rep, prod_rep))
@@ -258,21 +250,20 @@ class MotifPredictor(_PairHead):
     """Neural Motifs: the biLSTM context, the union-gated pair rep,
     ``rel_compress`` and the frequency bias (with MEET the group heads on
     the gated rep, no bias).  ``attribute_on`` comes with
-    ``AttributeLSTMContext``."""
+    ``AttributeLSTMContext``; the JAX module's ``use_vision`` and
+    ``use_bias``, on in every configuration, are fixed on."""
 
     def __init__(self, num_obj_classes: int = 151, num_rel_classes: int = 51,
                  embed_dim: int = 200, hidden_dim: int = 512, pooling_dim: int = 4096,
                  in_channels: int = 4096, mode: str = "predcls",
-                 use_vision: bool = True, use_bias: bool = True,
                  meet_group_sizes: Optional[Sequence[int]] = None,
                  meet_experts: int = 1, attribute_on: bool = False,
                  dtype: torch.dtype = torch.float32):
-        super().__init__(hidden_dim, pooling_dim,
-                         in_channels if use_vision else pooling_dim, dtype)
+        super().__init__(hidden_dim, pooling_dim, dtype)
         if attribute_on:
             raise NotImplementedError(
                 "MotifPredictor with attribute_on comes with AttributeLSTMContext")
-        self.dtype, self.use_vision = dtype, use_vision
+        self.dtype = dtype
         self.context_layer = LSTMContext(num_obj_classes, embed_dim, hidden_dim,
                                          in_channels, mode=mode, dtype=dtype)
         self.meet = meet_group_sizes is not None
@@ -280,8 +271,7 @@ class MotifPredictor(_PairHead):
             self.meet_heads = MeetRelHeads(pooling_dim, meet_group_sizes, meet_experts)
         else:
             self.rel_compress = Dense(pooling_dim, num_rel_classes, dtype=torch.float32)
-            if use_bias:
-                self.freq_bias = FrequencyBias(num_obj_classes, num_rel_classes)
+            self.freq_bias = FrequencyBias(num_obj_classes, num_rel_classes)
 
     def forward(self, boxes, box_mask, obj_labels, predict_logits, pair_idx,
                 roi_features, union_features, image_sizes, boxes_per_cls=None,
@@ -289,13 +279,11 @@ class MotifPredictor(_PairHead):
         obj_dists, obj_preds, edge_ctx = self.context_layer(
             roi_features, boxes, box_mask, obj_labels, predict_logits, image_sizes,
             boxes_per_cls)
-        prod_rep = self.post_cat(self.prod(edge_ctx, pair_idx))
-        if self.use_vision:
-            prod_rep = prod_rep * self.union(union_features, self.dtype)
+        prod_rep = (self.post_cat(self.prod(edge_ctx, pair_idx))
+                    * union_features.to(self.dtype))
         if self.meet:
             return LegacyOutput(obj_dists, None, obj_preds,
                                 group_logits=self.meet_heads(prod_rep))
-        rel_dists = self.rel_compress(prod_rep)
-        if hasattr(self, "freq_bias"):
-            rel_dists = rel_dists + self.freq_bias(pair_classes(obj_preds, pair_idx))
+        rel_dists = (self.rel_compress(prod_rep)
+                     + self.freq_bias(pair_classes(obj_preds, pair_idx)))
         return LegacyOutput(obj_dists, rel_dists, obj_preds)

@@ -373,8 +373,10 @@ class VCTreePredictor(_PairHead):
                  in_channels: int = 4096, mode: str = "predcls",
                  meet_group_sizes: Optional[Sequence[int]] = None,
                  meet_experts: int = 1, dtype: torch.dtype = torch.float32):
-        super().__init__(hidden_dim, pooling_dim, in_channels, dtype, relu_emb=True)
+        super().__init__(hidden_dim, pooling_dim, dtype, relu_emb=True)
         self.dtype, self.num_obj_classes = dtype, num_obj_classes
+        # the SGCls / SGDet decoder samples its training feedback labels
+        self.samples_labels = mode != "predcls"
         self.context_layer = VCTreeContext(num_obj_classes, embed_dim, hidden_dim,
                                            in_channels, mode=mode, dtype=dtype)
         self.meet = meet_group_sizes is not None
@@ -396,6 +398,6 @@ class VCTreePredictor(_PairHead):
         if self.meet:
             return LegacyOutput(obj_dists, None, obj_preds, bi_preds,
                                 group_logits=self.meet_heads(prod_rep))
-        ctx_dists = self.ctx_compress(prod_rep * self.union(union_features, self.dtype))
+        ctx_dists = self.ctx_compress(prod_rep * union_features.to(self.dtype))
         rel_dists = ctx_dists + self.freq_bias(pair_classes(obj_preds, pair_idx))
         return LegacyOutput(obj_dists, rel_dists, obj_preds, bi_preds)

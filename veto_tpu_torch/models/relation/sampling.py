@@ -16,14 +16,12 @@ class RelSample(NamedTuple):
     pair_idx: torch.Tensor  # (B, P, 2) int32 subject/object box indices
     labels: torch.Tensor    # (B, P) int32 predicate labels; 0 = bg, -1 = pad
     mask: torch.Tensor      # (B, P) bool
-    # (B, N, N) int32 symmetric GT relatedness of the valid boxes (VCTree's
-    # binary loss); None: the train step derives it from the batch
-    binary_rel: Optional[torch.Tensor] = None
 
 
 def binary_relatedness(rel_matrix: torch.Tensor, box_mask: torch.Tensor) -> torch.Tensor:
     """(B, N, N) int32: 1 where boxes i and j, both valid, have a GT
-    relation either way."""
+    relation either way (the JAX ``RelSample.binary_rel``, VCTree's binary
+    loss target)."""
     rel = rel_matrix > 0
     valid = box_mask[:, :, None] & box_mask[:, None, :]
     return ((rel | rel.transpose(1, 2)) & valid).to(torch.int32)
@@ -108,8 +106,7 @@ def gtbox_relsample(rel_matrix: torch.Tensor, box_mask: torch.Tensor,
     labels = torch.where(mask, torch.gather(flat_rel, 1, order).clamp(min=0), -1)
     pair_idx = torch.stack([ii[order], jj[order]], dim=-1)
     pair_idx = torch.where(mask[..., None], pair_idx, 0)
-    return RelSample(pair_idx.to(torch.int32), labels.to(torch.int32), mask,
-                     binary_relatedness(rel_matrix, box_mask))
+    return RelSample(pair_idx.to(torch.int32), labels.to(torch.int32), mask)
 
 
 class DetRelSample(NamedTuple):

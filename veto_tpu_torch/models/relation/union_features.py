@@ -34,20 +34,15 @@ from torch import nn
 from ...ops.box_ops import box_union, resize_boxes
 from ...ops.roi_align_windowed import multilevel_roi_align_batched
 from ..layers import BatchNorm2d, Conv2d, Dense
-
-
-def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """``x`` (B, N, ...) at ``idx`` (B, P) along axis 1 → (B, P, ...)."""
-    idx = idx.long().reshape(idx.shape + (1,) * (x.dim() - 2))
-    return torch.gather(x, 1, idx.expand(idx.shape[:2] + x.shape[2:]))
+from .legacy.lstm import gather_rows
 
 
 def union_boxes(boxes: torch.Tensor, pair_idx: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Per pair the (union, head, tail) boxes, each (B, P, 4), of (B, N, 4)
     boxes and (B, P, 2) pairs."""
-    head = _take(boxes, pair_idx[..., 0])
-    tail = _take(boxes, pair_idx[..., 1])
+    head = gather_rows(boxes, pair_idx[..., 0])
+    tail = gather_rows(boxes, pair_idx[..., 1])
     return box_union(head, tail), head, tail
 
 

@@ -152,6 +152,10 @@ def profile(cfg, batches: int = 3, log=print) -> dict:
     from .relation_test_net import make_sgg_evaluator, synthetic_eval_dataset
     from .relation_train_net import make_eval_fn
 
+    if cfg.relation.predictor.split("_MEET")[0] != "VETOPredictor":
+        raise NotImplementedError(
+            f"relation.predictor={cfg.relation.predictor}: the profiler times "
+            "VETO's stages; the legacy heads' times are chip_smoke.py phase 19's")
     model = build_model(cfg)  # cuda; raises without a card
     dev = next(model.parameters()).device
     step = make_eval_fn(cfg, model)

@@ -76,6 +76,10 @@ def profile(cfg, steps: int = 3, log=print) -> dict:
         build_meet_config, rel_class_weights, synthetic_train_dataset,
     )
 
+    if cfg.relation.predictor.split("_MEET")[0] != "VETOPredictor":
+        raise NotImplementedError(
+            f"relation.predictor={cfg.relation.predictor}: the profiler times "
+            "VETO's stages; the legacy heads' times are chip_smoke.py phase 19's")
     model = build_model(cfg)  # cuda; raises without a card
     dev = next(model.parameters()).device
     state = create_train_state(model, cfg.solver, rel_class_weights(cfg),
