@@ -267,8 +267,8 @@ def test_resolve_predictor_names():
 @pytest.mark.parametrize("predictor", ["MotifPredictor", "TransformerPredictor",
                                        "TransLikePredictor", "MotifPredictor_MEET"])
 def test_tools_run_the_legacy_predictors(tmp_path, predictor):
-    """Both relation tools' ``main`` in PredCls on the CPU: one train step
-    and its validation, then the test tool restoring that checkpoint;
+    """Both relation tools' ``main`` in PredCls on the CPU: one train step,
+    then the test tool restoring that checkpoint;
     finite losses, R@K in [0, 1]; ``MotifPredictor_MEET`` with
     ``ensemble.enabled``."""
     from veto_tpu_torch.tools import relation_test_net, relation_train_net

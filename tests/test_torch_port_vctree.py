@@ -169,8 +169,8 @@ def test_jax_vctree_draws_the_same_gumbel_noise_every_step(sgcls_step):
 
 def test_tools_run_vctree(tmp_path):
     """Both relation tools' ``main`` with ``VCTreePredictor`` in PredCls on
-    the CPU: one train step (``binary_loss`` among its losses) and its
-    validation, then the test tool restoring that checkpoint."""
+    the CPU: one train step (``binary_loss`` among its losses), then the
+    test tool restoring that checkpoint."""
     from torch_port_legacy_case import TOOL_OPTS
     from veto_tpu_torch.tools import relation_test_net, relation_train_net
 

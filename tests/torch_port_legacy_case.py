@@ -12,6 +12,8 @@ bridge (``utils/jax_weights.py``); each JAX function is compiled once with
 the CPU backend's LLVM optimisation off (``torch_port_det_steps.compiled``).
 """
 
+import functools
+
 import numpy as np
 import torch
 
@@ -35,14 +37,14 @@ from veto_tpu_torch.data.predicate_stats import predicate_counts
 from veto_tpu_torch.utils.jax_weights import flax_to_state_dict
 
 B, N, P_TRAIN = 2, 6, 16
-# the relation tools on the CPU: toy sizes, one train step and its validation
+# the relation tools on the CPU: toy sizes, one train step
 TOOL_OPTS = ["model.stage_blocks=(1,1,1,1)", "data.min_size_train=64",
              "data.max_size_train=96", "data.min_size_test=64", "data.max_size_test=96",
              "data.max_boxes=6", "relation.batch_size_per_image=16",
              "relation.max_proposal_pairs=30", "solver.ims_per_batch=2",
              "test.ims_per_batch=8", "relation.context_hidden_dim=16",
              "relation.context_pooling_dim=32", "solver.max_iter=1",
-             "solver.val_period=1", "solver.checkpoint_period=1",
+             "solver.checkpoint_period=1",
              "dtype=float32"]
 
 NUM_OBJ, NUM_REL, MEET_REL = 8, 7, 51
@@ -239,12 +241,16 @@ def compare_outputs(got, ref, tol, what):
         scaled(got.binary_preds, ref.binary_preds, tol, f"{what} binary_preds")
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_relsample():
+    return jax.jit(jax.vmap(lambda k, r, m: j_relsample(k, r, m, batch_size=P_TRAIN)))
+
+
 def train_samples(x, key=9):
     """JAX's ``gtbox_relsample`` of the case's relations (P_TRAIN pairs an
     image) as numpy arrays."""
     keys = jax.random.split(jax.random.PRNGKey(key), B)
-    s = jax.vmap(lambda k, r, m: j_relsample(k, r, m, batch_size=P_TRAIN))(
-        keys, jnp.asarray(x["rel"]), jnp.asarray(x["mask"]))
+    s = _jax_relsample()(keys, jnp.asarray(x["rel"]), jnp.asarray(x["mask"]))
     s = jax.tree.map(np.asarray, s)
     assert (s.labels > 0).sum() > 0
     return s
