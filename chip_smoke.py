@@ -732,8 +732,9 @@ def f32_frozen_bn():
         FrozenBatchNorm.forward = plain
 
 
-def eval_logits(model, cfg, b):
-    """One eval batch's ``rel_logits``, the model in eval mode."""
+def eval_forward(model, cfg, b, forest=None):
+    """One eval batch's forward (an ``SGGForward``), the model in eval mode;
+    VCTree on ``forest`` when one is given."""
     from veto_tpu_torch.models.relation.sampling import prepare_test_pairs
 
     model.eval()
@@ -741,7 +742,12 @@ def eval_logits(model, cfg, b):
         pair_idx, pair_mask = prepare_test_pairs(
             b.box_mask, b.box_mask.float(), cfg.relation.max_proposal_pairs)
         return model(b.images, b.depth, b.boxes, b.box_mask, b.labels,
-                     b.obj_logits, pair_idx, pair_mask).rel_logits
+                     b.obj_logits, pair_idx, pair_mask, forest=forest)
+
+
+def eval_logits(model, cfg, b):
+    """One eval batch's ``rel_logits``, the model in eval mode."""
+    return eval_forward(model, cfg, b).rel_logits
 
 
 def check_eval_batch(model, cfg, b, what="rel_logits kernels vs plain"):
@@ -1614,17 +1620,25 @@ def phase_train_grads(state, opts=(), what="main path", b=None, config=PREDCLS,
 
     # VCTree: every run of the step on one forest, the plain run's (the
     # greedy build is an argmax that a last-bit difference can flip)
-    rel = state.model.relation
-    tree = hasattr(rel, "last_forest")
+    from veto_tpu_torch.models.relation.legacy import VCTreePredictor
+
+    tree = isinstance(state.model.relation, VCTreePredictor)
+    forest = None
 
     def grads():
-        loss = forward_backward(state, b, samples, member)["loss"]
+        loss = forward_backward(state, b, samples, member, forest=forest)["loss"]
         return loss, {n: p.grad.detach().clone() for n, p in params}
 
     if tree:
-        with cuda_lib.plain_kernels():
-            grads()
-        rel.forest = rel.last_forest
+        seen = {}
+        hook = state.model.relation.register_forward_hook(
+            lambda mod, inp, out: seen.__setitem__("forest", out.forest))
+        try:
+            with cuda_lib.plain_kernels():
+                grads()
+        finally:
+            hook.remove()
+        forest = seen["forest"]
 
     def compare(got, ref):
         """(|err| / |ref| in L2, max |err| / max |ref|, name, finite) per
@@ -1644,7 +1658,6 @@ def phase_train_grads(state, opts=(), what="main path", b=None, config=PREDCLS,
         ref_loss, ref = grads()
     state.optimizer.zero_grad()
     if tree:
-        rel.forest = None
         print("  (VCTree: every run on the plain run's forest)")
     print(f"  loss {float(loss):.6f} (kernels), {float(ref_loss):.6f} (plain)")
     # The floor: what two kernel runs of one step differ by.  Every kernel
@@ -4005,20 +4018,15 @@ def check_legacy_logits(model, cfg, b, what):
     from veto_tpu_torch.models.relation.legacy.vctree import forest_differences
     from veto_tpu_torch.ops import cuda_lib
 
-    rel = model.relation
-    got = eval_logits(model, cfg, b)
-    tree = getattr(rel, "last_forest", None)
+    out = eval_forward(model, cfg, b)
+    got, tree = out.rel_logits, out.forest
     with cuda_lib.plain_kernels():
-        ref = eval_logits(model, cfg, b)
+        out = eval_forward(model, cfg, b)
+    ref, plain_tree = out.rel_logits, out.forest
     note = ""
     if tree is not None:
-        plain_tree = rel.last_forest
         diff = forest_differences(tree, plain_tree)
-        rel.forest = plain_tree
-        try:
-            got = eval_logits(model, cfg, b)
-        finally:
-            rel.forest = None
+        got = eval_forward(model, cfg, b, plain_tree).rel_logits
         note = (f"; the two runs' forests differ at {diff} of "
                 f"{int(plain_tree.in_tree.sum())} nodes, the logits compared on "
                 "the plain run's forest")

@@ -1,8 +1,10 @@
 """Port parity for the legacy relation head: the box geometry and the union
-features, the Motifs, Transformer and TransLike predictors (and Motifs'
-MEET heads) through ``SGGModel.relate`` and the train step, the legacy
-eval through the evaluator, the predictor names, and both relation tools
-on the CPU.
+features, the frequency bias, the Motifs predictor through
+``SGGModel.relate`` and its SGCls train step, the legacy eval through the
+evaluator, and the predictor names.  The attention predictors, the MEET
+heads with both relation tools, and VCTree have files of their own
+(``test_torch_port_legacy_attention.py``, ``test_torch_port_legacy_meet.py``,
+``test_torch_port_vctree.py``).
 
 The case (``torch_port_legacy_case``): 2 images x 6 boxes, P2-P5 maps of 16
 channels, hidden 32, pooling 64, 8 object classes; the JAX weights a seeded
@@ -11,7 +13,6 @@ Tolerances: bit-equal for the geometry, the rectangles and the sort; f32
 outputs within 1e-5 of each tensor's largest |value| (bf16 within 2e-2);
 losses 1e-5; gradients within 1e-4 of each tensor's largest |g| of
 ``jax.grad``'s; BatchNorm running statistics 1e-6; R@K and mR@K equal.
-VCTree has its own file (``test_torch_port_vctree.py``).
 """
 
 import numpy as np
@@ -24,19 +25,15 @@ import jax.numpy as jnp
 from veto_tpu.evaluation.sgg_eval import SGGEvaluator as JEvaluator
 from veto_tpu.models.relation.legacy.lstm import centerx_perm as j_centerx_perm
 from veto_tpu.models.relation.postprocess import postprocess_relations as j_post
-from veto_tpu.models.relation.predictor_meet import (
-    meet_losses as j_meet_losses, meet_route as j_meet_route,
-)
 from veto_tpu.models.relation.union_features import (
     rect_masks as j_rect_masks, union_boxes as j_union_boxes,
 )
 from veto_tpu.ops import box_ops as jbox
 
 from torch_port_legacy_case import (
-    B, MEET_REL, NUM_OBJ, NUM_REL, check_train_step, class_weights, compare_outputs,
-    jax_eval, jax_model, jax_train, jax_variables, make_inputs, port_eval, port_model,
-    TOOL_OPTS, init_method, jax_train64, relate_args, shallow_attention, solver, t_,
-    train_samples,
+    B, NUM_OBJ, NUM_REL, check_train_step, class_weights, compare_outputs, jax_eval,
+    jax_model, jax_train, jax_variables, make_inputs, port_eval, port_model,
+    relate_args, sgcls_variables, solver, t_, train_samples,
 )
 
 from veto_tpu_torch.engine.evaluate import accumulate_eval, to_numpy
@@ -44,7 +41,6 @@ from veto_tpu_torch.engine.train import create_train_state
 from veto_tpu_torch.evaluation.sgg_eval import SGGEvaluator
 from veto_tpu_torch.models.relation.legacy import centerx_perm
 from veto_tpu_torch.models.relation.postprocess import postprocess_relations
-from veto_tpu_torch.models.relation.predictor_meet import make_meet_config
 from veto_tpu_torch.models.relation.union_features import rect_masks, union_boxes
 from veto_tpu_torch.models.sgg import resolve_predictor
 from veto_tpu_torch.ops import box_ops
@@ -135,7 +131,7 @@ def test_motifs_eval_matches_jax(case, mode):
     logits give equal R@K and mR@K."""
     x = case
     jm = jax_model("MotifPredictor", mode)
-    v = jax_variables(jm, relate_args(x))
+    v = sgcls_variables("MotifPredictor")
     ref = jax_eval(jm, v, x, mode)
     model = port_model("MotifPredictor", mode, v)
     got = port_eval(model, x, mode)
@@ -181,65 +177,26 @@ def test_motifs_predcls_bf16_matches_jax(case):
     compare_outputs(got, ref, 2e-2, "Motifs bf16")
 
 
-@pytest.mark.parametrize("predictor", ["MotifPredictor_sgcls", "MotifPredictor_MEET"])
-def test_train_step_matches_jax(case, predictor):
-    """One Motifs train step's forward and backward (``forward_backward``) on
-    JAX's sampled pairs, against ``jax.value_and_grad`` of the JAX step's
-    loss in f32: in SGCls the frozen box head gives the proposals' logits
-    and the decoder's refined ``obj_dists`` train on ``obj_loss``; MEET's
-    per-group losses on one routing draw of JAX's, its ``member`` fed to the
-    port.  The train-mode outputs ``OUT_TOL``, the losses 1e-5, every
-    gradient within 1e-4 of its tensor's largest |g|, the BatchNorms'
-    running statistics 1e-6, the union extractor's excepted (``UNION``:
-    held to the JAX step's float64 run in the attention predictors' and
-    VCTree's steps)."""
+def test_train_step_matches_jax(case):
+    """One Motifs SGCls train step's forward and backward
+    (``forward_backward``) on the case's sampled pairs, against
+    ``jax.value_and_grad`` of the JAX step's loss in f32: the frozen box
+    head gives the proposals' logits and the decoder's refined
+    ``obj_dists`` train on ``obj_loss``.  The train-mode outputs
+    ``OUT_TOL``, the losses 1e-5, every gradient within 1e-4 of its
+    tensor's largest |g|, the BatchNorms' running statistics 1e-6, the
+    union extractor's excepted (``UNION``: held to the JAX step's float64
+    run in the attention predictors' and VCTree's steps)."""
     x = case
-    meet = make_meet_config("VG") if predictor.endswith("_MEET") else None
-    mode = "sgcls" if predictor.endswith("sgcls") else "predcls"
-    num_rel = MEET_REL if meet else NUM_REL
-    jm = jax_model("MotifPredictor", mode, num_rel, meet)
+    jm = jax_model("MotifPredictor", "sgcls")
     s = train_samples(x)
-    v = jax_variables(jm, relate_args(x, s.pair_idx, s.mask), method=init_method(mode))
-    cw = class_weights(num_rel)
-    rel_losses, member = None, None
-    if meet:
-        route = jax.random.fold_in(jax.random.PRNGKey(5), 1)
-        incre, rate = jnp.asarray(meet.incre_idx), jnp.asarray(meet.sample_rate)
-        member = t_(j_meet_route(route, jnp.asarray(s.labels), jnp.asarray(s.mask),
-                                 incre, rate))
-        assert member.any(0).any(0).all()
-
-        def rel_losses(out):
-            return j_meet_losses(route, out.group_logits, jnp.asarray(s.labels),
-                                 jnp.asarray(s.mask), incre, rate, meet.group_sizes)
-
-    ref = jax_train(jm, v, x, s, mode, cw, rel_losses, box_head=mode == "sgcls")
-    model = port_model("MotifPredictor", mode, v, num_rel, meet)
-    state = create_train_state(model, solver(), None if meet else cw, mode=mode,
-                               meet=meet)
-    got = check_train_step(model, state, x, s, ref, predictor, member=member)
-    assert all(np.isfinite(float(v)) for v in got.values())
-
-
-@pytest.mark.parametrize("predictor", ["TransformerPredictor", "TransLikePredictor"])
-def test_attention_train_step_matches_jax_float64(case, monkeypatch, predictor):
-    """A PredCls train step of the attention predictors against the JAX step
-    run in float64 (``jax.enable_x64``, the model's dtype float64, the same
-    weights; the contexts cut to one object and one edge layer on both
-    sides): the train-mode outputs and the losses 1e-5, every gradient
-    within 1e-4 of its tensor's largest |g|, the union extractor's
-    included, and every running statistic 1e-6."""
-    x = case
-    shallow_attention(monkeypatch)
-    s = train_samples(x)
-    jm = jax_model(predictor, "predcls")
-    v = jax_variables(jm, relate_args(x, s.pair_idx, s.mask))
+    v = sgcls_variables("MotifPredictor")
     cw = class_weights()
-    ref = jax_train64(jax_model(predictor, "predcls", dtype=jnp.float64), v, x, s,
-                      "predcls", cw)
-    model = port_model(predictor, "predcls", v, shallow=True)
-    state = create_train_state(model, solver(), cw, mode="predcls")
-    check_train_step(model, state, x, s, ref, predictor, out_tol=1e-5, skip=())
+    ref = jax_train(jm, v, x, s, "sgcls", cw, box_head=True)
+    model = port_model("MotifPredictor", "sgcls", v)
+    state = create_train_state(model, solver(), cw, mode="sgcls")
+    got = check_train_step(model, state, x, s, ref, "Motifs SGCls")
+    assert all(np.isfinite(float(v)) for v in got.values())
 
 
 def test_resolve_predictor_names():
@@ -262,24 +219,3 @@ def test_resolve_predictor_names():
             resolve_predictor(name)
     with pytest.raises(ValueError):
         resolve_predictor("NoSuchPredictor")
-
-
-@pytest.mark.parametrize("predictor", ["MotifPredictor", "TransformerPredictor",
-                                       "TransLikePredictor", "MotifPredictor_MEET"])
-def test_tools_run_the_legacy_predictors(tmp_path, predictor):
-    """Both relation tools' ``main`` in PredCls on the CPU: one train step,
-    then the test tool restoring that checkpoint;
-    finite losses, R@K in [0, 1]; ``MotifPredictor_MEET`` with
-    ``ensemble.enabled``."""
-    from veto_tpu_torch.tools import relation_test_net, relation_train_net
-
-    opts = TOOL_OPTS + [f"output_dir={tmp_path}", f"relation.predictor={predictor}"]
-    if predictor.endswith("_MEET"):
-        opts.append("ensemble.enabled=true")
-    history = relation_train_net.main(["--config", "configs/veto_vg_predcls.yaml",
-                                       "--device", "cpu", *opts])
-    assert len(history) == 1 and np.isfinite(history[0]["loss"])
-    assert ("group_01_CE_loss" if predictor.endswith("_MEET") else "rel_loss") in history[0]
-    agg = relation_test_net.main(["--config", "configs/veto_vg_predcls.yaml",
-                                  "--device", "cpu", "--max-batches", "1", *opts])
-    assert all(0.0 <= r <= 1.0 for r in agg["R"].values())

@@ -22,8 +22,8 @@ from veto_tpu.models.relation.legacy.vctree import build_vctree as j_build_vctre
 
 from torch_port_legacy_case import (
     B, N, NUM_OBJ, OUT_TOL, check_train_step, class_weights, compare_outputs,
-    init_method, jax_eval, jax_model, jax_train, jax_variables, make_inputs,
-    port_eval, port_model, relate_args, solver, t_, train_samples,
+    jax_eval, jax_model, jax_train, jax_variables, make_inputs, port_eval,
+    port_model, relate_args, sgcls_variables, solver, t_, train_samples,
 )
 
 from veto_tpu_torch.engine.train import create_train_state, draw_gumbel
@@ -76,18 +76,18 @@ def test_build_vctree_is_bit_equal():
 def test_vctree_eval_matches_jax(case, mode):
     """VCTree through ``relate`` in eval mode (in SGCls and SGDet the tree
     decoder's greedy labels): ``obj_dists``, ``rel_dists`` and
-    ``binary_preds`` 1e-5, ``obj_preds`` exact; the forest given back to
-    the predictor (``relation.forest``, as ``chip_smoke.py`` compares two
-    runs on one forest) gives the same outputs."""
+    ``binary_preds`` 1e-5, ``obj_preds`` exact; the output's forest given
+    back to ``relate`` (``forest=``, as ``chip_smoke.py`` compares two runs
+    on one forest) gives the same outputs."""
     x = case
     jm = jax_model("VCTreePredictor", mode)
-    v = jax_variables(jm, relate_args(x))
+    v = (jax_variables(jm, relate_args(x)) if mode == "predcls"
+         else sgcls_variables("VCTreePredictor"))
     ref = jax_eval(jm, v, x, mode)
     model = port_model("VCTreePredictor", mode, v)
     got = port_eval(model, x, mode)
     compare_outputs(got, ref, 1e-5, f"VCTree {mode}")
-    model.relation.forest = model.relation.last_forest
-    again = port_eval(model, x, mode)
+    again = port_eval(model, x, mode, forest=got.forest)
     assert torch.equal(again.rel_dists, got.rel_dists)
 
 
@@ -100,13 +100,13 @@ def _jax_gumbel(key=0):
 
 @pytest.fixture(scope="module")
 def sgcls_step(case):
-    """The SGCls train step's case: JAX's sampled pairs, the weights, and
+    """The SGCls train step's case: the sampled pairs, the weights, and
     ``value_and_grad`` of the JAX step's loss, in f32 (its decoder takes the
     noise of keys split off ``PRNGKey(0)``, as in every JAX step)."""
     x = case
     s = train_samples(x)
     jm = jax_model("VCTreePredictor", "sgcls")
-    v = jax_variables(jm, relate_args(x, s.pair_idx, s.mask), method=init_method("sgcls"))
+    v = sgcls_variables("VCTreePredictor")
     ref = jax_train(jm, v, x, s, "sgcls", class_weights(), box_head=True)
     return x, s, v, ref
 
@@ -131,8 +131,8 @@ def _port_step(sgcls_step, gumbel):
 
 
 def test_vctree_sgcls_train_step_matches_jax(sgcls_step):
-    """One SGCls train step of VCTree (``forward_backward``) on JAX's sampled
-    pairs, fed the Gumbel draw JAX's decoder takes: ``rel_loss``,
+    """One SGCls train step of VCTree (``forward_backward``) on the case's
+    sampled pairs, fed the Gumbel draw JAX's decoder takes: ``rel_loss``,
     ``obj_loss`` and ``binary_loss`` 1e-5, the train-mode outputs
     ``OUT_TOL``, every gradient within 1e-4 of its tensor's largest |g|,
     every running statistic 1e-6, the union extractor's excepted

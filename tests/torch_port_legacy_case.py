@@ -1,5 +1,5 @@
 """The small legacy-head case the port's parity tests share
-(``test_torch_port_legacy.py``, ``test_torch_port_vctree.py``).
+(``test_torch_port_legacy*.py``, ``test_torch_port_vctree.py``).
 
 Two 64x64 images (the second padded from 56 x 48) with 6 boxes each (4
 valid in the second, two of the first's boxes sharing a centre), 8 object
@@ -13,6 +13,7 @@ the CPU backend's LLVM optimisation off (``torch_port_det_steps.compiled``).
 """
 
 import functools
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -22,7 +23,6 @@ import jax.numpy as jnp
 
 from veto_tpu.engine.train import _binary_loss as j_binary_loss
 from veto_tpu.models.relation.predictor_veto import weighted_ce_loss as j_wce
-from veto_tpu.models.relation.sampling import gtbox_relsample as j_relsample
 from veto_tpu.models.sgg import SGGModel as JModel
 
 from torch_port_det_steps import compiled
@@ -30,7 +30,9 @@ from torch_port_det_steps import compiled
 from veto_tpu_torch.config import SolverConfig
 from veto_tpu_torch.engine.batch import SGGBatch
 from veto_tpu_torch.models.relation.predictor_veto import beta_class_weights
-from veto_tpu_torch.models.relation.sampling import RelSample
+from veto_tpu_torch.models.relation.sampling import (
+    RelSample, binary_relatedness, gtbox_relsample,
+)
 from veto_tpu_torch.models.sgg import SGGModel
 from veto_tpu_torch.solver.optim import FROZEN_DETECTOR
 from veto_tpu_torch.data.predicate_stats import predicate_counts
@@ -196,6 +198,17 @@ def jax_variables(jm, args, method="relate", seed=1):
     return fill(shapes, seed)
 
 
+@functools.lru_cache(maxsize=None)
+def sgcls_variables(predictor):
+    """The filled variables of ``predictor``'s SGCls model with its box head
+    (``init_method("sgcls")``), traced once a process: the SGCls and SGDet
+    evals and the SGCls train step share them (the two modes' relation
+    heads have one tree)."""
+    x = make_inputs()
+    return jax_variables(jax_model(predictor, "sgcls"), relate_args(x),
+                         method=init_method("sgcls"))
+
+
 def sgdet_kw(x, mode):
     """``relate``'s SGDet keywords (the true sizes and ``boxes_per_cls``)."""
     if mode != "sgdet":
@@ -203,10 +216,12 @@ def sgdet_kw(x, mode):
     return dict(image_sizes=jnp.asarray(x["sizes"]), boxes_per_cls=jnp.asarray(x["bpc"]))
 
 
-def jax_eval(jm, variables, x, mode):
-    """The JAX ``relate`` in eval mode on the case's eval pairs."""
+def jax_eval(jm, variables, x, mode, sgdet_inputs=True):
+    """The JAX ``relate`` in eval mode on the case's eval pairs; in SGDet
+    with the true sizes and ``boxes_per_cls`` unless ``sgdet_inputs`` is
+    False (the JAX MEET SGDet eval step's call, which passes neither)."""
     args = relate_args(x)
-    kw = sgdet_kw(x, mode)
+    kw = sgdet_kw(x, mode) if sgdet_inputs else {}
 
     def fn(v, *a):
         out = jm.apply(v, *a, train=False, method="relate", **kw)
@@ -215,10 +230,12 @@ def jax_eval(jm, variables, x, mode):
     return jax.tree.map(np.asarray, compiled(fn, variables, *args)(variables, *args))
 
 
-def port_eval(model, x, mode, dtype=torch.float32):
+def port_eval(model, x, mode, dtype=torch.float32, forest=None):
     feats = [t_(f).to(dtype) if dtype != torch.float32 else t_(f) for f in x["feats"]]
     kw = ({} if mode != "sgdet" else
           dict(image_sizes=t_(x["sizes"]), boxes_per_cls=t_(x["bpc"])))
+    if forest is not None:
+        kw["forest"] = forest
     with torch.no_grad():
         return model.relate(feats, t_(x["depth"]), t_(x["boxes"]), t_(x["mask"]),
                             t_(x["labels"]), t_(x["pi"]), t_(x["logits"]), **kw)
@@ -241,17 +258,16 @@ def compare_outputs(got, ref, tol, what):
         scaled(got.binary_preds, ref.binary_preds, tol, f"{what} binary_preds")
 
 
-@functools.lru_cache(maxsize=None)
-def _jax_relsample():
-    return jax.jit(jax.vmap(lambda k, r, m: j_relsample(k, r, m, batch_size=P_TRAIN)))
-
-
-def train_samples(x, key=9):
-    """JAX's ``gtbox_relsample`` of the case's relations (P_TRAIN pairs an
-    image) as numpy arrays."""
-    keys = jax.random.split(jax.random.PRNGKey(key), B)
-    s = _jax_relsample()(keys, jnp.asarray(x["rel"]), jnp.asarray(x["mask"]))
-    s = jax.tree.map(np.asarray, s)
+def train_samples(x, seed=9):
+    """Training pairs of the case's relations (P_TRAIN an image) as numpy
+    arrays, in the fields of JAX's ``RelSample``: the port's
+    ``gtbox_relsample`` draws them from a seeded generator (both packages'
+    steps are given them, so which sampler draws them does not matter)."""
+    rel, mask = t_(x["rel"]), t_(x["mask"])
+    s = gtbox_relsample(rel, mask, torch.Generator().manual_seed(seed), P_TRAIN)
+    s = SimpleNamespace(pair_idx=s.pair_idx.numpy(), labels=s.labels.numpy(),
+                        mask=s.mask.numpy(),
+                        binary_rel=binary_relatedness(rel, mask).numpy())
     assert (s.labels > 0).sum() > 0
     return s
 

@@ -119,9 +119,12 @@ def make_meet_eval_step(model, meet: MeetConfig, max_pairs: int = 2048,
             pair_idx, pair_mask = prepare_test_pairs(
                 dets.mask, dets.scores, max_pairs=max_pairs, boxes=dets.boxes,
                 require_overlap=require_overlap)
+            # the true sizes and per-class boxes, as the plain SGDet step
+            # passes them (the JAX MEET step passes neither: ROADMAP queue C)
             glogits = model.relate(det.features, batch.depth, dets.boxes,
                                    dets.mask, dets.labels, pair_idx,
-                                   det.predict_logits).group_logits
+                                   det.predict_logits, image_sizes=batch.sizes,
+                                   boxes_per_cls=dets.boxes_per_cls).group_logits
             # the late NMS on the frozen box head's logits
             obj_labels, obj_scores, boxes = sgdet_objects(
                 det.predict_logits, dets.boxes_per_cls, dets.mask,

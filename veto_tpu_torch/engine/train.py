@@ -220,8 +220,8 @@ def forward_backward(state: TrainState, batch,
                      samples: Union[RelSample, DetSample],
                      member: Optional[torch.Tensor] = None,
                      attribute_draws: Optional[torch.Tensor] = None,
-                     gumbel: Optional[torch.Tensor] = None
-                     ) -> Dict[str, torch.Tensor]:
+                     gumbel: Optional[torch.Tensor] = None,
+                     forest=None) -> Dict[str, torch.Tensor]:
     """Train-mode forward and the loss's backward on the given pairs: the
     trainable parameters' ``.grad`` hold the step's gradients.  Returns the
     losses, detached: ``loss`` (their sum), ``rel_loss`` (with MEET the
@@ -230,7 +230,7 @@ def forward_backward(state: TrainState, batch,
     (``attribute_draws``, (B * N,) uniforms, rank its negatives in place of
     a draw), outside PredCls ``obj_loss`` and for VCTree ``binary_loss``
     (its SGCls / SGDet decoder's noise ``gumbel`` (B, N, C - 1) in place of
-    a draw)."""
+    a draw; ``forest`` in place of the one it builds)."""
     model = state.model
     model.train()
     state.optimizer.zero_grad()
@@ -247,7 +247,7 @@ def forward_backward(state: TrainState, batch,
                            samples.gt_labels if legacy else dets.labels,
                            pairs.pair_idx, det.predict_logits,
                            image_sizes=batch.sizes, boxes_per_cls=dets.boxes_per_cls,
-                           gumbel=gumbel)
+                           gumbel=gumbel, forest=forest)
         losses = _rel_losses(state, out.rel_logits, pairs.labels, pairs.mask,
                              member)
         binary_preds = getattr(out, "binary_preds", None)  # VCTree's
@@ -265,7 +265,7 @@ def forward_backward(state: TrainState, batch,
                                  state.generator)
         out = model(batch.images, batch.depth, batch.boxes, batch.box_mask,
                     batch.labels, batch.obj_logits, samples.pair_idx,
-                    samples.mask, gumbel=gumbel)
+                    samples.mask, gumbel=gumbel, forest=forest)
         losses = _rel_losses(state, out.rel_logits, samples.labels,
                              samples.mask, member)
         if out.binary_preds is not None:

@@ -2,16 +2,11 @@
 table of predicate logits keyed by the (subject class, object class) pair,
 the reference's ``FrequencyBias`` (an ``nn.Embedding`` over class pairs).
 
-The JAX model builds it without dataset statistics, so it starts at zero;
-``pred_dist`` ((C, C, R) predicate distribution) starts it at
-``log(pred_dist + 1e-12)`` instead.
+The JAX model builds it without dataset statistics, so it starts at zero.
 """
 
 from __future__ import annotations
 
-from typing import Optional
-
-import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -20,17 +15,11 @@ from torch import nn
 class FrequencyBias(nn.Module):
     """``obj_baseline`` (C * C, R): row ``s * C + o`` is the pair's bias."""
 
-    def __init__(self, num_obj_classes: int = 151, num_rel_classes: int = 51,
-                 pred_dist: Optional[np.ndarray] = None):
+    def __init__(self, num_obj_classes: int = 151, num_rel_classes: int = 51):
         super().__init__()
         n = self.num_obj_classes = num_obj_classes
         self.num_rel_classes = num_rel_classes
-        if pred_dist is None:
-            table = torch.zeros(n * n, num_rel_classes)
-        else:
-            table = torch.from_numpy(np.log(np.asarray(pred_dist, np.float64) + 1e-12)
-                                     .reshape(n * n, num_rel_classes).astype(np.float32))
-        self.obj_baseline = nn.Parameter(table)
+        self.obj_baseline = nn.Parameter(torch.zeros(n * n, num_rel_classes))
 
     def forward(self, pair_labels: torch.Tensor) -> torch.Tensor:
         """(..., 2) integer (subject, object) classes → (..., R) f32 logits."""

@@ -14,9 +14,11 @@ the engine's MEET routing, losses and post-processing take as they take
 
 Every predictor returns a :class:`LegacyOutput`; its ``rel_logits``
 property is the relation output the engine reads (``rel_dists``, or the
-group logits with MEET).  The dense layers run in the model's dtype, the
-classifiers in f32, as in the JAX modules.  Nothing here has a kernel of
-its own: the JAX package computes it with XLA outside Pallas.
+group logits with MEET).  The four share one call signature: VCTree's
+decoder noise ``gumbel`` and its ``forest`` are ignored by the others.
+The dense layers run in the model's dtype, the classifiers in f32, as in
+the JAX modules.  Nothing here has a kernel of its own: the JAX package
+computes it with XLA outside Pallas.
 """
 
 from __future__ import annotations
@@ -43,6 +45,8 @@ class LegacyOutput(NamedTuple):
     binary_preds: Optional[torch.Tensor] = None
     # MEET: [expert][group] (B, P, gs + 2) f32 logits
     group_logits: Optional[Tuple[Tuple[torch.Tensor, ...], ...]] = None
+    # VCTree: the forest its contexts ran on (a ``vctree.BinaryForest``)
+    forest: Optional["BinaryForest"] = None
 
     @property
     def rel_logits(self):
@@ -148,7 +152,7 @@ class TransformerPredictor(_PairHead):
 
     def forward(self, boxes, box_mask, obj_labels, predict_logits, pair_idx,
                 roi_features, union_features, image_sizes, boxes_per_cls=None,
-                gumbel=None) -> LegacyOutput:
+                gumbel=None, forest=None) -> LegacyOutput:
         obj_dists, obj_preds, edge_ctx = self.context_layer(
             roi_features, boxes, box_mask, obj_labels, predict_logits, image_sizes,
             boxes_per_cls)
@@ -275,7 +279,7 @@ class MotifPredictor(_PairHead):
 
     def forward(self, boxes, box_mask, obj_labels, predict_logits, pair_idx,
                 roi_features, union_features, image_sizes, boxes_per_cls=None,
-                gumbel=None) -> LegacyOutput:
+                gumbel=None, forest=None) -> LegacyOutput:
         obj_dists, obj_preds, edge_ctx = self.context_layer(
             roi_features, boxes, box_mask, obj_labels, predict_logits, image_sizes,
             boxes_per_cls)

@@ -365,8 +365,8 @@ class VCTreePredictor(_PairHead):
     """VCTree: the tree context, ReLU'd head / tail split, the pair rep
     gated by the union feature into ``ctx_compress``, plus the frequency
     bias; with MEET the group heads on the ungated pair rep.  Returns the
-    ``binary_preds`` for the binary loss; ``last_forest`` keeps the last
-    forward's forest."""
+    ``binary_preds`` for the binary loss and the ``forest`` it ran on: the
+    one it built, or the one passed in."""
 
     def __init__(self, num_obj_classes: int = 151, num_rel_classes: int = 51,
                  embed_dim: int = 200, hidden_dim: int = 512, pooling_dim: int = 4096,
@@ -385,19 +385,17 @@ class VCTreePredictor(_PairHead):
         else:
             self.ctx_compress = Dense(pooling_dim, num_rel_classes, dtype=torch.float32)
             self.freq_bias = FrequencyBias(num_obj_classes, num_rel_classes)
-        self.forest: Optional[BinaryForest] = None  # a forest the next forward takes
-        self.last_forest: Optional[BinaryForest] = None
 
     def forward(self, boxes, box_mask, obj_labels, predict_logits, pair_idx,
                 roi_features, union_features, image_sizes, boxes_per_cls=None,
-                gumbel=None) -> LegacyOutput:
-        obj_dists, obj_preds, edge_ctx, bi_preds, self.last_forest = self.context_layer(
+                gumbel=None, forest: Optional[BinaryForest] = None) -> LegacyOutput:
+        obj_dists, obj_preds, edge_ctx, bi_preds, forest = self.context_layer(
             roi_features, boxes, box_mask, obj_labels, predict_logits, image_sizes,
-            gumbel, self.forest)
+            gumbel, forest)
         prod_rep = self.post_cat(self.prod(edge_ctx, pair_idx))
         if self.meet:
             return LegacyOutput(obj_dists, None, obj_preds, bi_preds,
-                                group_logits=self.meet_heads(prod_rep))
+                                group_logits=self.meet_heads(prod_rep), forest=forest)
         ctx_dists = self.ctx_compress(prod_rep * union_features.to(self.dtype))
         rel_dists = ctx_dists + self.freq_bias(pair_classes(obj_preds, pair_idx))
-        return LegacyOutput(obj_dists, rel_dists, obj_preds, bi_preds)
+        return LegacyOutput(obj_dists, rel_dists, obj_preds, bi_preds, forest=forest)

@@ -142,6 +142,8 @@ class SGGForward(NamedTuple):
     attribute_logits: Optional[torch.Tensor] = None
     # (B, N, N) f32 VCTree pair-relatedness logits, else None
     binary_preds: Optional[torch.Tensor] = None
+    # VCTree: the forest its contexts ran on, else None
+    forest: Optional[object] = None
 
 
 class DetectOutput(NamedTuple):
@@ -431,12 +433,14 @@ class SGGModel(nn.Module):
             return DetectOutput(feats, dets, torch.gather(logits, 1, idx))
 
     def relate(self, feats, depth, boxes, box_mask, obj_labels, pair_idx,
-               obj_logits=None, image_sizes=None, boxes_per_cls=None, gumbel=None):
+               obj_logits=None, image_sizes=None, boxes_per_cls=None, gumbel=None,
+               forest=None):
         """The relation head over (B, N) boxes and (B, P) pairs.  The legacy
         predictors also take the (B, 2) = (w, h) ``image_sizes`` (default:
-        the padded input's, from ``depth``), SGDet's ``boxes_per_cls`` and
-        VCTree's training decoder's ``gumbel`` noise (B, N, C - 1); VETO's
-        read neither."""
+        the padded input's, from ``depth``), SGDet's ``boxes_per_cls``,
+        VCTree's training decoder's ``gumbel`` noise (B, N, C - 1) and a
+        ``forest`` for VCTree to run on in place of the one it would build
+        (its output's ``forest``); VETO's read none of these."""
         if self.legacy:
             if image_sizes is None:
                 h, w = depth.shape[1:3]
@@ -448,7 +452,7 @@ class SGGModel(nn.Module):
             union = self.union_extractor(feats, boxes, pair_idx, image_sizes)
             return self.relation(boxes, box_mask, obj_labels, obj_logits, pair_idx,
                                  roi_vec, union, image_sizes, boxes_per_cls,
-                                 gumbel=gumbel)
+                                 gumbel=gumbel, forest=forest)
         depth_feat = self.depth_backbone(depth).contiguous()
         roi_feats = self._pool_boxes(feats, boxes, self.pooler_resolution)
         depth_roi = multilevel_roi_align_batched(
@@ -458,10 +462,11 @@ class SGGModel(nn.Module):
                              depth_roi, obj_logits)
 
     def forward(self, images, depth, boxes, box_mask, obj_labels, obj_logits,
-                pair_idx, pair_mask, gumbel=None) -> SGGForward:
+                pair_idx, pair_mask, gumbel=None, forest=None) -> SGGForward:
         """The JAX ``SGGModel.__call__`` signature; ``obj_logits`` and
         ``pair_mask`` are unused here (padded pairs are masked later, in
-        post-processing).  ``gumbel``: VCTree's training decoder noise."""
+        post-processing).  ``gumbel`` and ``forest``: VCTree's training
+        decoder noise and the forest to run on (see :meth:`relate`)."""
         feats = self.extract_features(images)
         if self.mode == "sgcls":
             predict_logits = self._box_logits(feats, boxes)
@@ -476,12 +481,12 @@ class SGGModel(nn.Module):
         if self.legacy:
             # the legacy contexts embed the GT labels (and refine their own)
             out = self.relate(feats, depth, boxes, box_mask, obj_labels, pair_idx,
-                              predict_logits, gumbel=gumbel)
+                              predict_logits, gumbel=gumbel, forest=forest)
             return SGGForward(rel_logits=out.rel_logits, obj_dists=out.obj_dists,
                               pred_labels=out.obj_preds,
                               predict_logits=predict_logits,
                               attribute_logits=att_logits,
-                              binary_preds=out.binary_preds)
+                              binary_preds=out.binary_preds, forest=out.forest)
         out = self.relate(feats, depth, boxes, box_mask, pred_labels, pair_idx,
                           predict_logits)
         return SGGForward(rel_logits=out.rel_logits, obj_dists=out.obj_dists,
