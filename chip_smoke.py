@@ -20,7 +20,10 @@ catches its own failure:
    P2-P5 of 8 x 800x1344 images and the 1/16 depth map, 80 rois per image
    with edge cases, bf16 maps, P = 8; P2-P5 at P = 7 (the SGCls box head);
    f32 maps once.  Its device time by ``torch.profiler`` and GB/s against
-   its bound (bytes).
+   its bound (bytes).  Then VGG-16's single 512-channel level at 1/16 (8 x
+   50 x 84 bf16): B3 at P = 8 and 7 and B3-bwd (two runs bit-equal, its
+   tile rows 2 in C and Python) against their plain versions, the
+   forward's device ms against its bound.
 4. Encoder-layer kernel vs its plain version at 16,384 pairs x 19 tokens x
    576, and once with padded tokens (t_pad 24 > t_valid 19) and a row count
    that leaves a partial GEMM tile.
@@ -220,9 +223,28 @@ catches its own failure:
     batch, its group logits against the plain versions, one train step.
     B3 alone on the eval batch's 16,384 union rois at 7x7 against its
     plain version, device ms against its bound (bytes).
-20. One JSON line ``{"kernels": [...]}`` (all nine kernels, N1 last;
+20. The zoo's VGG-16 body and message-passing predictors at full width
+    (``phase_zoo``).  ``configs/vgg_vg_predcls.yaml`` (the single 512-channel
+    level at 1/16, every anchor size on one stride-16 grid): 2 eval batches
+    of 8 (B1 6, B3 2 a batch) with one batch's logits against the plain
+    versions, 3 train steps of 12 (B1, B2a, B2b 6, B3 2, B3-bwd 1 a step)
+    and one step's gradients against the plain versions; one SGDet eval
+    batch of the VGG detector (B1 6, B3 3, N1 2 + 2) whose proposals and
+    detections through N1 are bit-equal to the plain walk's, and N1 alone
+    on its RPN walk (8 x 6000 on one level) against its bound.  Then IMP,
+    BGNN with ``relation.rel_aware=true``, GPSNet and MSDN on the frozen
+    R-101 body (``context_hidden_dim`` 512, ``context_pooling_dim`` 4096,
+    bf16): each one PredCls eval batch (B3 2) with its logits against the
+    plain versions (BGNN's on the plain run's message filter, after
+    counting the pairs the two runs' filters tell apart) and its busy
+    share, one train step (B3 2), and one step's f32 gradients against the
+    plain versions with two kernel runs bit-equal (cuDNN in its
+    deterministic mode); IMP and BGNN also one SGCls (B3 3) and one SGDet
+    (B3 3, N1 2 + 2) eval batch and train step.  The phase prints its
+    seconds and its numbers.
+21. One JSON line ``{"kernels": [...]}`` (all nine kernels, N1 last;
     ``launches`` from the main path's training run, or the path that runs
-    each, B3's with phase 19's counted runs added) and, last,
+    each, with the counted runs of phases 19 and 20 added) and, last,
     ``{"ok": true, "device": {...}}``.
 
 Every f32 comparison runs with TF32 off (``torch.backends.cudnn.allow_tf32``
@@ -508,6 +530,9 @@ def roi_tap_bytes(feats, rois, levels, scales, p=8, s=2) -> int:
     return total
 
 
+VGG_POOL = {}  # B3 on VGG-16's 512-channel level (phase 3), for phase 20's numbers
+
+
 def phase_roi_align(gen, b=8, h=800, w=1344, c=256):
     from veto_tpu_torch.ops import roi_align_windowed as rw
 
@@ -653,6 +678,15 @@ def phase_encoder(gen, pairs=16384, d=576):
 
 
 # ------------------------------------------------------------------ phase 5
+def body_name(cfg) -> str:
+    """The detector body of ``cfg``, as the printouts name it."""
+    m = cfg.model
+    if m.backbone == "VGG-16":
+        return "VGG-16 (one 512-channel level at 1/16)"
+    return (f"{m.backbone} {m.resnet_groups}x{m.resnet_width_per_group}d "
+            f"blocks {tuple(m.stage_blocks)}")
+
+
 def roi_launches(cfg) -> int:
     """B3 launches of one forward: the relation pool and the depth pool,
     and in SGCls the box head's own 7x7 pool."""
@@ -677,9 +711,7 @@ def phase_main_path(opts=(), n_batches=3, encoder="fused_encoder_layer",
     print(f"[main{' ' + ' '.join(opts) if opts else ''}] VETO "
           f"{cfg.relation.mode} ({config}, {cfg.model.num_obj_classes} object / "
           f"{cfg.relation.num_classes} predicate classes), "
-          f"{cfg.model.backbone} "
-          f"{cfg.model.resnet_groups}x{cfg.model.resnet_width_per_group}d "
-          f"blocks {tuple(cfg.model.stage_blocks)}, trunk {cfg.veto.t_input_dim} "
+          f"{body_name(cfg)}, trunk {cfg.veto.t_input_dim} "
           f"x {layers} layers ({cfg.veto.encoder_impl}), {cfg.dtype}; "
           f"{n_batches} batches of {cfg.test.ims_per_batch}, "
           f"{cfg.data.max_boxes} boxes, {cfg.relation.max_proposal_pairs} pairs")
@@ -1509,8 +1541,7 @@ def phase_train(steps=5, opts=(), encoder=("fused_encoder_layer",
                         multilevel_roi_align=roi_launches(cfg),
                         roi_align_backward=1)
     print(f"[train, {what}] VETO {cfg.relation.mode} training ({config}), "
-          f"{cfg.model.backbone} "
-          f"{cfg.model.resnet_groups}x{cfg.model.resnet_width_per_group}d frozen, "
+          f"{body_name(cfg)} frozen, "
           f"depth ResNet-18 + trunk {cfg.veto.t_input_dim} x {layers} layers "
           f"({cfg.veto.encoder_impl}) trained, {cfg.dtype}; {steps} steps of "
           f"{cfg.solver.ims_per_batch} "
@@ -1576,9 +1607,11 @@ def phase_train(steps=5, opts=(), encoder=("fused_encoder_layer",
 
 # gradients that are 0 analytically (by their name's end): a bias under a
 # BatchNorm with batch statistics (the legacy heads' position, box and
-# overlap nets) and the attention keys' bias (the softmax ignores a shift
-# of the keys)
-ANALYTIC_ZERO = ("pos_fc1.bias", "box_fc.bias", "overlap_fc.bias", "w_ks.bias")
+# overlap nets; not the relness pre-classifier's pos_fc1, which no
+# BatchNorm follows) and the attention keys' bias (the softmax ignores a
+# shift of the keys)
+ANALYTIC_ZERO = ("context_layer.pos_fc1.bias", "pairwise_feature_extractor.pos_fc1.bias",
+                 "box_fc.bias", "overlap_fc.bias", "w_ks.bias")
 
 
 def phase_train_grads(state, opts=(), what="main path", b=None, config=PREDCLS,
@@ -2637,6 +2670,31 @@ def n1_kernel_ms(boxes, active, thr, m, iters=10):
     return mask_ms, scan_ms
 
 
+def n1_row(what, boxes, active, thr, m, keep):
+    """N1's two kernels timed alone on these sorted problems (``keep``:
+    their keep bits), against their bounds and the plain walk; printed and
+    returned as the kernels line's fields."""
+    from veto_tpu_torch.ops import nms as tn
+
+    g, n = active.shape
+    words = -(-n // 64)
+    mask_ms, scan_ms = n1_kernel_ms(boxes, active, thr, m)
+    plain = cuda_ms(lambda: tn.reference_greedy_keep(boxes, active, thr, m), 2, 1)
+    t_ops = IOU_OPS * g * n * (n - 1) / 2 / PEAK_F32 * 1e3
+    mask_bytes = g * n * 16 + g * words * (words + 1) // 2 * 64 * 8
+    sbytes = scan_bytes(keep)
+    t_bytes = (mask_bytes + sbytes) / PEAK_BYTES * 1e3
+    depth = int(keep.sum(1).max())
+    print(f"  {what}: mask {mask_ms:.4f} + scan {scan_ms:.4f} device ms "
+          f"(bound: mask {t_ops:.4f} ms by operations, {IOU_OPS} a pair, "
+          f"{mask_bytes / 1e6:.1f} MB of table; scan {sbytes / 1e6:.2f} MB, "
+          f"{sbytes / PEAK_BYTES * 1e3:.4f} ms by bytes, but {depth} kept "
+          f"rows one after another in its longest problem); plain walk "
+          f"{plain:.2f} ms")
+    return dict(ms=mask_ms + scan_ms, plain_ms=plain, bound_ms=max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+
 def phase_nms(gen):
     """Kernel N1 (``csrc/nms.cu``: the IoU bitmask, then the scan) against
     the plain blockwise walk on the same sorted problems: the RPN's (8 x 5
@@ -2692,35 +2750,15 @@ def phase_nms(gen):
         raise AssertionError("topk_first on pure ties is not index order on the card")
     print("  topk_first on pure ties: index order on the card")
 
-    rows = []
-    for what, (boxes, active), thr, m, kp in (
-            ("RPN", rpn, 0.7, 1000, keep), ("per class", cls, 0.3, 300, keep_cls)):
-        g, n = active.shape
-        words = -(-n // 64)
-        mask_ms, scan_ms = n1_kernel_ms(boxes, active, thr, m)
-        plain = cuda_ms(lambda: tn.reference_greedy_keep(boxes, active, thr, m), 2, 1)
-        t_ops = IOU_OPS * g * n * (n - 1) / 2 / PEAK_F32 * 1e3
-        mask_bytes = g * n * 16 + g * words * (words + 1) // 2 * 64 * 8
-        sbytes = scan_bytes(kp)
-        t_bytes = (mask_bytes + sbytes) / PEAK_BYTES * 1e3
-        depth = int(kp.sum(1).max())
-        print(f"  {what}: mask {mask_ms:.4f} + scan {scan_ms:.4f} device ms "
-              f"(bound: mask {t_ops:.4f} ms by operations, {IOU_OPS} a pair, "
-              f"{mask_bytes / 1e6:.1f} MB of table; scan {sbytes / 1e6:.2f} MB, "
-              f"{sbytes / PEAK_BYTES * 1e3:.4f} ms by bytes, but {depth} kept "
-              f"rows one after another in its longest problem); plain walk "
-              f"{plain:.2f} ms")
-        rows.append(dict(ms=mask_ms + scan_ms, plain_ms=plain,
-                         bound_ms=max(t_ops, t_bytes),
-                         bound_by="operations" if t_ops >= t_bytes else "bytes"))
-    rpn_row = rows[0]
+    rpn_row = n1_row("RPN", *rpn, 0.7, 1000, keep)
+    n1_row("per class", *cls, 0.3, 300, keep_cls)
     return dict(name="greedy_nms", route="cuda", source="veto_tpu_torch/csrc/nms.cu",
                 replaces="veto_tpu/ops/nms.py:85 (_greedy_keep_sorted_coords; "
                          "XLA, no Pallas call)",
                 max_abs_err=0.0, library_ms=None, **rpn_row)
 
 
-SIGMAS = (0.01, 0.03, 0.1, 0.3, 1.0)  # cls_score draws tried, the config's first
+SIGMAS = (0.01, 0.03, 0.1, 0.3, 1.0, 3.0, 10.0, 30.0)  # cls_score draws tried, the config's first
 MIN_DETECTIONS = 40  # valid detections an image the SGDet checks need
 
 
@@ -4047,12 +4085,13 @@ def legacy_evaluate(model, cfg, what, per_batch):
     return ms, peak
 
 
-def legacy_train(model, cfg, per_step, what, steps, datasets=None):
+def legacy_train(model, cfg, per_step, what, steps, datasets=None, idle=()):
     """``relation_train_net.train`` for ``steps`` full-width steps: exact
     launches at every step, finite losses (``binary_loss`` for VCTree),
-    every trainable tensor changed, the frozen detector bit-unchanged, every
-    trainable BatchNorm's statistics updated.  Returns the state, ms a step
-    (the last) and the peak memory."""
+    every trainable tensor changed (but those under the ``idle`` prefixes,
+    which no loss of the step reaches), the frozen detector bit-unchanged,
+    every trainable BatchNorm's statistics updated.  Returns the state, ms
+    a step (the last) and the peak memory."""
     from veto_tpu_torch.tools.relation_train_net import train
 
     cfg = cfg.override("solver.max_iter", steps)
@@ -4090,7 +4129,7 @@ def legacy_train(model, cfg, per_step, what, steps, datasets=None):
         if not torch.equal(v, frozen[k]):
             raise AssertionError(f"{what}: frozen detector changed: {k}")
     still = [n for n, p in model.named_parameters()
-             if p.requires_grad and torch.equal(p, before[n])]
+             if p.requires_grad and torch.equal(p, before[n]) and not n.startswith(idle)]
     same = [n for n, b in model.named_buffers()
             if n in stats0 and torch.equal(b, stats0[n])]
     if still or same:
@@ -4304,6 +4343,303 @@ def phase_legacy():
     return numbers
 
 
+# ------------------------------------------------------------------ phase 20
+VGG = "vgg_vg_predcls.yaml"
+# the message-passing predictors and the options each runs with
+ZOO = (("IMPPredictor", ()), ("BGNNPredictor", ("relation.rel_aware=true",)),
+       ("GPSNetPredictor", ()), ("MSDNPredictor", ()))
+ZOO_LAUNCHES = {}  # launches of phase 20's counted runs, by kernel
+
+
+def count_zoo(launches, times=1):
+    for k, v in launches.items():
+        ZOO_LAUNCHES[k] = ZOO_LAUNCHES.get(k, 0) + v * times
+
+
+def vgg_level_pool(gen, b=8, h=800, w=1344, c=512):
+    """B3 and B3-bwd on VGG-16's single 512-channel level at 1/16 (bf16, 80
+    rois an image): the RGB pool at P = 8 and the box head's at P = 7
+    against their plain versions; the backward (its tile rows 2 at 512 bf16
+    channels, C and Python agreeing) against the plain backward, two runs
+    bit-equal; the forward's device ms against its bound (bytes).  Returns
+    its numbers."""
+    from veto_tpu_torch.ops import cuda_lib
+    from veto_tpu_torch.ops import roi_align_windowed as rw
+
+    rows = cuda_lib.library("roi_align").roi_align_bwd_tile_rows(c, 1)
+    if rows != rw.bwd_tile_rows(c, torch.bfloat16) or rows != 2:
+        raise AssertionError(f"tile rows at {c} bf16: C {rows}, Python "
+                             f"{rw.bwd_tile_rows(c, torch.bfloat16)}, want 2")
+    fmap = torch.randn(b, h // 16, w // 16, c, generator=gen, device=DEVICE).bfloat16()
+    rois = eval_rois(gen, b, 80, h, w)
+    scale, errs = (0.0625,), []
+    print(f"[roi_align, VGG-16 level] kernel vs plain, {b} x {h // 16}x{w // 16}x{c} "
+          "bf16 map, 80 rois an image")
+    for p in (8, 7):
+        got = rw.multilevel_roi_align_batched([fmap], rois, scale, p, 2)
+        ref = rw.reference_multilevel_roi_align_batched([fmap], rois, scale, p, 2)
+        errs.append(check_close(f"P = {p}", got, ref, atol=1e-5, rtol=1e-5))
+    g = torch.randn(b, 80, 8, 8, c, generator=gen, device=DEVICE)
+    got, again = (rw._launch_backward([fmap], [True], rois, g, scale, 8, 2)[0]
+                  for _ in range(2))
+    ref = rw.reference_multilevel_roi_align_backward([fmap], [True], rois, g, scale,
+                                                     8, 2)[0]
+    if not torch.equal(got, again):
+        raise AssertionError("512-channel backward: two kernel runs differ")
+    errs.append(check_close("backward bf16 (two kernel runs bit-equal)", got, ref,
+                            atol=1e-5, rtol=2 ** -7))
+    del got, again, ref, g
+    fwd = lambda: rw.multilevel_roi_align_batched([fmap], rois, scale, 8, 2)  # noqa: E731
+    ms = device_ms(fwd, "roi_align_fwd_kernel", 20)
+    plain_ms = cuda_ms(lambda: rw.reference_multilevel_roi_align_batched(
+        [fmap], rois, scale, 8, 2), 2, 1)
+    out_bytes = b * 80 * 8 * 8 * c * 4
+    in_bytes = (roi_tap_bytes([fmap], rois, torch.zeros_like(rois[..., 0]), scale)
+                + rois.numel() * 4)
+    flops = b * 80 * 8 * 8 * c * 16 * 2
+    t_bytes, t_ops = (in_bytes + out_bytes) / PEAK_BYTES * 1e3, flops / PEAK_F32 * 1e3
+    print(f"  P = 8: kernel {ms:.4f} ms on the device, plain {plain_ms:.3f} ms; "
+          f"{in_bytes / 1e6:.1f} MB of taps and rois + {out_bytes / 1e6:.1f} MB out "
+          f"-> bound {max(t_bytes, t_ops):.4f} ms "
+          f"({'bytes' if t_bytes >= t_ops else 'operations'}), "
+          f"{(in_bytes + out_bytes) / ms / 1e6:.0f} GB/s")
+    del fmap
+    release()
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
+                max_abs_err=max(errs))
+
+
+def zoo_vgg(gen, numbers):
+    """``configs/vgg_vg_predcls.yaml`` at full width: 2 eval batches of 8
+    (B1 6, B3 2 a batch) with one batch's logits against the plain
+    versions, 3 train steps of 12 (B1, B2a, B2b 6, B3 2, B3-bwd 1 a step)
+    and one step's gradients against the plain versions, and one SGDet
+    eval batch of the VGG detector whose proposals and detections through
+    N1 are bit-equal to the plain walk's (the 512-channel pools alone run
+    in phase 3: :func:`vgg_level_pool`)."""
+    vgg = ("test.ims_per_batch=8",)
+    model, cfg, eval_ms = phase_main_path(vgg, n_batches=2, config=VGG)
+    count_zoo(expected(fused_encoder_layer=cfg.veto.enc_layers,
+                       multilevel_roi_align=2), 2)
+    b = next(synthetic_eval_dataset_batches(cfg))
+    fwd = lambda: eval_logits(model, cfg, b)  # noqa: E731
+    wall, busy = cuda_ms(fwd, 2, 1), busy_ms(fwd, 2)
+    del model
+    release()
+    state, total = phase_train(3, vgg, what="VGG-16", config=VGG)
+    count_zoo(total)
+    phase_train_grads(state, vgg, what="VGG-16", config=VGG)
+    train_ms, train_peak = TRAIN_MS["VGG-16"]
+    del state
+    release()
+    sg = ("relation.use_gt_box=False", "relation.use_gt_object_label=False")
+    print(f"[zoo, VGG-16 SGDet] {VGG} {' '.join(sg)}: one eval batch of 8")
+    model, cfg, b, sigma = sgdet_eval_model(VGG, sg)
+    per = expected(**sgdet_launches(cfg))
+    sgdet_ms, sgdet_peak, _ = counted_evaluate(model, cfg, 1, "VGG-16 SGDet eval", per)
+    count_zoo(per)
+    nd, _ = sgdet_ladder(model, cfg, b)
+    walk = vgg_rpn_walk(model, b)
+    del model
+    release()
+    numbers["VGG-16"] = dict(eval_ms=eval_ms, eval_forward_ms=wall,
+                             eval_busy_share=busy / wall, train_ms=train_ms,
+                             train_peak_gib=train_peak / 2 ** 30, sgdet_eval_ms=sgdet_ms,
+                             sgdet_peak_gib=sgdet_peak / 2 ** 30, cls_score_sigma=sigma,
+                             detections=nd, level_pool=dict(VGG_POOL), rpn_walk=walk)
+
+
+def vgg_rpn_walk(model, b):
+    """N1 on the VGG detector's RPN walk of batch ``b``: the one level's
+    6000 best anchors an image, as ``propose`` hands them to the greedy
+    walk (recorded there), timed alone against its bound and the plain
+    walk."""
+    from veto_tpu_torch.ops import nms as tn
+
+    seen, real = [], tn.greedy_keep_sorted
+
+    def record(boxes, active, thr, m, *args):
+        seen.append((boxes.float().contiguous(), active.contiguous(), thr, m))
+        return real(boxes, active, thr, m, *args)
+
+    tn.greedy_keep_sorted = record
+    try:
+        with torch.inference_mode():
+            obj, reg = model.rpn_maps(model.extract_features(b.images))
+            model.propose(obj, reg, b.sizes)
+    finally:
+        tn.greedy_keep_sorted = real
+    boxes, active, thr, m = seen[0]
+    keep = real(boxes, active, thr, m)
+    return n1_row(f"VGG-16 RPN walk {tuple(active.shape)}, IoU {thr}, {m} keeps",
+                  boxes, active, thr, m, keep)
+
+
+def synthetic_eval_dataset_batches(cfg):
+    """The synthetic eval split's batches of the config, on the card."""
+    from veto_tpu_torch.tools.relation_test_net import synthetic_eval_dataset
+
+    bsz = cfg.test.ims_per_batch
+    for batch, _ in synthetic_eval_dataset(cfg, bsz).batches(bsz, cfg.data.max_boxes):
+        yield batch.to(DEVICE)
+
+
+def zoo_grads(predictor, opts):
+    """One PredCls step's gradients through the kernels against the plain
+    versions, in f32 (as phase 19 holds them), two kernel runs of the step
+    bit-equal: the predictors' segment sums and gathers are products with
+    the incidence matrix, with no atomics.  cuDNN runs its deterministic
+    algorithms for this check: its default weight-gradient algorithm for
+    the union features' first rect conv (shared by every legacy predictor)
+    adds in another order from run to run (on an NVIDIA H100 without it,
+    ``union_extractor.rect_conv1.weight`` was the one tensor that
+    varied)."""
+    from veto_tpu_torch.engine.train import create_train_state
+    from veto_tpu_torch.tools.relation_train_net import rel_class_weights
+
+    opts = (*opts, "dtype=float32")
+    cfg = legacy_cfg(PREDCLS, predictor, opts)
+    model, _ = legacy_model(cfg, None)
+    state = create_train_state(model, cfg.solver, rel_class_weights(cfg),
+                               mode=cfg.relation.mode)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        phase_train_grads(state, (f"relation.predictor={predictor}", *opts),
+                          what=f"{predictor} PredCls, f32, cuDNN deterministic",
+                          exact_floor=True)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    del state, model
+    release()
+
+
+def check_zoo_logits(model, cfg, b, what):
+    """:func:`check_legacy_logits`; for BGNN / MSDN with ``rel_aware`` it
+    first reports how many pairs the two runs' message filters (the
+    threshold at the ``mp_valid_pairs``-th relness) tell apart, then
+    compares the logits with the plain run's filter given to both: the
+    threshold is a selection that a last-bit difference of a bf16 pooled
+    feature can flip, as VCTree's forest is."""
+    from veto_tpu_torch.ops import cuda_lib
+
+    head = model.relation
+    if not getattr(head, "rel_aware", False):
+        return check_legacy_logits(model, cfg, b, what)
+    ctx, seen = head.context_layer, {}
+
+    def run(key):
+        hook = ctx.register_forward_pre_hook(
+            lambda m, args: seen.__setitem__(key, args[3]))
+        try:
+            return eval_forward(model, cfg, b).rel_logits
+        finally:
+            hook.remove()
+
+    run("kernels")
+    with cuda_lib.plain_kernels():
+        ref = run("plain")
+    moved = int((seen["kernels"] != seen["plain"]).sum())
+    hook = ctx.register_forward_pre_hook(
+        lambda m, args: args[:3] + (seen["plain"],) + args[4:])
+    try:
+        got = eval_forward(model, cfg, b).rel_logits
+    finally:
+        hook.remove()
+    print(f"  {what}: kernels vs plain; the two runs' message filters differ at "
+          f"{moved} of {int(seen['plain'].sum())} passing pairs, the logits "
+          "compared on the plain run's filter")
+    check_close(f"{what} logits", got, ref, atol=0.05 * float(ref.abs().max()),
+                rtol=0.0, mean_tol=0.01 * float(ref.abs().mean()))
+    return got
+
+
+def zoo_predictor(predictor, opts, b, body, numbers):
+    """One message-passing predictor in PredCls on the frozen R-101 body:
+    one eval batch (B3 2: the box and union pools) with its logits against
+    the plain versions and its busy share, one train step (B3 2, no
+    B3-bwd), and the f32 step gradients of :func:`zoo_grads`."""
+    cfg = legacy_cfg(PREDCLS, predictor, opts)
+    model, body = legacy_model(cfg, body)
+    per = expected(multilevel_roi_align=2)
+    eval_ms, eval_peak = legacy_evaluate(model, cfg, f"{predictor} PredCls eval", per)
+    check_zoo_logits(model, cfg, b, f"{predictor} PredCls")
+    out = eval_forward(model, cfg, b)
+    if (out.relness_logits is not None) != ("relation.rel_aware=true" in opts):
+        raise AssertionError(f"{predictor}: relness logits {out.relness_logits}")
+    fwd = lambda: eval_logits(model, cfg, b)  # noqa: E731
+    wall, busy = cuda_ms(fwd, 2, 1), busy_ms(fwd, 2)
+    _, train_ms, train_peak = legacy_train(model, cfg, per, f"{predictor} train", 1)
+    del model
+    release()
+    zoo_grads(predictor, opts)
+    numbers[predictor] = dict(eval_ms=eval_ms, eval_forward_ms=wall,
+                              eval_busy_share=busy / wall,
+                              eval_peak_gib=eval_peak / 2 ** 30, train_ms=train_ms,
+                              train_peak_gib=train_peak / 2 ** 30)
+    print(f"  [{predictor}] eval forward {wall:.1f} ms by CUDA events, {busy:.1f} ms "
+          f"busy on the device ({busy / wall:.2f})")
+    return body
+
+
+def zoo_other_modes(predictor, opts, body, numbers):
+    """SGCls (B3 3) and SGDet (B3 3, N1 2 + 2): one eval batch and one train
+    step each, as phase 19 runs Motifs and VCTree."""
+    from veto_tpu_torch.tools.relation_train_net import build_dataset
+
+    for config, per, mode in ((SGCLS, expected(multilevel_roi_align=3), "SGCls"),
+                              (SGDET, expected(multilevel_roi_align=3, nms_mask=2,
+                                               nms_scan=2), "SGDet")):
+        cfg = legacy_cfg(config, predictor, opts)
+        model, body = legacy_model(cfg, body)
+        datasets = None
+        if mode == "SGDet":
+            b = next(synthetic_eval_dataset_batches(cfg))
+            draw_cls_score(model, cfg, b)
+        eval_ms, eval_peak = legacy_evaluate(model, cfg, f"{predictor} {mode} eval", per)
+        if mode == "SGDet":
+            datasets = (detected_gt_dataset(model, cfg), build_dataset(cfg, "val"))
+        # the JAX SGDet step takes no pre_rel_classify_loss: BGNN's relness
+        # pre-classifier trains in PredCls and SGCls only
+        idle = ("relation.relation_conf_aware_models.",) if mode == "SGDet" else ()
+        _, train_ms, train_peak = legacy_train(model, cfg, per,
+                                               f"{predictor} {mode} train", 1, datasets,
+                                               idle)
+        count_zoo(per, 2)
+        numbers[f"{predictor} {mode}"] = dict(
+            eval_ms=eval_ms, train_ms=train_ms, eval_peak_gib=eval_peak / 2 ** 30,
+            train_peak_gib=train_peak / 2 ** 30)
+        del model
+        release()
+    return body
+
+
+def phase_zoo(gen):
+    """Phase 20: the VGG-16 body and the message-passing predictors at full
+    width (see the module docstring).  Returns its numbers."""
+    t0 = time.perf_counter()
+    numbers = {}
+    b3_before = LEGACY_B3["total"]
+    zoo_vgg(gen, numbers)
+    print("[zoo] IMP, BGNN (relation.rel_aware=true), GPSNet, MSDN on the frozen "
+          "R-101 body (context_hidden_dim 512, context_pooling_dim 4096, bf16)")
+    cfg = legacy_cfg(PREDCLS, "IMPPredictor")
+    b = next(synthetic_eval_dataset_batches(cfg))
+    body = None
+    for predictor, opts in ZOO:
+        body = zoo_predictor(predictor, opts, b, body, numbers)
+    for predictor, opts in ZOO[:2]:
+        body = zoo_other_modes(predictor, opts, body, numbers)
+    # the legacy helpers add their counted B3 launches to phase 19's total
+    count_zoo(expected(multilevel_roi_align=LEGACY_B3["total"] - b3_before))
+    LEGACY_B3["total"] = b3_before
+    numbers["seconds"] = time.perf_counter() - t0
+    release()
+    print(f"[zoo numbers] {card()}: {json.dumps(numbers)}")
+    print(f"[zoo] phase 20 took {numbers['seconds']:.1f} s")
+    return numbers
+
+
 _SCRATCH = []
 
 
@@ -4343,7 +4679,9 @@ def main() -> int:
     build()
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     phase_gemm_core(gen)
-    kernels = [phase_roi_align(gen), phase_encoder(gen)]
+    kernels = [phase_roi_align(gen)]
+    VGG_POOL.update(vgg_level_pool(gen))  # phase 3 on VGG-16's 512-channel level
+    kernels.append(phase_encoder(gen))
     phase_main_path()
     kernels += [*phase_encoder_bwd(gen), phase_roi_align_bwd(gen),
                 *phase_pair_attention(gen), phase_mono_bwd(gen)]
@@ -4361,13 +4699,19 @@ def main() -> int:
     phase_pretrain()
     phase_heads()
     phase_legacy()
+    phase_zoo(gen)
     # each kernel's launches on the training path that runs it; B3's also
-    # those of the legacy paths' counted runs (phase 19)
+    # those of the legacy paths' counted runs (phase 19); every kernel's
+    # also those of phase 20's counted runs
     launches.update(pair_attention=pa_launches["pair_attention"],
                     pair_attention_backward=pa_launches["pair_attention_backward"],
                     encoder_mono_bwd=mono_launches["encoder_mono_bwd"],
                     greedy_nms=n1_launches)
     launches["multilevel_roi_align"] += LEGACY_B3["total"]
+    for name, n in ZOO_LAUNCHES.items():
+        if name in launches:
+            launches[name] += n
+    launches["greedy_nms"] += ZOO_LAUNCHES.get("nms_mask", 0)  # N1's mask launches
     for k in kernels:
         k["launches"] = launches[k["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

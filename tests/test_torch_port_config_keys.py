@@ -17,8 +17,9 @@ shipped defaults still build, train and evaluate.
   ``test.relation_require_overlap`` reach the SGDet pair sampler and test
   pairs; ``ensemble.enabled`` builds MEET's predictor (A11), a
   ``VETOPredictor_MEET`` name without it the plain VETO one, the four
-  ported legacy ``*_MEET`` predictors their MEET heads, and the legacy
-  predictors still to come raise, naming their slice of A14;
+  ported legacy ``*_MEET`` predictors their MEET heads, a ported one
+  without MEET heads (BGNN) raises ``ValueError`` with ``ensemble.enabled``,
+  and the legacy predictors still to come raise, naming their slice of A14;
   ``model.box_pooler_resolution`` and ``model.box_mlp_head_dim`` shape the
   SGCls box head.
 """
@@ -210,8 +211,10 @@ def test_sgdet_and_meet_still_raise():
     MEET: ``ensemble.enabled`` builds ``MeetPredictor`` (SGCls here: its
     trunk embeds the hard labels), ``VETOPredictor_MEET`` without it the
     plain VETO predictor, as the JAX tool resolves the name; a legacy
-    ``*_MEET`` predictor of the ported four builds its MEET heads, and one
-    still to come raises, naming its slice of A14."""
+    ``*_MEET`` predictor of the ported four builds its MEET heads, one
+    without MEET heads (BGNN) raises ``ValueError`` under
+    ``ensemble.enabled``, and one still to come raises, naming its slice
+    of A14."""
     from veto_tpu_torch.models.relation.predictor_meet import MeetPredictor
     from veto_tpu_torch.models.relation.predictor_veto import VetoPredictor
 
@@ -237,6 +240,9 @@ def test_sgdet_and_meet_still_raise():
                          "cpu").relation
     assert motifs.meet_heads.rel_out_e0_g4.weight.shape == (12 + 2, 32)
     with pytest.raises(NotImplementedError, match="A14"):
+        build_model(_cfg(SMALL + ["relation.predictor=KERNPredictor_MEET",
+                                  "ensemble.enabled=True"]), "cpu")
+    with pytest.raises(ValueError, match="no MEET heads"):
         build_model(_cfg(SMALL + ["relation.predictor=BGNNPredictor_MEET",
                                   "ensemble.enabled=True"]), "cpu")
 

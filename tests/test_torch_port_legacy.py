@@ -200,18 +200,18 @@ def test_train_step_matches_jax(case):
 
 
 def test_resolve_predictor_names():
-    """The four legacy predictors, their ``_MEET`` names and the JAX tool's
+    """The ported legacy predictors, their ``_MEET`` names and the JAX tool's
     ``TransLike_MEET`` alias resolve to their base; the legacy predictors
     still to come raise ``NotImplementedError`` naming their slice; an
     unknown name ``ValueError``."""
     for name in ("MotifPredictor", "VCTreePredictor", "TransformerPredictor",
-                 "TransLikePredictor", "VETOPredictor"):
+                 "TransLikePredictor", "VETOPredictor", "IMPPredictor",
+                 "BGNNPredictor", "GPSNetPredictor", "MSDNPredictor"):
         assert resolve_predictor(name) == name
         assert resolve_predictor(name + "_MEET") == name
     assert resolve_predictor("TransLike_MEET") == "TransLikePredictor"
-    for name, slice_ in (("IMPPredictor", "BGNN"), ("BGNNPredictor_MEET", "BGNN"),
-                         ("GPSNetPredictor", "BGNN"), ("MSDNPredictor", "BGNN"),
-                         ("CausalAnalysisPredictor", "CausalPredictor"),
+    for name, slice_ in (("CausalAnalysisPredictor", "CausalPredictor"),
+                         ("CausalAnalysisPredictor_MEET", "CausalPredictor"),
                          ("KERNPredictor", "KERN"), ("AGRCNNPredictor", "KERN"),
                          ("NaivePredictor", "Naive"),
                          ("RelatednessTestPredictor", "RelatednessTest")):

@@ -3,9 +3,14 @@ and the zero-shot triplets, on VG/GQA-format files written into
 ``tmp_path``: every record, batch and triplet equals the JAX package's
 exactly.
 
-The JAX loader takes its fused path when its own host-ops library loads;
-:func:`_jax_native` points it at a build of that library private to this
-module (:mod:`torch_port_jax_native`)."""
+The JAX loader takes its fused path when its own host-ops library loads.
+Every test here runs with ``veto_tpu.native`` pinned to a build of that
+library private to this module (:mod:`torch_port_jax_native`, the autouse
+:func:`_jax_native`), so both packages run their native host ops whatever
+another test of the process did to ``veto_tpu.native`` (a build of its
+in-package library that lost a race leaves it on NumPy for the rest of the
+process), and no test here reads or writes the JAX package's own
+``libveto_host.so``."""
 
 import os
 
@@ -20,6 +25,8 @@ from veto_tpu.data.loader import SGGLoader as JLoader
 from veto_tpu.data.visual_genome import VGDataset as JVG
 from veto_tpu.evaluation.sgg_eval import compute_zeroshot_triplets as j_zs
 from veto_tpu.evaluation.sgg_eval import load_zeroshot_triplets_file as j_zs_file
+
+from veto_tpu import native as jnative
 
 import torch_port_jax_native
 from torch_port_vg_files import write_fake_gqa, write_fake_vg
@@ -50,7 +57,7 @@ def _jax_lib(tmp_path_factory):
     return torch_port_jax_native.build(tmp_path_factory.mktemp("jax_native"))
 
 
-@pytest.fixture
+@pytest.fixture(autouse=True)
 def _jax_native(monkeypatch, _jax_lib):
     torch_port_jax_native.use(monkeypatch, _jax_lib)
     assert native.available()
@@ -165,7 +172,7 @@ def test_loader_iterations_match_jax_slow_path(vg_dir, workers, start_iter):
     _same_batches(got, ref)
 
 
-def test_loader_fused_path_matches_jax(vg_dir, _jax_native):
+def test_loader_fused_path_matches_jax(vg_dir):
     """The fused path (host ops into the batch slots) against the JAX
     loader's fused path exactly, and against the slow path to float
     rounding."""
@@ -182,6 +189,34 @@ def test_loader_fused_path_matches_jax(vg_dir, _jax_native):
         np.testing.assert_allclose(f.depth, s.depth, atol=1e-4)
         for field in FIELDS[2:]:
             np.testing.assert_array_equal(getattr(f, field), getattr(s, field))
+
+
+# the states another test of the process can leave ``veto_tpu.native`` in
+_JAX_NATIVE_STATES = {
+    "lost_build": dict(_tried=True, _lib=None),  # its in-package build failed
+    "untried": dict(_tried=False, _lib=None),
+    "missing_file": dict(_tried=False, _lib=None,
+                         _LIB_PATH=os.path.join(os.sep, "nonexistent",
+                                                "libveto_host.so")),
+}
+
+
+@pytest.mark.parametrize("before", sorted(_JAX_NATIVE_STATES))
+def test_slow_path_matches_jax_whatever_the_jax_library_state(
+        vg_dir, monkeypatch, _jax_lib, before):
+    """The slow-path comparison (2 worker threads, resumed at 4) after
+    ``veto_tpu.native`` was left in ``before``'s state and then pinned to
+    the private build, as the autouse fixture pins it: the JAX side loads
+    that build and both sides stay equal."""
+    for name, value in _JAX_NATIVE_STATES[before].items():
+        monkeypatch.setattr(jnative, name, value)
+    torch_port_jax_native.use(monkeypatch, _jax_lib)
+    got = list(_loader(SGGLoader, _NoRaw(_vg(VGDataset, vg_dir, "train")),
+                       2).iterations(7, 4))
+    ref = list(_loader(JLoader, _NoRaw(_vg(JVG, vg_dir, "train")),
+                       0).iterations(7, 4))
+    assert jnative._LIB_PATH == _jax_lib and jnative._lib is not None
+    _same_batches(got, ref)
 
 
 @pytest.mark.parametrize("workers", (0, 3))

@@ -24,6 +24,7 @@ import jax.numpy as jnp
 from veto_tpu.engine.train import _binary_loss as j_binary_loss
 from veto_tpu.models.relation.predictor_veto import weighted_ce_loss as j_wce
 from veto_tpu.models.sgg import SGGModel as JModel
+from veto_tpu.ops.nms import obj_prediction_nms as j_obj_nms
 
 from torch_port_det_steps import compiled
 
@@ -307,9 +308,15 @@ def jax_train(jm, variables, x, s, mode, cw, rel_losses=None, box_head=False,
     stats = variables["batch_stats"]
 
     def method(m, feats, depth, boxes, mask, labels, logits, pi, pm):
-        if box_head:
+        pred_labels = None
+        if box_head:  # SGGModel.__call__'s SGCls logits and NMS labels
             logits = m._box_logits(feats, boxes)[0]
-        return m.relate(feats, depth, boxes, mask, labels, logits, pi, pm, train=True)
+            tiled = jnp.broadcast_to(boxes[:, :, None, :],
+                                     boxes.shape[:2] + (logits.shape[-1], 4))
+            pred_labels = jax.vmap(lambda b, lg, mk: j_obj_nms(
+                b, lg, 0.5, valid_mask=mk))(tiled, logits, mask)
+        return m.relate(feats, depth, boxes, mask, labels, logits, pi, pm, train=True,
+                        pred_labels=pred_labels)
 
     def loss_fn(params):
         out, mut = jm.apply({"params": params, "batch_stats": stats}, *args,

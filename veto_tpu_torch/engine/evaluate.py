@@ -15,10 +15,14 @@ and scores come from the proposals' logits (in SGDet from the late NMS).
 Results stay padded and masked, one shape per batch.  Every step runs
 under ``torch.inference_mode``.
 
-The legacy predictors take the same steps: their relation output is
+The legacy predictors take the same steps (the message-passing ones
+read the pair mask): their relation output is
 post-processed with the proposals' ``predict_logits``, and their refined
 ``obj_dists`` are dropped, as the JAX package drops them
-(``OBJECT_CLASSIFICATION_REFINE`` is off in every shipped config).  In
+(``OBJECT_CLASSIFICATION_REFINE`` is off in every shipped config).  BGNN's
+relness (with ``rel_aware``: the sigmoid of its pre-classifier's logits)
+rides in the PredCls / SGCls predictions' ``relness``, as in the JAX
+step; only the stage-wise evaluator (not ported, A14 item 9) reads it.  In
 SGDet their ``relate`` gets the true image sizes and the detections'
 ``boxes_per_cls`` (the Motifs and Transformer late NMS of their refined
 labels); in SGDet MEET it gets neither, as the JAX package's MEET step
@@ -65,9 +69,11 @@ def make_eval_step(model, max_pairs: int = 2048, mode: str = "predcls",
                     batch.labels, batch.obj_logits, pair_idx, pair_mask)
         # the post-processor reads the proposals' predict_logits (the ±1000
         # GT injection in PredCls, the frozen box head's logits in SGCls),
-        # not the predictor's obj_dists
+        # not the predictor's obj_dists; BGNN's relness rides along
+        relness = (None if out.relness_logits is None
+                   else torch.sigmoid(out.relness_logits.float()))
         return postprocess_relations(out.rel_logits, out.predict_logits,
-                                     pair_idx, pair_mask)
+                                     pair_idx, pair_mask, relness)
 
     return eval_step
 
@@ -83,7 +89,7 @@ def _sgdet_eval_step(model, max_pairs, later_nms_thres, require_overlap):
         out = model.relate(det.features, batch.depth, dets.boxes, dets.mask,
                            dets.labels, pair_idx, det.predict_logits,
                            image_sizes=batch.sizes,
-                           boxes_per_cls=dets.boxes_per_cls)
+                           boxes_per_cls=dets.boxes_per_cls, pair_mask=pair_mask)
         # the late NMS reads the detector's logits on the kept detections,
         # not the predictor's one-hot obj_dists (OBJECT_CLASSIFICATION_REFINE
         # is off in every shipped config)
@@ -148,7 +154,9 @@ def make_meet_eval_step(model, meet: MeetConfig, max_pairs: int = 2048,
 
 def to_numpy(preds):
     """A prediction tuple's tensors (nested tuples too) as numpy arrays, on
-    the host."""
+    the host; None fields stay None."""
+    if preds is None:
+        return None
     if torch.is_tensor(preds):
         return preds.detach().cpu().numpy()
     return type(preds)(*[to_numpy(t) for t in preds])

@@ -47,6 +47,14 @@ rect convs, the position and score nets) update their running
 statistics in the forward, and ``batch_stats`` reports them with the
 rest.
 
+IMP, BGNN, GPSNet and MSDN read the pair mask (their messages skip the
+padded pairs); IMP also embeds ``pred_labels`` (the box head's NMS labels
+in SGCls, the detections' own in SGDet).  BGNN and MSDN with
+``rel_aware`` add ``pre_rel_classify_loss`` in PredCls and SGCls, the
+focal loss of their relness pre-classifier against the sampled pairs'
+labels (``rel_proposal.rel_aware_focal_loss``); the JAX SGDet step adds
+none, and neither does the port's.
+
 Attributes (a model with ``attribute_on``, PredCls and SGCls, as in the
 JAX package): ``attribute_loss`` over every box's attribute list joins the
 losses, with ``state.attribute_cfg`` (``create_train_state(attribute_cfg=)``,
@@ -70,6 +78,7 @@ from ..models.detector.attribute_head import attribute_loss
 from ..models.detector.box_head import assign_labels_to_proposals
 from ..models.relation.predictor_meet import MeetConfig, meet_losses
 from ..models.relation.predictor_veto import weighted_ce_loss
+from ..models.relation.rel_proposal import rel_aware_focal_loss
 from ..models.relation.sampling import (
     DetRelSample, RelSample, binary_relatedness, detect_relsample, gtbox_relsample,
 )
@@ -247,7 +256,8 @@ def forward_backward(state: TrainState, batch,
                            samples.gt_labels if legacy else dets.labels,
                            pairs.pair_idx, det.predict_logits,
                            image_sizes=batch.sizes, boxes_per_cls=dets.boxes_per_cls,
-                           gumbel=gumbel, forest=forest)
+                           gumbel=gumbel, forest=forest, pair_mask=pairs.mask,
+                           pred_labels=dets.labels)
         losses = _rel_losses(state, out.rel_logits, pairs.labels, pairs.mask,
                              member)
         binary_preds = getattr(out, "binary_preds", None)  # VCTree's
@@ -272,6 +282,10 @@ def forward_backward(state: TrainState, batch,
             losses["binary_loss"] = _binary_loss(
                 out.binary_preds, binary_relatedness(batch.rel_matrix, batch.box_mask),
                 batch.box_mask)
+        if out.relness_logits is not None:  # BGNN's relness pre-classifier
+            losses["pre_rel_classify_loss"] = rel_aware_focal_loss(
+                out.relness_logits, samples.labels, samples.mask,
+                model.num_rel_classes)
         if out.attribute_logits is not None:
             losses["attribute_loss"] = _attribute_loss(
                 state, out.attribute_logits, batch, attribute_draws)

@@ -1,5 +1,5 @@
-"""Attention contexts of the legacy predictors
-(``veto_tpu/models/relation/legacy/context.py``, part 1 and 2 of 3).
+"""Contexts of the legacy predictors
+(``veto_tpu/models/relation/legacy/context.py``).
 
   * :class:`MaskedEncoder`: the post-LN encoder of "attention is all you
     need" over the padded proposal axis (reference ``model_transformer``):
@@ -17,7 +17,17 @@ dtype, as in the JAX modules.  The JAX package computes all of it with
 XLA, outside any Pallas kernel; so does the port (``torch.matmul``).
 LayerNorms are flax's (epsilon 1e-6, fast variance).
 
-``PairwiseFeatureExtractor`` (IMP, the BGNN family) comes with them.
+  * :class:`PairwiseFeatureExtractor` and :func:`box_pair_info`: the
+    object and pair features of IMP and the BGNN family (Motifs-style
+    label embeddings and geometry; the pairs' head / tail features gated
+    by their 32-d geometry, fused with the union features).
+
+The message-passing predictors gather rows by pair index and sum them
+back over segments; :func:`take_rows` and :func:`segment_sum` do both as
+products with the (B, N, P) incidence matrix of the pair index, so that
+neither the forward nor its backward adds into one address from many
+threads (``torch.gather``'s backward and ``index_add_`` do, with float
+atomics): two runs on the card are bit-equal.
 """
 
 from __future__ import annotations
@@ -31,7 +41,8 @@ from torch import nn
 
 from ....ops.box_ops import encode_box_info
 from ....ops.nms import first_argmax, obj_prediction_nms
-from ...layers import Dense, LayerNorm
+from ...layers import BatchNorm1d, Dense, LayerNorm
+from .lstm import gather_rows
 
 
 def _attend(q, k, v, mask, heads, d_k, d_v, dtype):
@@ -269,3 +280,125 @@ class SHAContext(_AttentionContext):
         edge_vis = self.lin_edge_visual(torch.cat([x, obj_feats], -1))
         edge_ctx = self.context_edge(edge_vis, self.lin_edge_textual(e2), box_mask)
         return dists, preds, edge_ctx
+
+
+def incidence(idx: torch.Tensor, n: int, dtype: torch.dtype) -> torch.Tensor:
+    """(B, P) indices into n rows → the (B, N, P) incidence matrix in
+    ``dtype``: 1 where ``idx[b, p] == n``."""
+    rows = torch.arange(n, device=idx.device)
+    return (idx.long()[:, None, :] == rows[None, :, None]).to(dtype)
+
+
+def take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x`` (B, N, F) at ``idx`` (B, P) along axis 1 (the JAX modules'
+    ``_gather``), as the product of the transposed incidence matrix with
+    ``x``: exact (one nonzero term a row), and its backward a product too."""
+    return torch.matmul(incidence(idx, x.shape[1], x.dtype).transpose(1, 2), x)
+
+
+def segment_sum(vals: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
+    """(B, P, F) ``vals`` summed into n rows by ``idx`` (B, P) → (B, N, F)
+    (``jax.ops.segment_sum`` vmapped over the batch), as a product with the
+    incidence matrix; (B, P) ``vals`` → (B, N)."""
+    if vals.dim() == 2:
+        return segment_sum(vals[..., None], idx, n)[..., 0]
+    return torch.matmul(incidence(idx, n, vals.dtype), vals)
+
+
+def box_pair_info(boxes: torch.Tensor, image_sizes: torch.Tensor,
+                  pair_idx: torch.Tensor) -> torch.Tensor:
+    """The 32-d pair geometry (B, P, 32): each box's 12-d normalized info
+    (x1, y1, x2, y2, cx, cy, w, h over the image, the area share, the
+    aspect (x2 - x1) / (y2 - y1 + 1e-9), two zeros) for the head and the
+    tail, then the union's and the intersection's normalized corners."""
+    wid = image_sizes.float()[:, None, 0]
+    hei = image_sizes.float()[:, None, 1]
+
+    def info(b):
+        x1, y1, x2, y2 = b.unbind(-1)
+        bw, bh = x2 - x1 + 1.0, y2 - y1 + 1.0
+        cx, cy = x1 + bw * 0.5, y1 + bh * 0.5
+        zero = torch.zeros_like(x1)
+        return torch.stack([x1 / wid, y1 / hei, x2 / wid, y2 / hei, cx / wid,
+                            cy / hei, bw / wid, bh / hei, bw * bh / (wid * hei),
+                            (x2 - x1) / (y2 - y1 + 1e-9), zero, zero], -1)
+
+    box_info = info(boxes)
+    si, oi = pair_idx[..., 0], pair_idx[..., 1]
+    hb, tb = gather_rows(boxes, si), gather_rows(boxes, oi)
+    extra = torch.stack([
+        torch.minimum(hb[..., 0], tb[..., 0]) / wid,
+        torch.minimum(hb[..., 1], tb[..., 1]) / hei,
+        torch.maximum(hb[..., 2], tb[..., 2]) / wid,
+        torch.maximum(hb[..., 3], tb[..., 3]) / hei,
+        torch.maximum(hb[..., 0], tb[..., 0]) / wid,
+        torch.maximum(hb[..., 1], tb[..., 1]) / hei,
+        torch.minimum(hb[..., 2], tb[..., 2]) / wid,
+        torch.minimum(hb[..., 3], tb[..., 3]) / hei], -1)
+    return torch.cat([gather_rows(box_info, si), gather_rows(box_info, oi), extra], -1)
+
+
+class PairwiseFeatureExtractor(nn.Module):
+    """The object and pair features of IMP and the BGNN family (the JAX
+    module's ``rel_feature_type="fusion"`` with the spatial gate and the
+    word embeddings, the only setting its predictors use): (augmented
+    object features (B, N, pooling_dim), pair features (B, P,
+    pooling_dim)).
+
+    Objects: [roi, class embedding (the labels' in PredCls and in training,
+    else the box head's soft one), 9 → 32 → BN → 128 geometry] →
+    ``obj_hidden_linear``; [embedding of ``pred_labels``, roi, that] is the
+    augmented object.  Pairs: its head / tail halves (``pairwise_obj_feat_
+    updim_fc``) joined, gated by the pair geometry's 32 → h → 2h net, then
+    ``pairwise_rel_feat_finalize_fc`` + the union features.  ``pos_bn``
+    keeps flax's momentum 0.999.  The union features arrive
+    ``pooling_dim`` wide (``SGGModel`` builds them so), so the JAX
+    module's ``rel_feature_up_dim`` is never built."""
+
+    def __init__(self, num_obj_classes: int = 151, embed_dim: int = 200,
+                 hidden_dim: int = 512, pooling_dim: int = 4096,
+                 in_channels: int = 4096, mode: str = "predcls",
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        if in_channels != pooling_dim:
+            raise ValueError(f"in_channels {in_channels} != pooling_dim "
+                             f"{pooling_dim}: the union features come pooling_dim wide")
+        self.mode, self.dtype, self.hidden_dim = mode, dtype, hidden_dim
+        self.obj_embed_on_prob_dist = nn.Embedding(num_obj_classes, embed_dim)
+        self.obj_embed_on_pred_label = nn.Embedding(num_obj_classes, embed_dim)
+        self.pos_fc1 = Dense(9, 32, dtype=dtype)
+        self.pos_bn = BatchNorm1d(32, momentum=0.999)
+        self.pos_fc2 = Dense(32, 128, dtype=dtype)
+        self.obj_hidden_linear = Dense(in_channels + embed_dim + 128, hidden_dim,
+                                       dtype=dtype)
+        full = embed_dim + in_channels + hidden_dim
+        self.pairwise_obj_feat_updim_fc = Dense(full, hidden_dim * 2, dtype=dtype)
+        self.spt_fc1 = Dense(32, hidden_dim, dtype=dtype)
+        self.spt_fc2 = Dense(hidden_dim, hidden_dim * 2, dtype=dtype)
+        self.pairwise_rel_feat_finalize_fc = Dense(hidden_dim * 2, pooling_dim,
+                                                   dtype=dtype)
+        self.obj_feat_aug_finalize_fc = Dense(full, pooling_dim, dtype=dtype)
+
+    def forward(self, roi_features, union_features, boxes, obj_labels,
+                predict_logits, pred_labels, pair_idx, image_sizes):
+        cdt = self.dtype
+        roi = roi_features.to(cdt)
+        if self.mode == "predcls" or self.training:
+            e_dist = self.obj_embed_on_prob_dist(obj_labels.long()).to(cdt)
+        else:
+            e_dist = soft_embed(self.obj_embed_on_prob_dist, predict_logits, cdt)
+        e_label = self.obj_embed_on_pred_label(pred_labels.long()).to(cdt)
+        g = self.pos_bn(self.pos_fc1(encode_box_info(boxes, image_sizes).to(cdt)))
+        g = F.relu(self.pos_fc2(g))
+        aug = self.obj_hidden_linear(torch.cat([roi, e_dist, g], -1))
+        aug_full = torch.cat([e_label, roi, aug], -1)
+
+        h = self.hidden_dim
+        fused = self.pairwise_obj_feat_updim_fc(aug_full)
+        pair = torch.cat([take_rows(fused[..., :h], pair_idx[..., 0]),
+                          take_rows(fused[..., h:], pair_idx[..., 1])], -1)
+        geo = box_pair_info(boxes, image_sizes, pair_idx).to(cdt)
+        pair = pair * F.relu(self.spt_fc2(F.relu(self.spt_fc1(geo))))
+        rel = F.relu(self.pairwise_rel_feat_finalize_fc(pair))
+        rel = union_features.to(cdt) + rel
+        return F.relu(self.obj_feat_aug_finalize_fc(aug_full)), rel

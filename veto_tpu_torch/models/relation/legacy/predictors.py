@@ -1,5 +1,6 @@
 """Legacy relation predictors (``veto_tpu/models/relation/legacy/
-predictors.py``): Transformer, TransLike and Motifs, with their MEET heads.
+predictors.py``): Transformer, TransLike and Motifs, with their MEET heads,
+and IMP.
 
 Each takes the (B, N) boxes with their 4096-d box-MLP features and the
 (B, P) pairs with their union features, builds a context over the boxes
@@ -12,10 +13,17 @@ MEET's per-(expert, group) heads (:class:`MeetRelHeads`), whose logits
 the engine's MEET routing, losses and post-processing take as they take
 ``VETOPredictor_MEET``'s.
 
+IMP (:class:`IMPPredictor`) passes messages instead: GRU cells over the
+boxes and the pairs, each box taking the gated sum of its pairs' states,
+each pair its two boxes' (``context.segment_sum`` / ``take_rows``).
+
 Every predictor returns a :class:`LegacyOutput`; its ``rel_logits``
 property is the relation output the engine reads (``rel_dists``, or the
-group logits with MEET).  The four share one call signature: VCTree's
-decoder noise ``gumbel`` and its ``forest`` are ignored by the others.
+group logits with MEET).  All share one call signature: VCTree's decoder
+noise ``gumbel`` and its ``forest``, the message-passing predictors'
+``pair_mask`` (the valid pairs; all when None) and IMP's ``pred_labels``
+(the labels it embeds beside ``obj_labels``; ``obj_labels`` when None)
+are ignored by the others.
 The dense layers run in the model's dtype, the classifiers in f32, as in
 the JAX modules.  Nothing here has a kernel of its own: the JAX package
 computes it with XLA outside Pallas.
@@ -30,10 +38,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from ....ops.box_ops import encode_box_info
-from ....ops.nms import obj_prediction_nms
+from ....ops.nms import first_argmax, obj_prediction_nms
 from ...layers import BatchNorm1d, Dense
 from ..freq_bias import FrequencyBias
-from .context import SHAContext, TransformerContext, soft_embed
+from .context import (
+    PairwiseFeatureExtractor, SHAContext, TransformerContext, segment_sum,
+    soft_embed, take_rows,
+)
 from .lstm import HighwayDecoderLSTM, MaskedBiLSTM, centerx_perm, gather_rows
 
 
@@ -47,6 +58,9 @@ class LegacyOutput(NamedTuple):
     group_logits: Optional[Tuple[Tuple[torch.Tensor, ...], ...]] = None
     # VCTree: the forest its contexts ran on (a ``vctree.BinaryForest``)
     forest: Optional["BinaryForest"] = None
+    # BGNN with rel_aware: (B, P, C) f32 pre-classifier logits, for
+    # ``pre_rel_classify_loss`` and the eval's relness
+    relness_logits: Optional[torch.Tensor] = None
 
     @property
     def rel_logits(self):
@@ -152,7 +166,8 @@ class TransformerPredictor(_PairHead):
 
     def forward(self, boxes, box_mask, obj_labels, predict_logits, pair_idx,
                 roi_features, union_features, image_sizes, boxes_per_cls=None,
-                gumbel=None, forest=None) -> LegacyOutput:
+                gumbel=None, forest=None, pair_mask=None,
+                pred_labels=None) -> LegacyOutput:
         obj_dists, obj_preds, edge_ctx = self.context_layer(
             roi_features, boxes, box_mask, obj_labels, predict_logits, image_sizes,
             boxes_per_cls)
@@ -279,7 +294,8 @@ class MotifPredictor(_PairHead):
 
     def forward(self, boxes, box_mask, obj_labels, predict_logits, pair_idx,
                 roi_features, union_features, image_sizes, boxes_per_cls=None,
-                gumbel=None, forest=None) -> LegacyOutput:
+                gumbel=None, forest=None, pair_mask=None,
+                pred_labels=None) -> LegacyOutput:
         obj_dists, obj_preds, edge_ctx = self.context_layer(
             roi_features, boxes, box_mask, obj_labels, predict_logits, image_sizes,
             boxes_per_cls)
@@ -289,5 +305,121 @@ class MotifPredictor(_PairHead):
             return LegacyOutput(obj_dists, None, obj_preds,
                                 group_logits=self.meet_heads(prod_rep))
         rel_dists = (self.rel_compress(prod_rep)
+                     + self.freq_bias(pair_classes(obj_preds, pair_idx)))
+        return LegacyOutput(obj_dists, rel_dists, obj_preds)
+
+
+def valid_pairs(pair_mask: Optional[torch.Tensor], pair_idx: torch.Tensor) -> torch.Tensor:
+    """The (B, P) bool pair mask, all pairs when None."""
+    if pair_mask is None:
+        return torch.ones(pair_idx.shape[:2], dtype=torch.bool, device=pair_idx.device)
+    return pair_mask
+
+
+def first_argmax_labels(obj_dists: torch.Tensor) -> torch.Tensor:
+    """int32 argmax over every class (background included), the first
+    maximum on ties (``jnp.argmax``)."""
+    idx = torch.arange(obj_dists.shape[-1], device=obj_dists.device)
+    return first_argmax(obj_dists, idx.expand(obj_dists.shape)).to(torch.int32)
+
+
+class GRUCell(nn.Module):
+    """flax's ``nn.GRUCell`` in ``torch.nn.GRUCell``'s parameters, computing
+    in ``dtype``: ``weight_ih`` (3H, D) and ``bias_ih`` (3H) of the input
+    projections (r, z, n), ``weight_hh`` (3H, H) of the hidden ones, and of
+    torch's ``bias_hh`` only its n third, ``bias_hn`` (H): flax puts no bias
+    on the hidden r and z projections, so ``b_hr = b_hz = 0`` here, fixed.
+
+        r = σ(W_ir x + b_ir + W_hr h),  z = σ(W_iz x + b_iz + W_hz h)
+        n = tanh(W_in x + b_in + r (W_hn h + b_hn)),  h' = (1 - z) n + z h
+    """
+
+    def __init__(self, in_features: int, hidden: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype, self.hidden = dtype, hidden
+        self.weight_ih = nn.Parameter(torch.empty(3 * hidden, in_features))
+        self.weight_hh = nn.Parameter(torch.empty(3 * hidden, hidden))
+        self.bias_ih = nn.Parameter(torch.zeros(3 * hidden))
+        self.bias_hn = nn.Parameter(torch.zeros(hidden))
+
+    def forward(self, h: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        """flax's argument order: the carry ``h``, then the input ``x``."""
+        dt = self.dtype
+        h = h.to(dt)
+        i_r, i_z, i_n = F.linear(x.to(dt), self.weight_ih.to(dt),
+                                 self.bias_ih.to(dt)).chunk(3, -1)
+        h_r, h_z, h_n = F.linear(h, self.weight_hh.to(dt)).chunk(3, -1)
+        r = torch.sigmoid(i_r + h_r)
+        z = torch.sigmoid(i_z + h_z)
+        n = torch.tanh(i_n + r * (h_n + self.bias_hn.to(dt)))
+        return (1.0 - z) * n + z * h
+
+
+class IMPPredictor(nn.Module):
+    """Iterative message passing: the pairwise features, ``obj_unary`` /
+    ``edge_unary`` projections, one GRU step each from zero, then
+    ``num_iter`` rounds in which each pair's GRU takes its two boxes'
+    states gated by ``sub_vert_w_fc`` / ``obj_vert_w_fc`` and each box's
+    GRU the sum of its outgoing and incoming pairs' states gated by
+    ``out_edge_w_fc`` / ``in_edge_w_fc`` (padded pairs send nothing).
+    ``rel_classifier`` on the pairs, ``obj_classifier`` on the boxes
+    outside PredCls (their labels its argmax), and the frequency bias."""
+
+    def __init__(self, num_obj_classes: int = 151, num_rel_classes: int = 51,
+                 hidden_dim: int = 512, pooling_dim: int = 4096,
+                 in_channels: int = 4096, num_iter: int = 3, mode: str = "predcls",
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        h = hidden_dim
+        self.num_obj_classes, self.num_iter, self.mode, self.dtype = (
+            num_obj_classes, num_iter, mode, dtype)
+        self.pairwise_feature_extractor = PairwiseFeatureExtractor(
+            num_obj_classes, hidden_dim=h, pooling_dim=pooling_dim,
+            in_channels=in_channels, mode=mode, dtype=dtype)
+        self.obj_unary = Dense(pooling_dim, h, dtype=dtype)
+        self.edge_unary = Dense(pooling_dim, h, dtype=dtype)
+        self.node_gru = GRUCell(h, h, dtype)
+        self.edge_gru = GRUCell(h, h, dtype)
+        for name in ("sub_vert_w_fc", "obj_vert_w_fc", "out_edge_w_fc", "in_edge_w_fc"):
+            self.add_module(name, Dense(2 * h, 1, dtype=dtype))
+        if mode != "predcls":
+            self.obj_classifier = Dense(h, num_obj_classes, dtype=torch.float32)
+        self.rel_classifier = Dense(h, num_rel_classes, dtype=torch.float32)
+        self.freq_bias = FrequencyBias(num_obj_classes, num_rel_classes)
+
+    def forward(self, boxes, box_mask, obj_labels, predict_logits, pair_idx,
+                roi_features, union_features, image_sizes, boxes_per_cls=None,
+                gumbel=None, forest=None, pair_mask=None,
+                pred_labels=None) -> LegacyOutput:
+        n = box_mask.shape[1]
+        pred_labels = obj_labels if pred_labels is None else pred_labels
+        aug_obj, rel_feats = self.pairwise_feature_extractor(
+            roi_features, union_features, boxes, obj_labels, predict_logits,
+            pred_labels, pair_idx, image_sizes)
+        obj_rep = self.obj_unary(aug_obj)
+        rel_rep = F.relu(self.edge_unary(rel_feats))
+        si, oi = pair_idx[..., 0], pair_idx[..., 1]
+        pm = valid_pairs(pair_mask, pair_idx)[..., None].to(self.dtype)
+        vert = self.node_gru(torch.zeros_like(obj_rep), obj_rep)
+        edge = self.edge_gru(torch.zeros_like(rel_rep), rel_rep)
+        for _ in range(self.num_iter):
+            sub_vert, obj_vert = take_rows(vert, si), take_rows(vert, oi)
+            sub_edge = torch.cat([sub_vert, edge], -1)
+            obj_edge = torch.cat([obj_vert, edge], -1)
+            w_sub = torch.sigmoid(self.sub_vert_w_fc(sub_edge))
+            w_obj = torch.sigmoid(self.obj_vert_w_fc(obj_edge))
+            new_edge = self.edge_gru(edge, (w_sub * sub_vert + w_obj * obj_vert) * pm)
+            pre_out = torch.sigmoid(self.out_edge_w_fc(sub_edge)) * edge * pm
+            pre_in = torch.sigmoid(self.in_edge_w_fc(obj_edge)) * edge * pm
+            vert = self.node_gru(vert, segment_sum(pre_out, si, n)
+                                 + segment_sum(pre_in, oi, n))
+            edge = new_edge
+        if self.mode == "predcls":
+            obj_dists = F.one_hot(obj_labels.long(), self.num_obj_classes).float()
+        else:
+            obj_dists = self.obj_classifier(vert)
+        obj_preds = first_argmax_labels(obj_dists)
+        rel_dists = (self.rel_classifier(edge)
                      + self.freq_bias(pair_classes(obj_preds, pair_idx)))
         return LegacyOutput(obj_dists, rel_dists, obj_preds)

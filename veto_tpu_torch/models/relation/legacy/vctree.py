@@ -388,7 +388,8 @@ class VCTreePredictor(_PairHead):
 
     def forward(self, boxes, box_mask, obj_labels, predict_logits, pair_idx,
                 roi_features, union_features, image_sizes, boxes_per_cls=None,
-                gumbel=None, forest: Optional[BinaryForest] = None) -> LegacyOutput:
+                gumbel=None, forest: Optional[BinaryForest] = None, pair_mask=None,
+                pred_labels=None) -> LegacyOutput:
         obj_dists, obj_preds, edge_ctx, bi_preds, forest = self.context_layer(
             roi_features, boxes, box_mask, obj_labels, predict_logits, image_sizes,
             gumbel, forest)

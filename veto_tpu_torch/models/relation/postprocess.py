@@ -4,7 +4,7 @@ logits → triplets ranked by score."""
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -18,17 +18,21 @@ class RelPrediction(NamedTuple):
     pair_mask: torch.Tensor   # (B, P)
     obj_labels: torch.Tensor  # (B, N) predicted object classes
     obj_scores: torch.Tensor  # (B, N) predicted object scores
+    # (B, P, C) pair relness (the sigmoid of BGNN's pre-classifier logits)
+    # in the pairs' order, the reference's "relness" field; else None
+    relness: Optional[torch.Tensor] = None
 
 
 def postprocess_relations(rel_logits: torch.Tensor, obj_dists: torch.Tensor,
-                          pair_idx: torch.Tensor,
-                          pair_mask: torch.Tensor) -> RelPrediction:
+                          pair_idx: torch.Tensor, pair_mask: torch.Tensor,
+                          relness: Optional[torch.Tensor] = None) -> RelPrediction:
     """(B, P, C) logits, (B, N, num_obj) object logits → RelPrediction.
 
     Object softmax with background zeroed (:func:`object_predictions`),
     fg-predicate argmax per pair,
     triple score = rel · subj · obj, and a stable descending sort (the
-    JAX package's ``jnp.argsort`` is stable too).
+    JAX package's ``jnp.argsort`` is stable too).  ``relness`` (B, P, ...)
+    is reordered with the pairs.
     """
     obj_labels, obj_scores = object_predictions(obj_dists)
     rel_prob, rel_fg, rel_labels = _rel_scores(rel_logits)
@@ -36,7 +40,8 @@ def postprocess_relations(rel_logits: torch.Tensor, obj_dists: torch.Tensor,
     return RelPrediction(
         pair_idx=take(pair_idx), rel_scores=take(rel_prob),
         rel_labels=take(rel_labels), pair_mask=take(pair_mask),
-        obj_labels=obj_labels, obj_scores=obj_scores)
+        obj_labels=obj_labels, obj_scores=obj_scores,
+        relness=None if relness is None else take(relness))
 
 
 def object_predictions(obj_dists: torch.Tensor):

@@ -2,8 +2,19 @@
 
 Frozen ResNeXt-FPN detector body, trainable depth ResNet-18, multi-level
 8x8 ROI pooling of the GT boxes (P2-P5) and of the depth map (1/16), and
-the VETO relation predictor.  The mode sets the object labels and logits
-the predictor sees:
+the VETO relation predictor.
+
+The detector body may instead be the legacy single-scale VGG-16
+(``backbone_type="VGG-16"``, ``backbone/vgg.py``): one 512-channel map at
+1/16, which the JAX tool pairs with the non-FPN geometry that
+:func:`build_model` derives as it does (every anchor size on the one
+stride-16 grid, so ``len(ratios) * len(sizes)`` anchors a position; one
+pooler scale, 1/16, so every box pools from that map, one B3 launch as
+on P2-P5).  Every width that reads the FPN's channels reads the body's
+512 then: the RPN conv, the box head's fc6, the VETO trunk's RGB
+projections, the legacy heads' box and union MLPs.
+
+The mode sets the object labels and logits the predictor sees:
 
   * ``predcls``: the GT labels, and ±1000 one-hot logits for the
     post-processor;
@@ -29,16 +40,20 @@ per-group logits ride in :class:`SGGForward`'s ``rel_logits`` slot, as in
 the JAX package.
 
 The legacy predictors (``predictor`` one of :data:`LEGACY_PORTED`: Motifs,
-VCTree, Transformer, TransLike; with ``meet_group_sizes`` their MEET
-heads) take the JAX package's legacy route through the model: no depth
-backbone; the boxes pooled 7x7 on P2-P5 into a trainable copy of the box
-MLP (``rel_box_extractor``, ``context_pooling_dim`` wide), the pairs'
-union boxes pooled 7x7 into the union features (``union_extractor``), so
-two B3 launches a forward (three in SGCls, with the box head's own pool);
+VCTree, Transformer, TransLike, with ``meet_group_sizes`` their MEET
+heads; IMP, BGNN, GPSNet, MSDN, BGNN and MSDN with the
+relation-confidence pre-classifier under ``bgnn_rel_aware``) take the JAX
+package's legacy route through the model: no depth backbone; the boxes
+pooled 7x7 on P2-P5 into a trainable copy of the box MLP
+(``rel_box_extractor``, ``context_pooling_dim`` wide), the pairs' union
+boxes pooled 7x7 into the union features (``union_extractor``), so two B3
+launches a forward (three in SGCls, with the box head's own pool);
 the predictor gets the GT labels (teacher-forced by the Motifs decoder in
 training) and the proposals' logits, and refines the object labels
-itself.  :class:`SGGForward` then carries the predictor's refined
-``obj_dists`` and labels, and VCTree's ``binary_preds``.  Image sizes
+itself (IMP also embeds ``pred_labels``: in SGCls the box head's NMS
+labels, in SGDet the detections').  :class:`SGGForward` then carries the
+predictor's refined ``obj_dists`` and labels, VCTree's ``binary_preds``
+and the relness pre-classifier's ``relness_logits``.  Image sizes
 default to the padded input's, as in the JAX model; SGDet passes the
 true ones and the detections' ``boxes_per_cls``.  The other legacy names
 raise ``NotImplementedError`` (:func:`resolve_predictor`).
@@ -91,6 +106,8 @@ from ..ops.nms import obj_prediction_nms
 from ..ops.roi_align_windowed import multilevel_roi_align_batched
 from .backbone.depth_resnet import DepthResNet18
 from .backbone.resnet import ResNetFPNBackbone
+from .backbone.vgg import OUT_CHANNELS as VGG_CHANNELS
+from .backbone.vgg import VGG16Body
 from .detector.attribute_head import AttributePredictor
 from .detector.box_head import (
     BoxFeatureExtractor, BoxPredictor, Detections, box_postprocess,
@@ -101,7 +118,9 @@ from .detector.mask_head import MaskFeatureExtractor, MaskPredictor
 from .detector.rpn import (
     Proposals, RPNHead, flatten_level, level_anchors, rpn_select_proposals,
 )
+from .relation.legacy import MEET_CAPABLE, REL_AWARE
 from .relation.legacy import PREDICTORS as LEGACY_PORTED
+from .relation.legacy.bgnn import SCALING_WEIGHT
 from .relation.predictor_meet import MeetPredictor
 from .relation.predictor_veto import VetoPredictor
 from .relation.union_features import UnionFeatureExtractor
@@ -114,12 +133,8 @@ LEGACY_PREDICTORS = ("TransformerPredictor", "TransLikePredictor", "IMPPredictor
                      "GPSNetPredictor", "MSDNPredictor", "CausalAnalysisPredictor",
                      "KERNPredictor", "NaivePredictor", "RelatednessTestPredictor",
                      "AGRCNNPredictor")
-_IMP_BGNN = ("the next slice (IMP and the BGNN family, with "
-             "PairwiseFeatureExtractor and rel_proposal)")
 _KERN_ETC = "the slice of KERN, AGRCNN, Naive and RelatednessTest"
 _LEGACY_TO_COME = {
-    "IMPPredictor": _IMP_BGNN, "BGNNPredictor": _IMP_BGNN,
-    "GPSNetPredictor": _IMP_BGNN, "MSDNPredictor": _IMP_BGNN,
     "CausalAnalysisPredictor": "the CausalPredictor slice "
                                "(LSTMContext.effect_analysis)",
     "KERNPredictor": _KERN_ETC, "AGRCNNPredictor": _KERN_ETC,
@@ -144,6 +159,9 @@ class SGGForward(NamedTuple):
     binary_preds: Optional[torch.Tensor] = None
     # VCTree: the forest its contexts ran on, else None
     forest: Optional[object] = None
+    # (B, P, C) f32 relness pre-classifier logits (BGNN / MSDN with
+    # rel_aware), else None
+    relness_logits: Optional[torch.Tensor] = None
 
 
 class DetectOutput(NamedTuple):
@@ -185,7 +203,8 @@ class SGGModel(nn.Module):
                  keypoint_conv_layers: Sequence[int] = (512,) * 8,
                  keypoint_pooler_resolution: int = 14,
                  predictor: str = "VETOPredictor", context_hidden_dim: int = 512,
-                 context_pooling_dim: int = 4096):
+                 context_pooling_dim: int = 4096, backbone_type: str = "R-101-FPN",
+                 bgnn_rel_aware: bool = False, bgnn_mp_valid_pairs: int = 200):
         super().__init__()
         check_mode(mode)
         if resolve_predictor(predictor) != predictor:
@@ -194,7 +213,7 @@ class SGGModel(nn.Module):
         self.mode = mode
         self.predictor = predictor
         self.legacy = predictor in LEGACY_PORTED
-        self.num_obj_classes = num_obj_classes
+        self.num_obj_classes, self.num_rel_classes = num_obj_classes, num_rel_classes
         self.anchor_sizes = tuple(anchor_sizes)
         self.anchor_strides = tuple(anchor_strides)
         self.aspect_ratios = tuple(aspect_ratios)
@@ -214,20 +233,28 @@ class SGGModel(nn.Module):
         self.pooler_scales = tuple(pooler_scales)
         self.pooler_sampling_ratio = pooler_sampling_ratio
         self.depth_scale = depth_scale
-        self.backbone = ResNetFPNBackbone(stage_blocks, groups, width_per_group,
-                                          fpn_channels, fold_bn, stride_in_1x1,
-                                          dtype)
+        if backbone_type == "VGG-16":
+            self.backbone = VGG16Body(dtype)
+            channels = VGG_CHANNELS  # the single level's
+        else:
+            self.backbone = ResNetFPNBackbone(stage_blocks, groups, width_per_group,
+                                              fpn_channels, fold_bn, stride_in_1x1,
+                                              dtype)
+            channels = fpn_channels
         if not self.legacy:  # the legacy route reads no depth
             self.depth_backbone = DepthResNet18(dtype)
         self.frozen = [self.backbone]
         if mode == "sgdet" or train_detector:
-            # one size a level, so len(ratios) anchors a position
-            self.rpn = RPNHead(fpn_channels, 256, len(self.aspect_ratios))
+            # FPN: one size a level, so len(ratios) anchors a position; a
+            # single level takes every size: len(ratios) * len(sizes)
+            sz = self.anchor_sizes[0]
+            sizes = len(sz) if isinstance(sz, (tuple, list)) else 1
+            self.rpn = RPNHead(channels, 256, len(self.aspect_ratios) * sizes)
             self.frozen.append(self.rpn)
         box_head = mode in ("sgcls", "sgdet") or train_detector
         if box_head or attribute_on:  # the attribute head reads fc7
             self.box_extractor = BoxFeatureExtractor(
-                box_pooler_resolution ** 2 * fpn_channels, box_mlp_dim, dtype)
+                box_pooler_resolution ** 2 * channels, box_mlp_dim, dtype)
             self.frozen.append(self.box_extractor)
         if box_head:
             self.box_predictor = BoxPredictor(box_mlp_dim, num_obj_classes)
@@ -240,13 +267,13 @@ class SGGModel(nn.Module):
         if mask_on:
             self.mask_pooler_resolution = mask_pooler_resolution
             self.mask_extractor = MaskFeatureExtractor(
-                fpn_channels, mask_conv_layers, dtype=dtype)
+                channels, mask_conv_layers, dtype=dtype)
             self.mask_predictor = MaskPredictor(
                 mask_conv_layers[-1], num_obj_classes, mask_conv_layers[-1], dtype)
         if keypoint_on:
             self.keypoint_pooler_resolution = keypoint_pooler_resolution
             self.keypoint_extractor = KeypointFeatureExtractor(
-                fpn_channels, keypoint_conv_layers, dtype)
+                channels, keypoint_conv_layers, dtype)
             self.keypoint_predictor = KeypointPredictor(
                 keypoint_conv_layers[-1], num_keypoints, dtype)
         if train_detector:
@@ -255,21 +282,27 @@ class SGGModel(nn.Module):
                      heads=veto_heads, patch_size=veto_patch_size,
                      depth_proj_dim=veto_depth_proj_dim,
                      visual_proj_dim=veto_visual_proj_dim,
-                     rgb_channels=fpn_channels, depth_channels=256, dtype=dtype,
+                     rgb_channels=channels, depth_channels=256, dtype=dtype,
                      encoder_impl=veto_encoder_impl, mode=mode)
         if self.legacy:
-            meet = ({} if meet_group_sizes is None else
-                    dict(meet_group_sizes=meet_group_sizes, meet_experts=meet_experts))
+            extra = {}
+            if meet_group_sizes is not None:
+                if predictor not in MEET_CAPABLE:
+                    raise ValueError(f"predictor {predictor!r} has no MEET heads (in "
+                                     f"either package): those of {MEET_CAPABLE} do")
+                extra = dict(meet_group_sizes=meet_group_sizes, meet_experts=meet_experts)
+            if predictor in REL_AWARE:
+                extra = dict(rel_aware=bgnn_rel_aware, mp_valid_pairs=bgnn_mp_valid_pairs)
             self.relation = LEGACY_PORTED[predictor](
                 num_obj_classes=num_obj_classes, num_rel_classes=num_rel_classes,
                 hidden_dim=context_hidden_dim, pooling_dim=context_pooling_dim,
-                in_channels=context_pooling_dim, mode=mode, dtype=dtype, **meet)
+                in_channels=context_pooling_dim, mode=mode, dtype=dtype, **extra)
             # the trainable relation copy of the box MLP, and the union features
             self.rel_box_extractor = BoxFeatureExtractor(
-                box_pooler_resolution ** 2 * fpn_channels, context_pooling_dim, dtype)
+                box_pooler_resolution ** 2 * channels, context_pooling_dim, dtype)
             self.union_extractor = UnionFeatureExtractor(
                 box_pooler_resolution, self.pooler_scales, pooler_sampling_ratio,
-                context_pooling_dim, fpn_channels, dtype)
+                context_pooling_dim, channels, dtype)
         elif meet_group_sizes is not None:
             self.relation = MeetPredictor(meet_group_sizes, meet_experts,
                                           num_obj_classes, **trunk)
@@ -286,14 +319,16 @@ class SGGModel(nn.Module):
         return self
 
     def extract_features(self, images: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-        """Frozen FPN pyramid (P2..P6), NHWC, outside autograd."""
+        """Frozen FPN pyramid (P2..P6), NHWC, outside autograd (VGG-16: its
+        one 1/16 map)."""
         with torch.no_grad():
             return self.backbone(images)
 
     def _pool_boxes(self, feats, boxes: torch.Tensor,
                     resolution: int) -> torch.Tensor:
         """Multi-level P x P pooling of the boxes on P2-P5 (one B3 launch
-        on the card)."""
+        on the card); with one pooler scale (VGG-16) every box pools from
+        the one map, as the JAX model's single-level ``roi_align``."""
         levels = [f.contiguous() for f in feats[: len(self.pooler_scales)]]
         return multilevel_roi_align_batched(
             levels, boxes, self.pooler_scales, resolution,
@@ -434,13 +469,15 @@ class SGGModel(nn.Module):
 
     def relate(self, feats, depth, boxes, box_mask, obj_labels, pair_idx,
                obj_logits=None, image_sizes=None, boxes_per_cls=None, gumbel=None,
-               forest=None):
+               forest=None, pair_mask=None, pred_labels=None):
         """The relation head over (B, N) boxes and (B, P) pairs.  The legacy
         predictors also take the (B, 2) = (w, h) ``image_sizes`` (default:
         the padded input's, from ``depth``), SGDet's ``boxes_per_cls``,
-        VCTree's training decoder's ``gumbel`` noise (B, N, C - 1) and a
+        VCTree's training decoder's ``gumbel`` noise (B, N, C - 1), a
         ``forest`` for VCTree to run on in place of the one it would build
-        (its output's ``forest``); VETO's read none of these."""
+        (its output's ``forest``), the message-passing predictors'
+        ``pair_mask`` (B, P) (all pairs when None) and IMP's ``pred_labels``
+        (``obj_labels`` when None); VETO's read none of these."""
         if self.legacy:
             if image_sizes is None:
                 h, w = depth.shape[1:3]
@@ -452,7 +489,8 @@ class SGGModel(nn.Module):
             union = self.union_extractor(feats, boxes, pair_idx, image_sizes)
             return self.relation(boxes, box_mask, obj_labels, obj_logits, pair_idx,
                                  roi_vec, union, image_sizes, boxes_per_cls,
-                                 gumbel=gumbel, forest=forest)
+                                 gumbel=gumbel, forest=forest, pair_mask=pair_mask,
+                                 pred_labels=pred_labels)
         depth_feat = self.depth_backbone(depth).contiguous()
         roi_feats = self._pool_boxes(feats, boxes, self.pooler_resolution)
         depth_roi = multilevel_roi_align_batched(
@@ -463,10 +501,11 @@ class SGGModel(nn.Module):
 
     def forward(self, images, depth, boxes, box_mask, obj_labels, obj_logits,
                 pair_idx, pair_mask, gumbel=None, forest=None) -> SGGForward:
-        """The JAX ``SGGModel.__call__`` signature; ``obj_logits`` and
-        ``pair_mask`` are unused here (padded pairs are masked later, in
-        post-processing).  ``gumbel`` and ``forest``: VCTree's training
-        decoder noise and the forest to run on (see :meth:`relate`)."""
+        """The JAX ``SGGModel.__call__`` signature; ``obj_logits`` is unused,
+        and ``pair_mask`` is read by the message-passing legacy predictors
+        only (VETO's padded pairs are masked later, in post-processing).
+        ``gumbel`` and ``forest``: VCTree's training decoder noise and the
+        forest to run on (see :meth:`relate`)."""
         feats = self.extract_features(images)
         if self.mode == "sgcls":
             predict_logits = self._box_logits(feats, boxes)
@@ -481,12 +520,14 @@ class SGGModel(nn.Module):
         if self.legacy:
             # the legacy contexts embed the GT labels (and refine their own)
             out = self.relate(feats, depth, boxes, box_mask, obj_labels, pair_idx,
-                              predict_logits, gumbel=gumbel, forest=forest)
+                              predict_logits, gumbel=gumbel, forest=forest,
+                              pair_mask=pair_mask, pred_labels=pred_labels)
             return SGGForward(rel_logits=out.rel_logits, obj_dists=out.obj_dists,
                               pred_labels=out.obj_preds,
                               predict_logits=predict_logits,
                               attribute_logits=att_logits,
-                              binary_preds=out.binary_preds, forest=out.forest)
+                              binary_preds=out.binary_preds, forest=out.forest,
+                              relness_logits=out.relness_logits)
         out = self.relate(feats, depth, boxes, box_mask, pred_labels, pair_idx,
                           predict_logits)
         return SGGForward(rel_logits=out.rel_logits, obj_dists=out.obj_dists,
@@ -499,7 +540,7 @@ def resolve_predictor(name: str) -> str:
     resolves it: a ``*_MEET`` name selects its base (the ensemble heads
     come with ``ensemble.enabled``, not with the name), and
     ``TransLike_MEET`` is ``TransLikePredictor``.  The port has VETO's and
-    the four legacy predictors that take MEET heads; another legacy name
+    the legacy predictors of :data:`LEGACY_PORTED`; another legacy name
     raises ``NotImplementedError`` naming the slice that brings it, an
     unknown one ``ValueError``."""
     base = name[: -len("_MEET")] if name.endswith("_MEET") else name
@@ -510,7 +551,7 @@ def resolve_predictor(name: str) -> str:
     if base in _LEGACY_TO_COME:
         raise NotImplementedError(
             f"predictor {name!r}: the port has VETOPredictor and "
-            f"{', '.join(LEGACY_PORTED)} (with their MEET heads); {base} comes "
+            f"{', '.join(LEGACY_PORTED)}; {base} comes "
             f"with {_LEGACY_TO_COME[base]}, ROADMAP queue A14")
     raise ValueError(f"predictor {name!r}: no such relation predictor (the JAX "
                      f"model's: VETOPredictor, {', '.join(LEGACY_PREDICTORS)})")
@@ -525,17 +566,23 @@ def build_model(cfg, device=None, seed: int = None,
     know).  With ``ensemble.enabled`` the relation head is MEET's
     (:func:`~..tools.relation_train_net.build_meet_config`);
     ``train_detector`` builds it for detector pretraining (see the module
-    docstring)."""
+    docstring).  ``model.backbone=VGG-16`` takes the JAX tool's non-FPN
+    geometry (``tools/relation_train_net.py``): the config's anchor sizes as
+    one level's, stride 16, pooler scale 1/16.  ``relation.rel_aware`` and
+    ``relation.mp_valid_pairs`` configure BGNN's and MSDN's relation
+    confidence."""
     from ..tools.relation_train_net import build_meet_config
 
     dev = resolve_device(device)
     check_mode(cfg.relation.mode)
     predictor = resolve_predictor(cfg.relation.predictor)
     meet = build_meet_config(cfg)
-    if not cfg.model.backbone.endswith("-FPN") or any(cfg.model.stage_with_dcn):
+    vgg = cfg.model.backbone == "VGG-16"
+    if not (vgg or cfg.model.backbone.endswith("-FPN")) or any(cfg.model.stage_with_dcn):
         raise NotImplementedError(
-            f"backbone {cfg.model.backbone!r}: this slice ports the ResNet-FPN "
-            "bodies without deformable convs")
+            f"backbone {cfg.model.backbone!r} with stage_with_dcn "
+            f"{cfg.model.stage_with_dcn}: the port has the ResNet-FPN bodies and "
+            "VGG-16, without deformable convs (ROADMAP queue A14 item 10)")
     m = cfg.model
     model = SGGModel(
         num_obj_classes=cfg.model.num_obj_classes,
@@ -544,7 +591,7 @@ def build_model(cfg, device=None, seed: int = None,
         width_per_group=cfg.model.resnet_width_per_group,
         fpn_channels=cfg.model.fpn_channels,
         pooler_resolution=cfg.relation.pooler_resolution,
-        pooler_scales=cfg.relation.pooler_scales,
+        pooler_scales=(0.0625,) if vgg else cfg.relation.pooler_scales,
         pooler_sampling_ratio=cfg.relation.pooler_sampling_ratio,
         veto_dim=cfg.veto.t_input_dim, veto_layers=cfg.veto.enc_layers,
         veto_heads=cfg.veto.nheads, veto_patch_size=cfg.veto.patch_size,
@@ -558,8 +605,8 @@ def build_model(cfg, device=None, seed: int = None,
         # the RPN and box-head budgets as the JAX tool builds the model
         # (tools/relation_train_net.py:260-272): the test budgets in
         # training too, the fpn post-NMS budget = the post-NMS one
-        anchor_sizes=cfg.model.anchor_sizes,
-        anchor_strides=cfg.model.anchor_strides,
+        anchor_sizes=(tuple(m.anchor_sizes),) if vgg else m.anchor_sizes,
+        anchor_strides=(16,) if vgg else m.anchor_strides,
         aspect_ratios=cfg.model.aspect_ratios,
         rpn_pre_nms_top_n=cfg.model.rpn_pre_nms_top_n_test,
         rpn_post_nms_top_n=cfg.model.rpn_post_nms_top_n_test,
@@ -581,6 +628,9 @@ def build_model(cfg, device=None, seed: int = None,
         predictor=predictor,
         context_hidden_dim=cfg.relation.context_hidden_dim,
         context_pooling_dim=cfg.relation.context_pooling_dim,
+        backbone_type="VGG-16" if vgg else "R-101-FPN",
+        bgnn_rel_aware=cfg.relation.rel_aware,
+        bgnn_mp_valid_pairs=cfg.relation.mp_valid_pairs,
     ).to(dev)
     init_weights(model, cfg.solver.seed if seed is None else seed)
     return model.eval()
@@ -594,8 +644,9 @@ def init_weights(model: nn.Module, seed: int) -> None:
     MEET's ``rel_out_e{e}_g{k}``), the box
     predictor's N(0, 0.01^2) ``cls_score`` and N(0, 0.001^2) ``bbox_pred``,
     the legacy heads' explicit (in, out) matrices (``*_w``, ``bi_freq_prior``)
-    LeCun-normal over their first axis, their class embeddings N(0, 1) and
-    the frequency bias zero, as the JAX model builds it,
+    LeCun-normal over their first axis, their class embeddings N(0, 1), the
+    frequency bias zero and BGNN's ``relness_alpha`` 2.5, as the JAX model
+    builds it,
     the RPN head's N(0, 0.01^2) convolutions and the attribute head's
     N(0, 0.01^2) ``att_score`` (flax's ``normal`` initializers), the mask
     and keypoint heads' kernels He-normal over their fan-out, truncated at
@@ -624,8 +675,11 @@ def init_weights(model: nn.Module, seed: int) -> None:
             std = math.sqrt(2.0 / (out_ch * p.shape[2] * p.shape[3])) / .87962566103423978
             nn.init.trunc_normal_(p, 0.0, 1.0, -2.0, 2.0, generator=gen).mul_(std)
         elif leaf in ("cls_token", "pos_embedding", "obj_embed") or name.endswith(
-                ("obj_embed1.weight", "obj_embed2.weight")):
+                ("obj_embed1.weight", "obj_embed2.weight", "obj_sem_embed.weight",
+                 "obj_embed_on_prob_dist.weight", "obj_embed_on_pred_label.weight")):
             p.normal_(0.0, 1.0, generator=gen)
+        elif leaf == "relness_alpha":
+            p.fill_(SCALING_WEIGHT[0])
         elif leaf.endswith("_w") or leaf == "bi_freq_prior":
             # the legacy heads' explicit (in, out) matrices
             p.normal_(0.0, p.shape[0] ** -0.5, generator=gen)

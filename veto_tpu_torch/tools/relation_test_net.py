@@ -10,8 +10,10 @@ their ``gqa_`` twins) on the card (or the CPU when asked), restores the latest c
 ``output_dir/ckpt`` when there is one (else the weights stay the seeded
 random ones of ``solver.seed``), evaluates the split through the eval step
 and the SGG evaluator, prints R@K / mR@K (in SGDet also the detections'
-COCO bbox mAP) and writes ``eval_results.json`` to ``output_dir``.  The split is read from ``data.data_dir`` (VG or GQA-200
-files, through :class:`SGGLoader`); with ``data.data_dir`` empty it is the
+COCO bbox mAP) and writes ``eval_results.json`` and the summary's text,
+``evaluation_res.txt`` (as the JAX tool writes it), to ``output_dir``.
+The split is read from ``data.data_dir`` (VG or GQA-200 files, through
+:class:`SGGLoader`); with ``data.data_dir`` empty it is the
 synthetic corpus at the eval input shape: images of ``min_size_test`` x
 ``max_size_test`` rounded up to ``size_divisibility`` (800 x 1344 for
 Visual Genome), ``data.max_boxes`` objects at most.  Zero-shot recall uses
@@ -28,12 +30,17 @@ each pair competes in one ranking of the G·P candidates of an image (with
 ``VCTreePredictor``, ``TransformerPredictor`` and ``TransLikePredictor``
 (``relation.context_hidden_dim`` / ``context_pooling_dim`` wide), each with
 its MEET heads under ``ensemble.enabled`` (``*_MEET`` names, and
-``TransLike_MEET``, select the same base, as in the JAX tool).
+``TransLike_MEET``, select the same base, as in the JAX tool), and
+``IMPPredictor``, ``BGNNPredictor``, ``GPSNetPredictor`` and
+``MSDNPredictor`` (BGNN's relness, with ``relation.rel_aware``, rides in
+the PredCls / SGCls predictions).  ``configs/vgg_vg_predcls.yaml``
+evaluates VETO on the single-scale VGG-16 detector.
 
 Not yet ported (they raise ``NotImplementedError``, naming the slice that
-brings them): the other legacy predictors (IMP, the BGNN family, Causal,
-KERN, AGRCNN, Naive, RelatednessTest), stage-wise recall, multi-device
-evaluation.  The bbox-aug test-time
+brings them): the output keys ``test.save_plots``,
+``test.save_visual_info`` and ``global_buffer_on``, the other legacy
+predictors (Causal, KERN, AGRCNN, Naive, RelatednessTest), stage-wise
+recall, multi-device evaluation.  The bbox-aug test-time
 augmentation (``test.bbox_aug_*``, ``engine/bbox_aug.py``) serves the
 detector tools' evaluation (``detector_pretest_net``); this tool, like the
 JAX package's, does not run it.
@@ -116,8 +123,11 @@ def evaluate(cfg, device=None, max_batches: int = 0, log=print, model=None,
     from ..models.sgg import build_model
     from ..utils.checkpoint import CheckpointManager
     from .relation_train_net import (
-        batches_for, build_dataset, make_eval_fn, run_validation,
+        batches_for, build_dataset, make_eval_fn, refuse_unserved_outputs,
+        run_validation,
     )
+
+    refuse_unserved_outputs(cfg)
 
     if model is None:
         model = build_model(cfg, device)
@@ -146,7 +156,12 @@ def evaluate(cfg, device=None, max_batches: int = 0, log=print, model=None,
         agg["bbox"] = det = coco.aggregate()
         log(f"detection mAP {det['mAP']:.4f}  AP50 {det['AP50']:.4f}  "
             f"AP75 {det['AP75']:.4f}")
-    log(evaluator.summary_string())
+    summary = evaluator.summary_string()
+    log(summary)
+    # the summary as a text file, as the JAX tool writes it
+    os.makedirs(cfg.output_dir, exist_ok=True)
+    with open(os.path.join(cfg.output_dir, "evaluation_res.txt"), "w") as f:
+        f.write(summary + "\n")
     return agg, seconds
 
 

@@ -50,14 +50,20 @@ passes them: :func:`attribute_config`).
 ``relation.predictor`` also takes the legacy ``MotifPredictor``,
 ``VCTreePredictor``, ``TransformerPredictor`` and ``TransLikePredictor``,
 each with its MEET heads under ``ensemble.enabled`` (``*_MEET`` names, and
-``TransLike_MEET``, select the same base, as in the JAX tool); in SGCls
-and SGDet their refined object logits train on ``obj_loss``, and VCTree
-adds ``binary_loss``.
+``TransLike_MEET``, select the same base, as in the JAX tool), and
+``IMPPredictor``, ``BGNNPredictor``, ``GPSNetPredictor`` and
+``MSDNPredictor`` (BGNN and MSDN with ``relation.rel_aware`` and
+``relation.mp_valid_pairs``: the relness pre-classifier adds
+``pre_rel_classify_loss`` in PredCls and SGCls); in SGCls and SGDet their
+refined object logits train on ``obj_loss``, and VCTree adds
+``binary_loss``.  ``configs/vgg_vg_predcls.yaml`` (``model.backbone=
+VGG-16``) trains on the single-scale VGG-16 detector.
 
-Not yet ported (they raise ``NotImplementedError``): the other legacy
-predictors (IMP, the BGNN family, Causal, KERN, AGRCNN, Naive,
-RelatednessTest: their slices of A14), the other loss variants, Open
-Images data (A14), multi-device training.
+Not yet ported (they raise ``NotImplementedError``): the output keys
+``test.save_plots``, ``test.save_visual_info`` and ``global_buffer_on``
+(:data:`UNSERVED_OUTPUTS`), the other legacy predictors (Causal, KERN,
+AGRCNN, Naive, RelatednessTest: their slices of A14), the other loss
+variants, Open Images data (A14), multi-device training.
 """
 
 from __future__ import annotations
@@ -70,6 +76,29 @@ import time
 import numpy as np
 
 _CTRL_FIELDS = ("best", "bad_epochs", "cooldown_counter", "num_decays")
+# output keys the JAX tools serve and the port does not yet, with the slice
+# of ROADMAP queue A that brings each
+UNSERVED_OUTPUTS = (
+    ("test.save_plots", "the tools' other outputs (ROADMAP queue A14 item 9: "
+                        "utils/viz.py's frequency and recall plots)"),
+    ("test.save_visual_info", "the tools' other outputs (ROADMAP queue A14 "
+                              "item 9: the per-image visual_info dump)"),
+    ("global_buffer_on", "multi-device training (ROADMAP queue A12: "
+                         "utils/global_buffer.py and its rel-PN dump)"),
+)
+
+
+def refuse_unserved_outputs(cfg) -> None:
+    """Raise ``NotImplementedError`` for an output key of
+    :data:`UNSERVED_OUTPUTS` that the config sets, naming the slice that
+    serves it (both relation tools call this before any work)."""
+    for key, slice_ in UNSERVED_OUTPUTS:
+        node = cfg
+        for part in key.split("."):
+            node = getattr(node, part)
+        if node:
+            raise NotImplementedError(f"{key}: not served by the port yet; it "
+                                      f"comes with {slice_}")
 
 
 def synthetic_train_dataset(cfg, num_images: int = 64):
@@ -338,6 +367,7 @@ def train(cfg, device=None, log=print, model=None, datasets=None):
     datasets with the reader's interface (by default :func:`build_dataset`'s)."""
     import torch
 
+    refuse_unserved_outputs(cfg)
     from ..engine.batch import DeviceFeeder
     from ..engine.train import create_train_state, train_step
     from ..models.sgg import build_model

@@ -31,7 +31,16 @@ their explicit parameters (the decoders' and TreeLSTMs' ``*_w`` / ``*_b``,
 conversion is structural: a flax ``OptimizedLSTMCell`` (the keys ``ii``,
 ``if``, ``ig``, ``io`` without bias, ``hi``, ``hf``, ``hg``, ``ho`` with
 bias) becomes the port's stacked ``weight_ih`` (4H, D), ``weight_hh``
-(4H, H) and ``bias`` (4H), gate rows in (i, f, g, o) order.
+(4H, H) and ``bias`` (4H), gate rows in (i, f, g, o) order; a flax
+``GRUCell`` (``ir``, ``iz``, ``in`` with bias, ``hr``, ``hz`` without,
+``hn`` with) becomes ``torch.nn.GRUCell``'s ``weight_ih`` (3H, D),
+``weight_hh`` (3H, H) and ``bias_ih`` (3H), rows in (r, z, n) order, and
+``bias_hn`` (H), the n third of torch's ``bias_hh`` (the port's
+``legacy.predictors.GRUCell`` fixes its r and z thirds at 0).
+
+The VGG-16 body's ``conv{idx}`` kernels (HWIO → OIHW) keep their names,
+as do BGNN's ``relness_alpha`` and the LayerNorms and BatchNorm of the
+message-passing heads.
 
 A detector body in the unfolded layout (conv + ``FrozenBatchNorm``) loads
 into an unfolded port model as is, or is folded here (``kernel * scale``,
@@ -64,10 +73,27 @@ _LSTM_GATES = ("i", "f", "g", "o")
 _LSTM_KEYS = {f"{side}{g}" for side in "ih" for g in _LSTM_GATES}
 
 
+_GRU_GATES = ("r", "z", "n")
+_GRU_KEYS = {f"{side}{g}" for side in "ih" for g in _GRU_GATES}
+
+
+def gru_cell_params(tree: Mapping) -> Dict[str, np.ndarray]:
+    """A flax ``GRUCell`` subtree → the port's ``GRUCell`` parameters."""
+    k = {n: np.asarray(v["kernel"], np.float32) for n, v in tree.items()}
+    return {"weight_ih": np.concatenate([k[f"i{g}"] for g in _GRU_GATES], 1).T,
+            "weight_hh": np.concatenate([k[f"h{g}"] for g in _GRU_GATES], 1).T,
+            "bias_ih": np.concatenate([np.asarray(tree[f"i{g}"]["bias"], np.float32)
+                                       for g in _GRU_GATES]),
+            "bias_hn": np.asarray(tree["hn"]["bias"], np.float32)}
+
+
 def stack_lstm_cells(tree: Mapping) -> Dict:
     """``tree`` with every flax ``OptimizedLSTMCell`` subtree replaced by
     the stacked ``weight_ih`` / ``weight_hh`` / ``bias`` of the port's
-    ``LSTMDirection``."""
+    ``LSTMDirection``, and every flax ``GRUCell`` subtree by the port's
+    ``GRUCell`` parameters (:func:`gru_cell_params`)."""
+    if set(tree) == _GRU_KEYS:
+        return gru_cell_params(tree)
     if set(tree) == _LSTM_KEYS:
         k = {n: np.asarray(v["kernel"], np.float32) for n, v in tree.items()}
         return {"weight_ih": np.concatenate([k[f"i{g}"] for g in _LSTM_GATES], 1).T,
@@ -128,7 +154,7 @@ def flax_to_state_dict(variables: Mapping,
 def load_flax_variables(model: torch.nn.Module, variables: Mapping) -> None:
     """Load a flax variables tree into ``model`` (strict, apart from torch's
     ``num_batches_tracked`` counters, which flax does not keep)."""
-    fold = getattr(model.backbone.body, "fold_bn", False)
+    fold = getattr(getattr(model.backbone, "body", None), "fold_bn", False)
     sd = flax_to_state_dict(variables, fold_bn=fold)
     missing, unexpected = model.load_state_dict(sd, strict=False)
     missing = [k for k in missing if not k.endswith("num_batches_tracked")]

@@ -204,15 +204,16 @@ def import_detector_weights(model, ckpt_path: str, log=None,
     to a file of the local cache; ``*.pkl`` is a caffe2/Detectron pickle;
     anything else a torch checkpoint.  ``fold_bn`` targets a model built
     with ``model.fold_bn``.  fc6 is permuted for the width of the model's
-    FPN.  Returns :func:`apply_updates`' (loaded, skipped)."""
+    FPN (VGG-16's map: 512).  Returns :func:`apply_updates`' (loaded, skipped)."""
     if ckpt_path.startswith("catalog://"):
         ckpt_path = resolve_catalog(ckpt_path)
     if ckpt_path.endswith(".pkl"):
         sd = load_c2_state_dict(ckpt_path)
     else:
         sd = load_torch_state_dict(ckpt_path)
+    fpn = getattr(model.backbone, "fpn", None)  # VGG-16 has one 512-channel map
     updates = detector_state_updates(
-        sd, model.backbone.fpn.fpn_layer1.out_channels)
+        sd, fpn.fpn_layer1.out_channels if fpn is not None else 512)
     if fold_bn:
         updates = fold_detector_updates(updates)
     return apply_updates(model, updates, log)
