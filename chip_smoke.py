@@ -235,9 +235,12 @@ catches its own failure:
     BGNN with ``relation.rel_aware=true``, GPSNet and MSDN on the frozen
     R-101 body (``context_hidden_dim`` 512, ``context_pooling_dim`` 4096,
     bf16): each one PredCls eval batch (B3 2) with its logits against the
-    plain versions (BGNN's on the plain run's message filter, after
-    counting the pairs the two runs' filters tell apart) and its busy
-    share, one train step (B3 2), and one step's f32 gradients against the
+    plain versions (BGNN: its relness logits too; each run's message
+    filter recomputed from the scores it saw; the pairs the two runs'
+    filters tell apart counted and each held within the runs' score
+    difference of the threshold; the relation logits on the plain run's
+    filter) and its busy share, one train step (B3 2), and one step's f32
+    gradients against the
     plain versions with two kernel runs bit-equal (cuDNN in its
     deterministic mode); IMP and BGNN also one SGCls (B3 3) and one SGDet
     (B3 3, N1 2 + 2) eval batch and train step.  The phase prints its
@@ -530,9 +533,6 @@ def roi_tap_bytes(feats, rois, levels, scales, p=8, s=2) -> int:
     return total
 
 
-VGG_POOL = {}  # B3 on VGG-16's 512-channel level (phase 3), for phase 20's numbers
-
-
 def phase_roi_align(gen, b=8, h=800, w=1344, c=256):
     from veto_tpu_torch.ops import roi_align_windowed as rw
 
@@ -698,7 +698,8 @@ def phase_main_path(opts=(), n_batches=3, encoder="fused_encoder_layer",
     """The eval entry point's ``evaluate`` over ``n_batches`` full-width
     batches; per batch exactly ``layers`` launches of the ``encoder``
     kernel, 2 of ROIAlign (3 in SGCls) and none of any other kernel.
-    Returns the model, the config and the ms per batch after warm-up."""
+    Returns the model, the config, the ms per batch after warm-up and the
+    launches counted."""
     from veto_tpu_torch.config import load_config
     from veto_tpu_torch.models.sgg import build_model
     from veto_tpu_torch.tools.relation_test_net import (
@@ -741,7 +742,7 @@ def phase_main_path(opts=(), n_batches=3, encoder="fused_encoder_layer",
     bsz = cfg.test.ims_per_batch
     batch, _ = next(synthetic_eval_dataset(cfg, bsz).batches(bsz, cfg.data.max_boxes))
     check_eval_batch(model, cfg, batch.to(DEVICE))
-    return model, cfg, ms
+    return model, cfg, ms, launches
 
 
 @contextlib.contextmanager
@@ -1494,6 +1495,15 @@ def read_counters(reset=False):
 def expected(**launches):
     """Launch counts of every kernel: the given ones, 0 for the rest."""
     return {name: launches.get(name, 0) for name in COUNTERS}
+
+
+def add_launches(total, *counts):
+    """Adds each of ``counts`` (launches by kernel, as read) into ``total``;
+    returns ``total``."""
+    for c in counts:
+        for k, v in c.items():
+            total[k] = total.get(k, 0) + v
+    return total
 
 
 LAST_TRAIN = {}  # the main path's training run: from-memory step times
@@ -2454,7 +2464,7 @@ def phase_sgcls():
     # 8 images a batch, the main path's eval batch (the SGCls configs leave
     # test.ims_per_batch at its default 1)
     eval8 = ("test.ims_per_batch=8",)
-    model, cfg, eval_ms = phase_main_path(eval8, config=SGCLS)
+    model, cfg, eval_ms, _ = phase_main_path(eval8, config=SGCLS)
     bsz, n = cfg.test.ims_per_batch, cfg.data.max_boxes
     batch, _ = next(synthetic_eval_dataset(cfg, bsz).batches(bsz, n))
     b = batch.to(DEVICE)
@@ -2820,7 +2830,8 @@ def sgdet_eval_model(config, opts=()):
 def counted_evaluate(model, cfg, n_batches, what, per_batch):
     """``relation_test_net.evaluate`` over ``n_batches`` batches with the
     launch counts read at every batch, each held to ``per_batch``; returns
-    ms per batch after warm-up, the peak memory and the aggregate."""
+    ms per batch after warm-up, the peak memory, the aggregate and the
+    launches counted over the batches."""
     from veto_tpu_torch.tools.relation_test_net import evaluate
 
     counts = []
@@ -2845,14 +2856,14 @@ def counted_evaluate(model, cfg, n_batches, what, per_batch):
     for m in ("R", "mR"):
         if not all(np.isfinite(v) and 0 <= v <= 100 for v in agg[m].values()):
             raise AssertionError(f"{m}@K out of range: {agg[m]}")
-    return ms, peak, agg
+    return ms, peak, agg, add_launches({}, *counts)
 
 
 def sgdet_evaluate(model, cfg, n_batches, what):
     """:func:`counted_evaluate` at SGDet's launches a batch; returns ms per
     batch after warm-up and the peak memory."""
-    ms, peak, _ = counted_evaluate(model, cfg, n_batches, what,
-                                   expected(**sgdet_launches(cfg)))
+    ms, peak, _, _ = counted_evaluate(model, cfg, n_batches, what,
+                                      expected(**sgdet_launches(cfg)))
     return ms, peak
 
 
@@ -3277,8 +3288,8 @@ def phase_meet():
     model, cfg, meet = meet_model(MEET)
     per_batch = expected(fused_encoder_layer=cfg.veto.enc_layers,
                          multilevel_roi_align=2)
-    eval_ms, eval_peak, _ = counted_evaluate(model, cfg, 2, "MEET PredCls eval",
-                                             per_batch)
+    eval_ms, eval_peak, _, _ = counted_evaluate(model, cfg, 2, "MEET PredCls eval",
+                                                per_batch)
     bsz = cfg.test.ims_per_batch
     batch, recs = next(synthetic_eval_dataset(cfg, bsz).batches(bsz, cfg.data.max_boxes))
     b = batch.to(DEVICE)
@@ -3303,7 +3314,7 @@ def phase_meet():
         cfg_v = load_config(os.path.join(ROOT, "configs", MEET),
                             [*MEET_OPTS, "ensemble.expert_group=true",
                              f"ensemble.voting={voting}"])
-        voting_ms[voting], _, _ = counted_evaluate(
+        voting_ms[voting], _, _, _ = counted_evaluate(
             model, cfg_v, 1, f"MEET PredCls 3 experts, voting {voting}", per_batch)
         check_meet_post(build_meet_config(cfg_v), glogits, predict_logits, pi, pm,
                         b, recs, cfg_v, f"MEET voting {voting}")
@@ -4011,7 +4022,6 @@ def phase_heads():
 LEGACY = ("MotifPredictor", "VCTreePredictor", "TransformerPredictor",
           "TransLikePredictor")
 LEGACY_STEPS = 2  # PredCls train steps a predictor
-LEGACY_B3 = {"total": 0}  # B3 launches on the legacy paths' counted runs
 
 
 def legacy_cfg(config, predictor, opts=()):
@@ -4079,10 +4089,9 @@ def check_legacy_logits(model, cfg, b, what):
 
 def legacy_evaluate(model, cfg, what, per_batch):
     """One eval batch of 8 through ``relation_test_net.evaluate`` at exact
-    launches; returns its ms and peak memory."""
-    ms, peak, _ = counted_evaluate(model, cfg, 1, what, per_batch)
-    LEGACY_B3["total"] += per_batch["multilevel_roi_align"]
-    return ms, peak
+    launches; returns its ms, peak memory and launches counted."""
+    ms, peak, _, counted = counted_evaluate(model, cfg, 1, what, per_batch)
+    return ms, peak, counted
 
 
 def legacy_train(model, cfg, per_step, what, steps, datasets=None, idle=()):
@@ -4091,7 +4100,7 @@ def legacy_train(model, cfg, per_step, what, steps, datasets=None, idle=()):
     every trainable tensor changed (but those under the ``idle`` prefixes,
     which no loss of the step reaches), the frozen detector bit-unchanged,
     every trainable BatchNorm's statistics updated.  Returns the state, ms
-    a step (the last) and the peak memory."""
+    a step (the last), the peak memory and the launches counted."""
     from veto_tpu_torch.tools.relation_train_net import train
 
     cfg = cfg.override("solver.max_iter", steps)
@@ -4119,7 +4128,6 @@ def legacy_train(model, cfg, per_step, what, steps, datasets=None, idle=()):
     peak = torch.cuda.max_memory_allocated()
     if counts != [per_step] * steps:
         raise AssertionError(f"{what}: launches {counts}, want {per_step} a step")
-    LEGACY_B3["total"] += per_step["multilevel_roi_align"] * steps
     keys = [k for k in history[-1] if k.endswith("loss")] + ["grad_norm"]
     if not all(np.isfinite(r[k]) for r in history for k in keys):
         raise AssertionError(f"{what}: non-finite losses: {history}")
@@ -4140,7 +4148,7 @@ def legacy_train(model, cfg, per_step, what, steps, datasets=None, idle=()):
           f"peak memory {peak / 2 ** 30:.2f} GiB; {len(before)} trainable tensors "
           f"changed, {len(stats0)} BatchNorm statistics updated, {len(frozen)} "
           "detector tensors bit-unchanged")
-    return state, ms, peak
+    return state, ms, peak, add_launches({}, *counts)
 
 
 def legacy_context_ms(model, cfg, b):
@@ -4175,23 +4183,28 @@ def legacy_context_ms(model, cfg, b):
     return out
 
 
-def legacy_predcls(predictor, b, body, numbers):
+def legacy_predcls(predictor, b, body, numbers, launches):
     """One predictor in PredCls: an eval batch (B3 2: the box pool and the
     union pool; no other kernel), its logits through the kernels against the
     plain versions, the context's ms, the eval's busy share; then
     ``LEGACY_STEPS`` train steps (B3 2 a step, no B3-bwd: the body is frozen
     and no depth is read) and one step's gradients against the plain
-    versions (in f32: :func:`legacy_grads_f32`)."""
+    versions (in f32: :func:`legacy_grads_f32`).  The counted runs'
+    launches go into ``launches``."""
     cfg = legacy_cfg(PREDCLS, predictor)
     model, body = legacy_model(cfg, body)
     per = expected(multilevel_roi_align=2)
-    eval_ms, eval_peak = legacy_evaluate(model, cfg, f"{predictor} PredCls eval", per)
+    eval_ms, eval_peak, counted = legacy_evaluate(model, cfg,
+                                                  f"{predictor} PredCls eval", per)
+    add_launches(launches, counted)
     check_legacy_logits(model, cfg, b, f"{predictor} PredCls")
     fwd = lambda: eval_logits(model, cfg, b)  # noqa: E731
     wall, busy = cuda_ms(fwd, 2, 1), busy_ms(fwd, 2)
     ctx = legacy_context_ms(model, cfg, b)
-    state, train_ms, train_peak = legacy_train(model, cfg, per, f"{predictor} train",
-                                               LEGACY_STEPS)
+    state, train_ms, train_peak, counted = legacy_train(model, cfg, per,
+                                                        f"{predictor} train",
+                                                        LEGACY_STEPS)
+    add_launches(launches, counted)
     del state, model
     release()
     legacy_grads_f32(predictor)
@@ -4227,17 +4240,21 @@ def legacy_grads_f32(predictor):
     release()
 
 
-def legacy_other_modes(predictor, body, numbers):
+def legacy_other_modes(predictor, body, numbers, launches):
     """One predictor in SGCls (B3 3: the box head's pool too) and in SGDet
     (B3 3: the box head's pool of the proposals, then the box and union
     pools of the detections; N1 mask 2, scan 2: the RPN's and the
     per-class walks): one eval batch and one train step each (SGDet's on
-    GT taken from detections, as phase 15's)."""
+    GT taken from detections, as phase 15's).  The counted runs' launches
+    go into ``launches``."""
     cfg = legacy_cfg(SGCLS, predictor)
     model, body = legacy_model(cfg, body)
     per = expected(multilevel_roi_align=3)
-    eval_ms, eval_peak = legacy_evaluate(model, cfg, f"{predictor} SGCls eval", per)
-    _, train_ms, train_peak = legacy_train(model, cfg, per, f"{predictor} SGCls train", 1)
+    eval_ms, eval_peak, counted = legacy_evaluate(model, cfg,
+                                                  f"{predictor} SGCls eval", per)
+    _, train_ms, train_peak, counted_train = legacy_train(
+        model, cfg, per, f"{predictor} SGCls train", 1)
+    add_launches(launches, counted, counted_train)
     numbers[f"{predictor} sgcls"] = dict(eval_ms=eval_ms, train_ms=train_ms,
                                          eval_peak_gib=eval_peak / 2 ** 30,
                                          train_peak_gib=train_peak / 2 ** 30)
@@ -4252,10 +4269,12 @@ def legacy_other_modes(predictor, body, numbers):
     batch, _ = next(synthetic_eval_dataset(cfg, 8).batches(8, cfg.data.max_boxes))
     sigma = draw_cls_score(model, cfg, batch.to(DEVICE))
     per = expected(multilevel_roi_align=3, nms_mask=2, nms_scan=2)
-    eval_ms, eval_peak = legacy_evaluate(model, cfg, f"{predictor} SGDet eval", per)
+    eval_ms, eval_peak, counted = legacy_evaluate(model, cfg,
+                                                  f"{predictor} SGDet eval", per)
     datasets = (detected_gt_dataset(model, cfg), build_dataset(cfg, "val"))
-    _, train_ms, train_peak = legacy_train(model, cfg, per, f"{predictor} SGDet train",
-                                           1, datasets)
+    _, train_ms, train_peak, counted_train = legacy_train(
+        model, cfg, per, f"{predictor} SGDet train", 1, datasets)
+    add_launches(launches, counted, counted_train)
     numbers[f"{predictor} sgdet"] = dict(eval_ms=eval_ms, train_ms=train_ms,
                                          eval_peak_gib=eval_peak / 2 ** 30,
                                          train_peak_gib=train_peak / 2 ** 30,
@@ -4311,7 +4330,8 @@ def legacy_union_pool(b):
 
 def phase_legacy():
     """Phase 19: the legacy relation head at full width (see the module
-    docstring).  Returns its numbers."""
+    docstring).  Returns its numbers and the launches of its counted
+    runs."""
     from veto_tpu_torch.tools.relation_test_net import synthetic_eval_dataset
 
     print("[legacy] the legacy relation head at full width: Motifs, VCTree, "
@@ -4320,27 +4340,29 @@ def phase_legacy():
     cfg = legacy_cfg(PREDCLS, "MotifPredictor")
     batch, _ = next(synthetic_eval_dataset(cfg, 8).batches(8, cfg.data.max_boxes))
     b = batch.to(DEVICE)
-    numbers, body = {}, None
+    numbers, body, launches = {}, None, {}
     for predictor in LEGACY:
-        body = legacy_predcls(predictor, b, body, numbers)
+        body = legacy_predcls(predictor, b, body, numbers, launches)
     for predictor in LEGACY[:2]:
-        body = legacy_other_modes(predictor, body, numbers)
+        body = legacy_other_modes(predictor, body, numbers, launches)
 
     meet = ("ensemble.enabled=true",)
     cfg = legacy_cfg(PREDCLS, "MotifPredictor_MEET", meet)
     model, body = legacy_model(cfg, body)
     per = expected(multilevel_roi_align=2)
-    eval_ms, _ = legacy_evaluate(model, cfg, "MotifPredictor_MEET eval", per)
+    eval_ms, _, counted = legacy_evaluate(model, cfg, "MotifPredictor_MEET eval", per)
     check_legacy_logits(model, cfg, b, "MotifPredictor_MEET")
-    _, train_ms, _ = legacy_train(model, cfg, per, "MotifPredictor_MEET train", 1)
+    _, train_ms, _, counted_train = legacy_train(model, cfg, per,
+                                                 "MotifPredictor_MEET train", 1)
+    add_launches(launches, counted, counted_train)
     numbers["MotifPredictor_MEET"] = dict(eval_ms=eval_ms, train_ms=train_ms)
     del model
     release()
     numbers["union_pool"] = legacy_union_pool(b)
-    numbers["b3_launches"] = LEGACY_B3["total"]
+    numbers["launches"] = {k: v for k, v in launches.items() if v}
     release()
     print(f"[legacy numbers] {card()}: {json.dumps(numbers)}")
-    return numbers
+    return numbers, launches
 
 
 # ------------------------------------------------------------------ phase 20
@@ -4348,12 +4370,6 @@ VGG = "vgg_vg_predcls.yaml"
 # the message-passing predictors and the options each runs with
 ZOO = (("IMPPredictor", ()), ("BGNNPredictor", ("relation.rel_aware=true",)),
        ("GPSNetPredictor", ()), ("MSDNPredictor", ()))
-ZOO_LAUNCHES = {}  # launches of phase 20's counted runs, by kernel
-
-
-def count_zoo(launches, times=1):
-    for k, v in launches.items():
-        ZOO_LAUNCHES[k] = ZOO_LAUNCHES.get(k, 0) + v * times
 
 
 def vgg_level_pool(gen, b=8, h=800, w=1344, c=512):
@@ -4409,25 +4425,25 @@ def vgg_level_pool(gen, b=8, h=800, w=1344, c=512):
                 max_abs_err=max(errs))
 
 
-def zoo_vgg(gen, numbers):
+def zoo_vgg(numbers, launches, level_pool):
     """``configs/vgg_vg_predcls.yaml`` at full width: 2 eval batches of 8
     (B1 6, B3 2 a batch) with one batch's logits against the plain
     versions, 3 train steps of 12 (B1, B2a, B2b 6, B3 2, B3-bwd 1 a step)
     and one step's gradients against the plain versions, and one SGDet
     eval batch of the VGG detector whose proposals and detections through
-    N1 are bit-equal to the plain walk's (the 512-channel pools alone run
-    in phase 3: :func:`vgg_level_pool`)."""
+    N1 are bit-equal to the plain walk's.  The counted runs' launches go
+    into ``launches``; ``level_pool`` is phase 3's row of the 512-channel
+    pools alone (:func:`vgg_level_pool`)."""
     vgg = ("test.ims_per_batch=8",)
-    model, cfg, eval_ms = phase_main_path(vgg, n_batches=2, config=VGG)
-    count_zoo(expected(fused_encoder_layer=cfg.veto.enc_layers,
-                       multilevel_roi_align=2), 2)
+    model, cfg, eval_ms, counted = phase_main_path(vgg, n_batches=2, config=VGG)
+    add_launches(launches, counted)
     b = next(synthetic_eval_dataset_batches(cfg))
     fwd = lambda: eval_logits(model, cfg, b)  # noqa: E731
     wall, busy = cuda_ms(fwd, 2, 1), busy_ms(fwd, 2)
     del model
     release()
-    state, total = phase_train(3, vgg, what="VGG-16", config=VGG)
-    count_zoo(total)
+    state, counted = phase_train(3, vgg, what="VGG-16", config=VGG)
+    add_launches(launches, counted)
     phase_train_grads(state, vgg, what="VGG-16", config=VGG)
     train_ms, train_peak = TRAIN_MS["VGG-16"]
     del state
@@ -4436,8 +4452,9 @@ def zoo_vgg(gen, numbers):
     print(f"[zoo, VGG-16 SGDet] {VGG} {' '.join(sg)}: one eval batch of 8")
     model, cfg, b, sigma = sgdet_eval_model(VGG, sg)
     per = expected(**sgdet_launches(cfg))
-    sgdet_ms, sgdet_peak, _ = counted_evaluate(model, cfg, 1, "VGG-16 SGDet eval", per)
-    count_zoo(per)
+    sgdet_ms, sgdet_peak, _, counted = counted_evaluate(model, cfg, 1,
+                                                        "VGG-16 SGDet eval", per)
+    add_launches(launches, counted)
     nd, _ = sgdet_ladder(model, cfg, b)
     walk = vgg_rpn_walk(model, b)
     del model
@@ -4446,7 +4463,7 @@ def zoo_vgg(gen, numbers):
                              eval_busy_share=busy / wall, train_ms=train_ms,
                              train_peak_gib=train_peak / 2 ** 30, sgdet_eval_ms=sgdet_ms,
                              sgdet_peak_gib=sgdet_peak / 2 ** 30, cls_score_sigma=sigma,
-                             detections=nd, level_pool=dict(VGG_POOL), rpn_walk=walk)
+                             detections=nd, level_pool=level_pool, rpn_walk=walk)
 
 
 def vgg_rpn_walk(model, b):
@@ -4515,61 +4532,90 @@ def zoo_grads(predictor, opts):
 
 
 def check_zoo_logits(model, cfg, b, what):
-    """:func:`check_legacy_logits`; for BGNN / MSDN with ``rel_aware`` it
-    first reports how many pairs the two runs' message filters (the
-    threshold at the ``mp_valid_pairs``-th relness) tell apart, then
-    compares the logits with the plain run's filter given to both: the
-    threshold is a selection that a last-bit difference of a bf16 pooled
-    feature can flip, as VCTree's forest is."""
+    """:func:`check_legacy_logits`; for BGNN / MSDN with ``rel_aware`` the
+    relness pre-classifier's logits too, at the same tolerances, and each
+    run's message filter recomputed on the CPU from the scores it saw (the
+    ``>=`` threshold at the ``mp_valid_pairs``-th valid score of each
+    image, ties passing).  The two runs' filters may then differ only at
+    pairs whose score lies within the runs' score difference of the
+    threshold, a band that the relness logits' tolerance bounds (the
+    sigmoid's slope is at most 1/4); the relation logits are compared with
+    the plain run's filter given to both: the threshold is a selection that
+    a last-bit difference of a bf16 pooled feature can flip, as VCTree's
+    forest is."""
     from veto_tpu_torch.ops import cuda_lib
 
     head = model.relation
     if not getattr(head, "rel_aware", False):
         return check_legacy_logits(model, cfg, b, what)
-    ctx, seen = head.context_layer, {}
+    real, seen = head.message_pairs, {}
 
-    def run(key):
-        hook = ctx.register_forward_pre_hook(
-            lambda m, args: seen.__setitem__(key, args[3]))
+    def run(key, keep=None):
+        def message_pairs(scores, pair_mask):
+            out = real(scores, pair_mask) if keep is None else keep
+            seen[key] = (scores.double().cpu(), pair_mask.cpu(), out.cpu())
+            return out
+
+        head.message_pairs = message_pairs
         try:
-            return eval_forward(model, cfg, b).rel_logits
+            return eval_forward(model, cfg, b)
         finally:
-            hook.remove()
+            del head.message_pairs
 
-    run("kernels")
+    out = run("kernels")
     with cuda_lib.plain_kernels():
         ref = run("plain")
-    moved = int((seen["kernels"] != seen["plain"]).sum())
-    hook = ctx.register_forward_pre_hook(
-        lambda m, args: args[:3] + (seen["plain"],) + args[4:])
-    try:
-        got = eval_forward(model, cfg, b).rel_logits
-    finally:
-        hook.remove()
+    got = run("pinned", keep=seen["plain"][2].to(DEVICE)).rel_logits
+    g, r = out.relness_logits, ref.relness_logits
+    check_close(f"{what} relness logits", g, r, atol=0.05 * float(r.abs().max()),
+                rtol=0.0, mean_tol=0.01 * float(r.abs().mean()))
+    kth = {}
+    for key in ("kernels", "plain"):
+        scores, mask, keep = seen[key]
+        masked = torch.where(mask, scores, float("-inf"))
+        kth[key] = torch.topk(masked, min(head.mp_valid_pairs, mask.shape[1]),
+                              dim=-1).values[..., -1:]
+        if not torch.equal(keep, mask & (masked >= kth[key])):
+            raise AssertionError(f"{what}: the {key} run's message filter is not the "
+                                 "threshold at the k-th score")
+    (sk, mask, keep_k), (sp, _, keep_p) = seen["kernels"], seen["plain"]
+    moved = keep_k != keep_p
+    band = float((sk - sp).abs()[mask].max() + (kth["kernels"] - kth["plain"]).abs().max())
+    off = float((sp - kth["plain"]).abs()[moved].max()) if moved.any() else 0.0
     print(f"  {what}: kernels vs plain; the two runs' message filters differ at "
-          f"{moved} of {int(seen['plain'].sum())} passing pairs, the logits "
-          "compared on the plain run's filter")
-    check_close(f"{what} logits", got, ref, atol=0.05 * float(ref.abs().max()),
-                rtol=0.0, mean_tol=0.01 * float(ref.abs().mean()))
+          f"{int(moved.sum())} of {int(keep_p.sum())} passing pairs, each within "
+          f"{off:.3e} of the plain threshold (band {band:.3e}: the runs' largest "
+          "score and threshold differences); the logits compared on the plain "
+          "run's filter")
+    if off > band:
+        raise AssertionError(f"{what}: a filtered pair {off} from the threshold, "
+                             f"outside the band {band}")
+    check_close(f"{what} logits", got, ref.rel_logits,
+                atol=0.05 * float(ref.rel_logits.abs().max()), rtol=0.0,
+                mean_tol=0.01 * float(ref.rel_logits.abs().mean()))
     return got
 
 
-def zoo_predictor(predictor, opts, b, body, numbers):
+def zoo_predictor(predictor, opts, b, body, numbers, launches):
     """One message-passing predictor in PredCls on the frozen R-101 body:
     one eval batch (B3 2: the box and union pools) with its logits against
     the plain versions and its busy share, one train step (B3 2, no
-    B3-bwd), and the f32 step gradients of :func:`zoo_grads`."""
+    B3-bwd), and the f32 step gradients of :func:`zoo_grads`.  The counted
+    runs' launches go into ``launches``."""
     cfg = legacy_cfg(PREDCLS, predictor, opts)
     model, body = legacy_model(cfg, body)
     per = expected(multilevel_roi_align=2)
-    eval_ms, eval_peak = legacy_evaluate(model, cfg, f"{predictor} PredCls eval", per)
+    eval_ms, eval_peak, counted = legacy_evaluate(model, cfg,
+                                                  f"{predictor} PredCls eval", per)
     check_zoo_logits(model, cfg, b, f"{predictor} PredCls")
     out = eval_forward(model, cfg, b)
     if (out.relness_logits is not None) != ("relation.rel_aware=true" in opts):
         raise AssertionError(f"{predictor}: relness logits {out.relness_logits}")
     fwd = lambda: eval_logits(model, cfg, b)  # noqa: E731
     wall, busy = cuda_ms(fwd, 2, 1), busy_ms(fwd, 2)
-    _, train_ms, train_peak = legacy_train(model, cfg, per, f"{predictor} train", 1)
+    _, train_ms, train_peak, counted_train = legacy_train(model, cfg, per,
+                                                          f"{predictor} train", 1)
+    add_launches(launches, counted, counted_train)
     del model
     release()
     zoo_grads(predictor, opts)
@@ -4582,9 +4628,10 @@ def zoo_predictor(predictor, opts, b, body, numbers):
     return body
 
 
-def zoo_other_modes(predictor, opts, body, numbers):
+def zoo_other_modes(predictor, opts, body, numbers, launches):
     """SGCls (B3 3) and SGDet (B3 3, N1 2 + 2): one eval batch and one train
-    step each, as phase 19 runs Motifs and VCTree."""
+    step each, as phase 19 runs Motifs and VCTree; their launches go into
+    ``launches``."""
     from veto_tpu_torch.tools.relation_train_net import build_dataset
 
     for config, per, mode in ((SGCLS, expected(multilevel_roi_align=3), "SGCls"),
@@ -4596,16 +4643,16 @@ def zoo_other_modes(predictor, opts, body, numbers):
         if mode == "SGDet":
             b = next(synthetic_eval_dataset_batches(cfg))
             draw_cls_score(model, cfg, b)
-        eval_ms, eval_peak = legacy_evaluate(model, cfg, f"{predictor} {mode} eval", per)
+        eval_ms, eval_peak, counted = legacy_evaluate(model, cfg,
+                                                      f"{predictor} {mode} eval", per)
         if mode == "SGDet":
             datasets = (detected_gt_dataset(model, cfg), build_dataset(cfg, "val"))
         # the JAX SGDet step takes no pre_rel_classify_loss: BGNN's relness
         # pre-classifier trains in PredCls and SGCls only
         idle = ("relation.relation_conf_aware_models.",) if mode == "SGDet" else ()
-        _, train_ms, train_peak = legacy_train(model, cfg, per,
-                                               f"{predictor} {mode} train", 1, datasets,
-                                               idle)
-        count_zoo(per, 2)
+        _, train_ms, train_peak, counted_train = legacy_train(
+            model, cfg, per, f"{predictor} {mode} train", 1, datasets, idle)
+        add_launches(launches, counted, counted_train)
         numbers[f"{predictor} {mode}"] = dict(
             eval_ms=eval_ms, train_ms=train_ms, eval_peak_gib=eval_peak / 2 ** 30,
             train_peak_gib=train_peak / 2 ** 30)
@@ -4614,30 +4661,29 @@ def zoo_other_modes(predictor, opts, body, numbers):
     return body
 
 
-def phase_zoo(gen):
+def phase_zoo(level_pool):
     """Phase 20: the VGG-16 body and the message-passing predictors at full
-    width (see the module docstring).  Returns its numbers."""
+    width (see the module docstring); ``level_pool`` is phase 3's row of B3
+    on VGG-16's level.  Returns its numbers and the launches of its counted
+    runs."""
     t0 = time.perf_counter()
-    numbers = {}
-    b3_before = LEGACY_B3["total"]
-    zoo_vgg(gen, numbers)
+    numbers, launches = {}, {}
+    zoo_vgg(numbers, launches, level_pool)
     print("[zoo] IMP, BGNN (relation.rel_aware=true), GPSNet, MSDN on the frozen "
           "R-101 body (context_hidden_dim 512, context_pooling_dim 4096, bf16)")
     cfg = legacy_cfg(PREDCLS, "IMPPredictor")
     b = next(synthetic_eval_dataset_batches(cfg))
     body = None
     for predictor, opts in ZOO:
-        body = zoo_predictor(predictor, opts, b, body, numbers)
+        body = zoo_predictor(predictor, opts, b, body, numbers, launches)
     for predictor, opts in ZOO[:2]:
-        body = zoo_other_modes(predictor, opts, body, numbers)
-    # the legacy helpers add their counted B3 launches to phase 19's total
-    count_zoo(expected(multilevel_roi_align=LEGACY_B3["total"] - b3_before))
-    LEGACY_B3["total"] = b3_before
+        body = zoo_other_modes(predictor, opts, body, numbers, launches)
+    numbers["launches"] = {k: v for k, v in launches.items() if v}
     numbers["seconds"] = time.perf_counter() - t0
     release()
     print(f"[zoo numbers] {card()}: {json.dumps(numbers)}")
     print(f"[zoo] phase 20 took {numbers['seconds']:.1f} s")
-    return numbers
+    return numbers, launches
 
 
 _SCRATCH = []
@@ -4680,7 +4726,7 @@ def main() -> int:
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     phase_gemm_core(gen)
     kernels = [phase_roi_align(gen)]
-    VGG_POOL.update(vgg_level_pool(gen))  # phase 3 on VGG-16's 512-channel level
+    level_pool = vgg_level_pool(gen)  # phase 3 on VGG-16's 512-channel level
     kernels.append(phase_encoder(gen))
     phase_main_path()
     kernels += [*phase_encoder_bwd(gen), phase_roi_align_bwd(gen),
@@ -4698,20 +4744,19 @@ def main() -> int:
     phase_meet()
     phase_pretrain()
     phase_heads()
-    phase_legacy()
-    phase_zoo(gen)
-    # each kernel's launches on the training path that runs it; B3's also
-    # those of the legacy paths' counted runs (phase 19); every kernel's
-    # also those of phase 20's counted runs
+    _, legacy_launches = phase_legacy()
+    _, zoo_launches = phase_zoo(level_pool)
+    # each kernel's launches on the training path that runs it, and those
+    # of phases 19 and 20's counted runs (N1's: its mask launches)
     launches.update(pair_attention=pa_launches["pair_attention"],
                     pair_attention_backward=pa_launches["pair_attention_backward"],
                     encoder_mono_bwd=mono_launches["encoder_mono_bwd"],
                     greedy_nms=n1_launches)
-    launches["multilevel_roi_align"] += LEGACY_B3["total"]
-    for name, n in ZOO_LAUNCHES.items():
-        if name in launches:
-            launches[name] += n
-    launches["greedy_nms"] += ZOO_LAUNCHES.get("nms_mask", 0)  # N1's mask launches
+    for counted in (legacy_launches, zoo_launches):
+        for name, n in counted.items():
+            if name in launches:
+                launches[name] += n
+        launches["greedy_nms"] += counted.get("nms_mask", 0)
     for k in kernels:
         k["launches"] = launches[k["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

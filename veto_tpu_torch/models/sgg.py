@@ -628,7 +628,7 @@ def build_model(cfg, device=None, seed: int = None,
         predictor=predictor,
         context_hidden_dim=cfg.relation.context_hidden_dim,
         context_pooling_dim=cfg.relation.context_pooling_dim,
-        backbone_type="VGG-16" if vgg else "R-101-FPN",
+        backbone_type=cfg.model.backbone,
         bgnn_rel_aware=cfg.relation.rel_aware,
         bgnn_mp_valid_pairs=cfg.relation.mp_valid_pairs,
     ).to(dev)
