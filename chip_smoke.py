@@ -245,7 +245,36 @@ catches its own failure:
     deterministic mode); IMP and BGNN also one SGCls (B3 3) and one SGDet
     (B3 3, N1 2 + 2) eval batch and train step.  The phase prints its
     seconds and its numbers.
-21. One JSON line ``{"kernels": [...]}`` (all nine kernels, N1 last;
+21. Data-parallel training and the gathered evaluation
+    (``veto_tpu_torch/engine/distributed.py``, ``engine/gather.py``;
+    ``phase_ddp``).  (a) Two ranks on this one card over gloo (NCCL
+    refuses two ranks on one device), each a process of this script
+    (``--ddp-rank``), at full width (``configs/veto_vg_predcls.yaml``, the
+    global batch of 12 at 800x1344, 6 a rank, 1024 pairs an image): 2 eval
+    batches of 8 a rank through ``run_validation`` with the gather (B1 6,
+    B3 2 a batch), whose merged evaluator's per-image lists equal one
+    process's evaluation of the same 4 batches; 3 train steps through
+    ``relation_train_net.train`` with exact launches on each rank (B1,
+    B2a, B2b 6, B3 2, B3-bwd 1 a step), each step's parameters bit-equal
+    across the ranks, step 1's loss within 1% of one process's step on the
+    same 12 images.  Step 1's gradients against one process's
+    (``ddp_hold_steps``, per tensor in L2): in bf16 within twice one
+    process's distance to itself with its images in another order (the
+    same function, which rounds as differently as the ranks do) plus 1%;
+    in f32 with the plain encoder (the encoder kernels take bf16 only)
+    within 2.5%; each rank with its own BatchNorm statistics (the fault)
+    must leave both limits.  The witnesses of the bf16 gap are printed:
+    the reordered step, both steps against the f32 one, the gap with the
+    two-pass variance.  The gradient all-reduce's ms a step and the
+    gather's seconds.  (b) One rank
+    over NCCL: ``torchrun --standalone --nproc_per_node=1 -m
+    veto_tpu_torch.tools.relation_train_net`` for 2 steps, then the test
+    tool the same way with ``test.sync_gather``, at a cut depth
+    (``DDP_NCCL_OPTS``: a one-block-a-stage body, 2 encoder layers, the
+    widths kept).  (c) Two ranks over NCCL
+    across cards, only when the machine has two; else it says it did not
+    run.  The phase prints its seconds.
+22. One JSON line ``{"kernels": [...]}`` (all nine kernels, N1 last;
     ``launches`` from the main path's training run, or the path that runs
     each, with the counted runs of phases 19 and 20 added) and, last,
     ``{"ok": true, "device": {...}}``.
@@ -4172,14 +4201,14 @@ def legacy_context_ms(model, cfg, b):
     args, kw = seen["ctx"]
     out = {}
     with torch.inference_mode():
-        out["context_ms"] = cuda_ms(lambda: ctx(*args, **kw), 3, warmup=1)
+        out["context_ms"] = cuda_ms(lambda: ctx(*args, **kw), 1, warmup=1)
         if "tree" in seen:
             obj_pre, forest = seen["tree"]
             mask = args[2]
             scores = torch.rand(mask.shape + mask.shape[-1:], device=DEVICE)
-            out["tree_build_ms"] = cuda_ms(lambda: build_vctree(scores, mask), 3, 1)
+            out["tree_build_ms"] = cuda_ms(lambda: build_vctree(scores, mask), 1, 1)
             out["bi_tree_lstm_ms"] = cuda_ms(lambda: ctx.obj_ctx_rnn(obj_pre, forest),
-                                             3, 1)
+                                             1, 1)
     return out
 
 
@@ -4199,7 +4228,7 @@ def legacy_predcls(predictor, b, body, numbers, launches):
     add_launches(launches, counted)
     check_legacy_logits(model, cfg, b, f"{predictor} PredCls")
     fwd = lambda: eval_logits(model, cfg, b)  # noqa: E731
-    wall, busy = cuda_ms(fwd, 2, 1), busy_ms(fwd, 2)
+    wall, busy = cuda_ms(fwd, 1, 1), busy_ms(fwd, 1)
     ctx = legacy_context_ms(model, cfg, b)
     state, train_ms, train_peak, counted = legacy_train(model, cfg, per,
                                                         f"{predictor} train",
@@ -4439,7 +4468,7 @@ def zoo_vgg(numbers, launches, level_pool):
     add_launches(launches, counted)
     b = next(synthetic_eval_dataset_batches(cfg))
     fwd = lambda: eval_logits(model, cfg, b)  # noqa: E731
-    wall, busy = cuda_ms(fwd, 2, 1), busy_ms(fwd, 2)
+    wall, busy = cuda_ms(fwd, 1, 1), busy_ms(fwd, 1)
     del model
     release()
     state, counted = phase_train(3, vgg, what="VGG-16", config=VGG)
@@ -4612,7 +4641,7 @@ def zoo_predictor(predictor, opts, b, body, numbers, launches):
     if (out.relness_logits is not None) != ("relation.rel_aware=true" in opts):
         raise AssertionError(f"{predictor}: relness logits {out.relness_logits}")
     fwd = lambda: eval_logits(model, cfg, b)  # noqa: E731
-    wall, busy = cuda_ms(fwd, 2, 1), busy_ms(fwd, 2)
+    wall, busy = cuda_ms(fwd, 1, 1), busy_ms(fwd, 1)
     _, train_ms, train_peak, counted_train = legacy_train(model, cfg, per,
                                                           f"{predictor} train", 1)
     add_launches(launches, counted, counted_train)
@@ -4689,6 +4718,479 @@ def phase_zoo(level_pool):
 _SCRATCH = []
 
 
+# ------------------------------------------------------------------ phase 21
+DDP_OPTS = ("solver.max_iter=3", "solver.val_period=1000",
+            "solver.checkpoint_period=1000", "test.ims_per_batch=8")
+DDP_EVAL_BATCHES = 2  # a rank
+# (b)'s torchrun runs at a cut depth (the widths kept: 576-wide encoder,
+# 256-channel FPN): what they show is the launch and the NCCL group, and
+# each run's fixed costs (the process, the build, the checkpoint) dominate
+DDP_NCCL_OPTS = ("model.stage_blocks=(1,1,1,1)", "veto.enc_layers=2",
+                 "solver.ims_per_batch=4", "test.ims_per_batch=4")
+DDP_RANK_CMD = [sys.executable, os.path.abspath(__file__), "--ddp-rank"]
+DDP_TRAIN_STEP = dict(fused_encoder_layer=6, encoder_ffn_bwd=6, encoder_att_bwd=6,
+                      multilevel_roi_align=2, roi_align_backward=1)
+
+
+def ddp_config(directory, f32=False):
+    """Phase 21's configuration: the main path's, or in f32 with the plain
+    encoder (its kernels take bf16 only) for the gradient comparison."""
+    from veto_tpu_torch.config import load_config
+
+    return load_config(os.path.join(ROOT, "configs", PREDCLS),
+                       [*DDP_OPTS, f"output_dir={os.path.join(directory, 'out')}",
+                        *(("dtype=float32", "veto.encoder_impl=xla") if f32 else ())])
+
+
+def ddp_first_batch(cfg, rank):
+    """Rank ``rank``'s first train batch (its shard of the synthetic split)."""
+    from veto_tpu_torch.tools import relation_train_net as rtn
+
+    ds = rtn.synthetic_train_dataset(cfg)
+    return next(rtn.batches_for(cfg, ds, "train", rank, 2)(1))[0]
+
+
+def ddp_step(cfg, batch, dp=None, order=None):
+    """One step of a freshly built model of ``cfg`` from the tool's seeded
+    generator on ``batch``: the loss and the clipped gradients (summed over
+    the ranks under ``dp``).  ``order`` feeds the same images and their
+    drawn pairs in another order (the same function)."""
+    from veto_tpu_torch.engine.batch import SGGBatch
+    from veto_tpu_torch.engine.train import create_train_state, sample_pairs, train_on_pairs
+    from veto_tpu_torch.models.sgg import build_model
+    from veto_tpu_torch.tools import relation_train_net as rtn
+
+    model = build_model(cfg)
+    state = create_train_state(model, cfg.solver, rtn.rel_class_weights(cfg),
+                               mode=cfg.relation.mode, dp=dp)
+    gen = torch.Generator(device=DEVICE).manual_seed(cfg.solver.seed)
+    rel = cfg.relation
+    batch = batch.to(DEVICE)
+    samples = sample_pairs(batch, gen, rel.batch_size_per_image, rel.positive_fraction,
+                           dp)
+    if order is not None:
+        batch = SGGBatch(**{k: v[order] for k, v in batch.fields().items()})
+        samples = type(samples)(*(x[order] for x in samples))
+    m = train_on_pairs(state, batch, samples, 1.0)
+    grads = {n: p.grad.detach().float().cpu() for n, p in model.named_parameters()
+             if p.requires_grad}
+    del model, state
+    release()
+    return float(m["loss"]), grads
+
+
+def ddp_global_batch(cfg):
+    """Both ranks' first batches as one (rank 0's images first: the rows of
+    the global draw each rank kept)."""
+    from veto_tpu_torch.engine.batch import SGGBatch
+
+    shards = [ddp_first_batch(cfg, r) for r in range(2)]
+    return SGGBatch(**{k: torch.cat([torch.as_tensor(getattr(x, k)) for x in shards])
+                       for k in shards[0].fields()})
+
+
+def rel_l2(got, ref):
+    """Per gradient tensor, |got - ref| / |ref| in L2 (the analytic zeros
+    left out)."""
+    return {n: float((got[n] - r).norm()) / max(float(r.norm()), 1e-30)
+            for n, r in ref.items() if not n.endswith(ANALYTIC_ZERO)}
+
+
+@contextlib.contextmanager
+def two_pass_variance():
+    """The port's BatchNorm in training with the two-pass variance
+    E[(x - E[x])^2] in place of flax's fast E[x^2] - E[x]^2 (global under
+    data parallelism): a witness of what the fast variance's cancellation
+    does to the step, not the arithmetic the port follows."""
+    from veto_tpu_torch.models import layers
+
+    fast = layers._flax_batch_norm
+
+    def two_pass(bn, x, dims, view):
+        if not bn.training:
+            return fast(bn, x, dims, view)
+        xf = x.float()
+        n = xf.new_full((1,), float(np.prod([xf.shape[d] for d in dims])))
+        s1 = xf.sum(dim=dims)
+        if bn.dp is not None:
+            s1, n = bn.dp.sum(torch.cat([s1, n])).split([s1.shape[0], 1])
+        mean = s1 / n
+        s2 = ((xf - mean.view(view)) ** 2).sum(dim=dims)
+        var = (s2 if bn.dp is None else bn.dp.sum(s2)) / n
+        with torch.no_grad():
+            bn.running_mean.copy_(bn.keep * bn.running_mean + (1 - bn.keep) * mean)
+            bn.running_var.copy_(bn.keep * bn.running_var + (1 - bn.keep) * var)
+        y = (xf - mean.view(view)) * (torch.rsqrt(var + bn.eps) * bn.weight).view(view)
+        return (y + bn.bias.view(view)).to(x.dtype)
+
+    layers._flax_batch_norm = two_pass
+    try:
+        yield
+    finally:
+        layers._flax_batch_norm = fast
+
+
+def per_rank_stats(dp):
+    """``dp`` with each rank's own BatchNorm statistics: the fault that
+    cross-rank BatchNorm repairs (the gradients and denominators are still
+    summed)."""
+    from veto_tpu_torch.engine.distributed import DataParallel
+
+    class PerRankStats(DataParallel):
+        def sum(self, x):
+            return x
+
+    return PerRankStats(dp.group, dp.host_group)
+
+
+# phase 21's limits on step 1's gradients, per tensor in L2 (|err| / |ref|),
+# set from the H100's readings (PERF.md): in f32 between the two ranks'
+# largest reading (3.1e-3) and the per-rank-statistics fault's (0.22); in
+# bf16 against one process's distance to itself with its images in
+# another order (the same function: up to 19% in the depth ResNet, as far
+# as the two ranks are), where the two ranks read at most 0.62 of the
+# limit and the fault up to 3.7 times it
+DDP_F32_L2 = 0.025
+DDP_BF16_K, DDP_BF16_FLOOR = 2.0, 0.01
+DDP_READINGS = {}
+
+
+def ddp_hold_steps(cfg, cfg32, ranks):
+    """Step 1 of the two ranks against one process's on the same 12 images:
+    the losses within 1%; in f32 (the plain encoder) every gradient tensor
+    within ``DDP_F32_L2``, which the per-rank-statistics fault must
+    exceed; in bf16 (the main path) every tensor within ``DDP_BF16_K`` x
+    one process's distance to itself with its images in another order,
+    plus ``DDP_BF16_FLOOR``, which the fault must leave too.  Prints the
+    witnesses of the bf16 gap: the reordered step, both steps against the
+    f32 one, and the gap with the two-pass variance."""
+    n = cfg.solver.ims_per_batch
+    swap = [*range(n // 2, n), *range(n // 2)]
+    batch, batch32 = ddp_global_batch(cfg), ddp_global_batch(cfg32)
+    one = {"bf16": ddp_step(cfg, batch), "bf16_swap": ddp_step(cfg, batch, order=swap),
+           "f32": ddp_step(cfg32, batch32), "f32_swap": ddp_step(cfg32, batch32, order=swap)}
+    with two_pass_variance():
+        one["two_pass_bf16"] = ddp_step(cfg, batch)
+    two = dict(ranks[0]["steps"], bf16=(ranks[0]["history"][0]["loss"],
+                                         ranks[0]["grads"]))
+    if any(not torch.equal(ranks[1]["grads"][k], two["bf16"][1][k]) for k in two["bf16"][1]):
+        raise AssertionError("rank 1's step gradients differ from rank 0's")
+    g1 = {k: v[1] for k, v in one.items()}
+    g2 = {k: v[1] for k, v in two.items()}
+    r = {"gap_bf16": rel_l2(g2["bf16"], g1["bf16"]),
+         "floor_bf16": rel_l2(g1["bf16_swap"], g1["bf16"]),
+         "one_bf16_vs_f32": rel_l2(g1["bf16"], g1["f32"]),
+         "two_bf16_vs_f32": rel_l2(g2["bf16"], g1["f32"]),
+         "gap_two_pass_bf16": rel_l2(g2["two_pass_bf16"], g1["two_pass_bf16"]),
+         "fault_bf16": rel_l2(g2["fault_bf16"], g1["bf16"]),
+         "gap_f32": rel_l2(g2["f32"], g1["f32"]),
+         "floor_f32": rel_l2(g1["f32_swap"], g1["f32"]),
+         "fault_f32": rel_l2(g2["fault_f32"], g1["f32"])}
+    DDP_READINGS.update(r, loss={k: v[0] for k, v in one.items()},
+                        loss_two={k: v[0] for k, v in two.items()})
+    worst = sorted(r["gap_bf16"], key=r["gap_bf16"].get, reverse=True)
+    for name in worst[:4]:
+        print(f"  step 1, bf16, {name}: 2 ranks vs one process "
+              f"{r['gap_bf16'][name]:.3e}; one process vs itself reordered "
+              f"{r['floor_bf16'][name]:.3e}; vs the f32 step: one process "
+              f"{r['one_bf16_vs_f32'][name]:.3e}, 2 ranks "
+              f"{r['two_bf16_vs_f32'][name]:.3e}; 2 ranks vs one process with "
+              f"the two-pass variance {r['gap_two_pass_bf16'][name]:.3e}")
+    for k in ("gap_bf16", "floor_bf16", "gap_two_pass_bf16", "fault_bf16", "gap_f32",
+              "floor_f32", "fault_f32"):
+        print(f"  step 1, largest over {len(r[k])} tensors: {k} "
+              f"{max(r[k].values()):.3e}")
+    for what, a, b in (("bf16", two["bf16"][0], one["bf16"][0]),
+                       ("f32", two["f32"][0], one["f32"][0])):
+        print(f"  step 1, {what}: loss {a:.6f} (2 ranks), {b:.6f} (one process)")
+        if abs(a - b) > 1e-2 * abs(b):
+            raise AssertionError(f"step 1 ({what}) loss {a} vs {b} in one process")
+    bad32 = {k: v for k, v in r["gap_f32"].items() if v > DDP_F32_L2}
+    bad16 = {k: v for k, v in r["gap_bf16"].items()
+             if v > DDP_BF16_K * r["floor_bf16"][k] + DDP_BF16_FLOOR}
+    caught16 = [k for k, v in r["fault_bf16"].items()
+                if v > DDP_BF16_K * r["floor_bf16"][k] + DDP_BF16_FLOOR]
+    DDP_NUMBERS.update(grad_worst_l2_f32=max(r["gap_f32"].values()),
+                       grad_worst_l2_bf16=max(r["gap_bf16"].values()),
+                       fault_worst_l2_f32=max(r["fault_f32"].values()),
+                       fault_bf16_caught=len(caught16))
+    if bad32 or bad16 or max(r["fault_f32"].values()) <= DDP_F32_L2 or not caught16:
+        raise AssertionError(f"step 1 against one process: f32 over {DDP_F32_L2}: "
+                             f"{bad32}; bf16 over the reordered floor: {bad16}; the "
+                             f"fault's largest f32 reading "
+                             f"{max(r['fault_f32'].values()):.3e}, bf16 tensors it "
+                             f"leaves: {len(caught16)}")
+    print(f"  step 1: {len(r['gap_f32'])} gradient tensors within {DDP_F32_L2} (L2) "
+          f"of one process's in f32 (per-rank statistics: up to "
+          f"{max(r['fault_f32'].values()):.3e}), and in bf16 within "
+          f"{DDP_BF16_K} x one process's reordered distance + {DDP_BF16_FLOOR} "
+          f"(per-rank statistics leave it in {len(caught16)} tensors)")
+
+
+def ddp_eval_batches(cfg, rank):
+    """Rank ``rank``'s shard of the synthetic test split: its 2 batches of 8
+    (the split holds 2 x 2 x 8 images)."""
+    from veto_tpu_torch.tools.relation_test_net import synthetic_eval_dataset
+    from veto_tpu_torch.tools.relation_train_net import batches_for
+
+    ds = synthetic_eval_dataset(cfg, 2 * DDP_EVAL_BATCHES * cfg.test.ims_per_batch)
+    return list(batches_for(cfg, ds, "test", rank, 2)(0))
+
+
+def param_digest(model) -> str:
+    import hashlib
+
+    flat = torch.cat([p.detach().reshape(-1) for p in model.parameters()
+                      if p.requires_grad])
+    return hashlib.sha256(flat.cpu().numpy().tobytes()).hexdigest()
+
+
+def ddp_rank(rank: int, directory: str) -> None:
+    """One of phase 21's two ranks on this card (``chip_smoke.py --ddp-rank
+    RANK DIR``): the gathered evaluation of its shard, then 3 training
+    steps of its 6 images; what it saw goes to ``DIR/rank<RANK>.pt``."""
+    import torch.distributed as dist
+
+    from veto_tpu_torch.engine import distributed, gather
+    from veto_tpu_torch.engine import train as engine
+    from veto_tpu_torch.models.sgg import build_model
+    from veto_tpu_torch.tools import relation_train_net as rtn
+    from veto_tpu_torch.tools.relation_test_net import make_sgg_evaluator
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # NCCL refuses two ranks on one device: the two ranks that share this
+    # card reduce over gloo, which takes CUDA tensors through the host
+    dist.init_process_group("gloo", init_method=f"file://{directory}/rendezvous",
+                            rank=rank, world_size=2)
+    try:
+        dp = distributed.DataParallel()
+        cfg = ddp_config(directory)
+        model = build_model(cfg)  # cuda, seeded weights
+        dev = next(model.parameters()).device
+        out = {"gather_s": []}
+        sync = gather.sync_gather_evaluator
+
+        def timed_gather(ev, group=None):
+            t0 = time.perf_counter()
+            sync(ev, group)
+            out["gather_s"].append(time.perf_counter() - t0)
+
+        gather.sync_gather_evaluator = timed_gather
+        ev = make_sgg_evaluator(cfg)
+        read_counters(reset=True)
+        rtn.run_validation(model, rtn.make_eval_fn(cfg, model),
+                           iter(ddp_eval_batches(cfg, rank)), ev, dev, gather=dp)
+        out["eval_launches"] = read_counters(reset=True)
+        out["eval_blob"] = gather._evaluator_blob(ev)
+
+        reduce_ms, summed = [], engine.all_reduce_grads
+
+        def timed_reduce(params, group=None, extra=()):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = summed(params, group, extra)
+            torch.cuda.synchronize()
+            reduce_ms.append(1e3 * (time.perf_counter() - t0))
+            return res
+
+        engine.all_reduce_grads = timed_reduce
+        counts, digests = [], []
+
+        def log(line):
+            if not line.startswith("iter "):
+                return
+            counts.append(read_counters(reset=True))
+            digests.append(param_digest(model))
+            if len(counts) == 1:  # the clipped, summed gradients of step 1
+                out["grads"] = {n: p.grad.detach().float().cpu()
+                                for n, p in model.named_parameters() if p.requires_grad}
+
+        _, history = rtn.train(cfg, model=model, log=log)
+        out.update(counts=counts, digests=digests, history=history,
+                   reduce_ms=list(reduce_ms), world=dp.world,
+                   backend=dist.get_backend())
+        del model
+        release()
+        # step 1 again: in f32 with the plain encoder (the encoder kernels
+        # take bf16 only), with each rank's own BatchNorm statistics (the
+        # fault), with the two-pass variance (the witness)
+        cfg32 = ddp_config(directory, f32=True)
+        first, first32 = ddp_first_batch(cfg, rank), ddp_first_batch(cfg32, rank)
+        local = per_rank_stats(dp)
+        steps = {"f32": ddp_step(cfg32, first32, dp),
+                 "fault_bf16": ddp_step(cfg, first, local),
+                 "fault_f32": ddp_step(cfg32, first32, local)}
+        with two_pass_variance():
+            steps["two_pass_bf16"] = ddp_step(cfg, first, dp)
+        out["steps"] = steps if rank == 0 else {}
+        torch.save(out, os.path.join(directory, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def run_children(cmds, timeout, env=None):
+    """Run ``cmds`` together (each a list of arguments, from the repo root);
+    returns their outputs; a child that fails raises with its output's end,
+    and every child still running is killed."""
+    procs = [subprocess.Popen(c, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for c in cmds]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for c, p, o in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise AssertionError(f"{' '.join(c[:6])} ... exited {p.returncode}:\n"
+                                 f"{o[-4000:]}")
+    return outs
+
+
+def last_json(text, key):
+    """The last line of ``text`` that is a JSON object holding ``key``."""
+    for line in reversed(text.splitlines()):
+        if line.startswith("{"):
+            with contextlib.suppress(ValueError):
+                obj = json.loads(line)
+                if key in obj:
+                    return obj
+    raise AssertionError(f"no JSON line with {key!r} in:\n{text[-3000:]}")
+
+
+def torchrun(nproc, module, args, timeout=300):
+    """``torchrun --standalone --nproc_per_node=nproc -m module args``;
+    returns its output, after printing its seconds."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    t0 = time.perf_counter()
+    out = run_children([[sys.executable, "-m", "torch.distributed.run", "--standalone",
+                         f"--nproc_per_node={nproc}", "-m", module, *args]],
+                       timeout, env)[0]
+    print(f"  torchrun {module.rsplit('.', 1)[-1]} x {nproc}: "
+          f"{time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def phase_ddp():
+    """Phase 21 (see the module docstring): two ranks on this card over
+    gloo against one process, one rank over NCCL through ``torchrun``, and
+    NCCL across cards when there are two."""
+    from veto_tpu_torch.engine.gather import _evaluator_blob
+    from veto_tpu_torch.models.sgg import build_model
+    from veto_tpu_torch.tools import relation_train_net as rtn
+    from veto_tpu_torch.tools.relation_test_net import make_sgg_evaluator
+
+    t_start = time.perf_counter()
+    release()
+    d = scratch_dir()
+    cfg = ddp_config(d)
+    print(f"[ddp] (a) 2 ranks on one card over gloo: {PREDCLS}, a global batch of "
+          f"{cfg.solver.ims_per_batch} ({cfg.solver.ims_per_batch // 2} a rank), "
+          f"{cfg.relation.batch_size_per_image} pairs an image, 3 steps; "
+          f"{DDP_EVAL_BATCHES} eval batches of {cfg.test.ims_per_batch} a rank")
+    run_children([[*DDP_RANK_CMD, str(r), d] for r in range(2)], timeout=600)
+    ranks = [torch.load(os.path.join(d, f"rank{r}.pt"), weights_only=False)
+             for r in range(2)]
+    t_ranks = time.perf_counter() - t_start
+    want_eval = expected(fused_encoder_layer=6 * DDP_EVAL_BATCHES,
+                         multilevel_roi_align=2 * DDP_EVAL_BATCHES)
+    want_step = expected(**DDP_TRAIN_STEP)
+    for r, got in enumerate(ranks):
+        if got["world"] != 2 or got["backend"] != "gloo":
+            raise AssertionError(f"rank {r}: {got['world']} ranks over {got['backend']}")
+        if got["eval_launches"] != want_eval:
+            raise AssertionError(f"rank {r} eval launches {got['eval_launches']}, "
+                                 f"want {want_eval}")
+        if len(got["counts"]) != 3 or any(c != want_step for c in got["counts"]):
+            raise AssertionError(f"rank {r} step launches {got['counts']}, want "
+                                 f"{want_step} a step")
+        if not all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])
+                   for h in got["history"]):
+            raise AssertionError(f"rank {r}: non-finite losses {got['history']}")
+    print(f"  launches exact on both ranks: {json.dumps(want_step)} a step, "
+          f"{json.dumps({k: v for k, v in want_eval.items() if v})} for the "
+          "eval batches")
+    if ranks[0]["digests"] != ranks[1]["digests"]:
+        raise AssertionError("the ranks' parameters differ after a step: "
+                             f"{ranks[0]['digests']} vs {ranks[1]['digests']}")
+    for key in ("loss", "grad_norm", "lr_scale"):
+        if [h[key] for h in ranks[0]["history"]] != [h[key] for h in ranks[1]["history"]]:
+            raise AssertionError(f"the ranks' {key} differ")
+    print("  parameters bit-equal across the ranks after each of the 3 steps; "
+          f"losses {[round(h['loss'], 4) for h in ranks[0]['history']]}, the same "
+          "on both")
+
+    # one process on the same images: the 4 eval batches, then the step
+    model = build_model(cfg)
+    dev = next(model.parameters()).device
+    ev = make_sgg_evaluator(cfg)
+    rtn.run_validation(model, rtn.make_eval_fn(cfg, model),
+                       iter(ddp_eval_batches(cfg, 0) + ddp_eval_batches(cfg, 1)), ev, dev)
+    one = _evaluator_blob(ev)
+    for r, got in enumerate(ranks):
+        blob = got["eval_blob"]
+        diff = [k for k in one if not np.array_equal(one[k], blob[k])]
+        if set(blob) != set(one) or diff:
+            raise AssertionError(f"rank {r}'s gathered evaluator differs from one "
+                                 f"process's in {diff[:5]}")
+    print(f"  gathered evaluator ({int(one['num_images'][0])} images, "
+          f"{len(one)} per-image lists) equal to one process's on both ranks; "
+          f"gather {[round(s, 3) for s in ranks[0]['gather_s']]} s")
+    del model
+    release()
+    ddp_hold_steps(cfg, ddp_config(d, f32=True), ranks)
+    reduce_ms = [x for r in ranks for x in r["reduce_ms"][1:]]
+    step_ms = [1e3 * h["seconds"] for h in ranks[0]["history"][1:]]
+    DDP_NUMBERS.update(gradient_all_reduce_ms=float(np.mean(reduce_ms)),
+                       gather_s=float(np.mean(ranks[0]["gather_s"])),
+                       rank_step_ms=float(np.mean(step_ms)))
+    del ranks
+    release()
+    t_a = time.perf_counter() - t_start
+
+    # (b) one rank over NCCL through torchrun
+    nccl = os.path.join(d, "nccl")
+    args = ["--config", os.path.join(ROOT, "configs", PREDCLS), f"output_dir={nccl}",
+            "solver.max_iter=2", "solver.val_period=1000", "solver.checkpoint_period=1000",
+            *DDP_NCCL_OPTS]
+    text = torchrun(1, "veto_tpu_torch.tools.relation_train_net", args)
+    last = last_json(text, "loss")
+    if "rank 0 of 1 over nccl" not in text or not np.isfinite(last["loss"]):
+        raise AssertionError(f"torchrun train over NCCL:\n{text[-3000:]}")
+    text = torchrun(1, "veto_tpu_torch.tools.relation_test_net",
+                    ["--max-batches", "1", *args, "test.sync_gather=True"])
+    res = last_json(text, "R")
+    if set(res) != {"R", "mR"}:
+        raise AssertionError(f"torchrun evaluate:\n{text[-3000:]}")
+    print(f"  (b) torchrun, 1 rank over NCCL ({', '.join(DDP_NCCL_OPTS)}): train 2 "
+          f"steps (last loss "
+          f"{last['loss']:.4f}), evaluate 1 batch with the gather (R@100 "
+          f"{res['R']['100']:.4f}, seeded weights)")
+    t_b = time.perf_counter() - t_start - t_a
+
+    # (c) NCCL across cards
+    if torch.cuda.device_count() > 1:
+        text = torchrun(2, "veto_tpu_torch.tools.relation_train_net",
+                        [a.replace(nccl, nccl + "2") for a in args])
+        if "rank 1 of 2 over nccl" not in text:
+            raise AssertionError(f"torchrun over 2 cards:\n{text[-3000:]}")
+        print("  (c) torchrun, 2 ranks over NCCL on 2 cards: 2 steps")
+    else:
+        print(f"  (c) NCCL across cards: not run ({torch.cuda.device_count()} card "
+              "on this machine)")
+    DDP_NUMBERS["seconds"] = time.perf_counter() - t_start
+    print(f"[ddp numbers] {card()}: {json.dumps(DDP_NUMBERS)}")
+    print(f"[ddp] phase 21 took {DDP_NUMBERS['seconds']:.1f} s ((a) {t_a:.1f} s, "
+          f"its ranks {t_ranks:.1f}; (b) {t_b:.1f} s)")
+
+
+DDP_NUMBERS = {}
+
+
 def scratch_dir() -> str:
     """A fresh temporary directory (an ``output_dir`` of the tools), removed
     when the script ends."""
@@ -4710,6 +5212,14 @@ def release():
     torch.cuda.empty_cache()
 
 
+def timed(label, fn, *args):
+    """``fn(*args)``, its wall seconds printed under ``label``."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"[time] phase {label}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device; this script runs the port on "
@@ -4722,30 +5232,34 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
     t0 = time.perf_counter()
-    build()
+    timed("1 build", build)
     gen = torch.Generator(device=DEVICE).manual_seed(0)
-    phase_gemm_core(gen)
-    kernels = [phase_roi_align(gen)]
-    level_pool = vgg_level_pool(gen)  # phase 3 on VGG-16's 512-channel level
-    kernels.append(phase_encoder(gen))
-    phase_main_path()
-    kernels += [*phase_encoder_bwd(gen), phase_roi_align_bwd(gen),
-                *phase_pair_attention(gen), phase_mono_bwd(gen)]
+    timed("2 gemm core", phase_gemm_core, gen)
+    kernels = [timed("3 roi_align", phase_roi_align, gen)]
+    level_pool = timed("3 vgg level", vgg_level_pool, gen)  # phase 3 on VGG-16's level
+    kernels.append(timed("4 encoder", phase_encoder, gen))
+    timed("5 main path", phase_main_path)
+    kernels += [*timed("6 encoder bwd", phase_encoder_bwd, gen),
+                timed("7 roi_align bwd", phase_roi_align_bwd, gen),
+                *timed("8 pair attention", phase_pair_attention, gen),
+                timed("9 mono bwd", phase_mono_bwd, gen)]
     release()
-    state, launches = phase_train()
-    phase_train_grads(state)
+    state, launches = timed("10 train", phase_train)
+    timed("10 train grads", phase_train_grads, state)
     del state
     release()
-    pa_launches, mono_launches = phase_paths()
-    phase_data_path(gen)
-    phase_sgcls()
-    n1, n1_launches = phase_sgdet(gen)
+    pa_launches, mono_launches = timed("11-12 paths", phase_paths)
+    timed("13 data path", phase_data_path, gen)
+    timed("14 sgcls", phase_sgcls)
+    n1, n1_launches = timed("15 sgdet", phase_sgdet, gen)
     kernels.append(n1)
-    phase_meet()
-    phase_pretrain()
-    phase_heads()
-    _, legacy_launches = phase_legacy()
-    _, zoo_launches = phase_zoo(level_pool)
+    timed("16 meet", phase_meet)
+    timed("17 pretrain", phase_pretrain)
+    timed("18 heads", phase_heads)
+    _, legacy_launches = timed("19 legacy", phase_legacy)
+    _, zoo_launches = timed("20 zoo", phase_zoo, level_pool)
+    release()
+    timed("21 ddp", phase_ddp)
     # each kernel's launches on the training path that runs it, and those
     # of phases 19 and 20's counted runs (N1's: its mask launches)
     launches.update(pair_attention=pa_launches["pair_attention"],
@@ -4771,4 +5285,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--ddp-rank"]:  # one of phase 21's ranks
+        ddp_rank(int(sys.argv[2]), sys.argv[3])
+        sys.exit(0)
     sys.exit(main())

@@ -1,10 +1,15 @@
-"""The relation tools' output keys that the port does not serve yet, and
-the test tool's ``evaluation_res.txt``.
+"""The relation tools' output keys that the port does not serve yet, the
+one it serves since data-parallel training came, and the test tool's
+``evaluation_res.txt``.
 
-- ``test.save_plots``, ``test.save_visual_info`` and ``global_buffer_on``:
-  each makes both tools (``relation_train_net.train`` and
-  ``relation_test_net.evaluate``) raise ``NotImplementedError`` naming the
-  slice that serves it, before any model is built.
+- ``test.save_plots`` and ``test.save_visual_info``: each makes both tools
+  (``relation_train_net.train`` and ``relation_test_net.evaluate``) raise
+  ``NotImplementedError`` naming the slice that serves it, before any
+  model is built.
+- ``global_buffer_on`` is served by both: the train tool pickles each
+  step's relness diagnostics of a ``rel_aware`` BGNN to
+  ``inter_data_buffer.pkl``; the test tool's eval step returns none (as
+  the JAX tool's), so it writes no buffer.
 - ``relation_test_net.evaluate`` writes the evaluator's summary to
   ``output_dir/evaluation_res.txt``, as ``tools/relation_test_net.py``
   does: the text equals the JAX evaluator's ``summary_string()`` and a
@@ -26,8 +31,7 @@ SMALL_EVAL = ["model.stage_blocks=(1,1,1,1)", "veto.t_input_dim=96",
               "veto.enc_layers=2", "data.max_boxes=8", "data.min_size_test=64",
               "data.max_size_test=96", "relation.max_proposal_pairs=48",
               "test.ims_per_batch=2"]
-SLICES = {"test.save_plots": "A14 item 9", "test.save_visual_info": "A14 item 9",
-          "global_buffer_on": "A12"}
+SLICES = {"test.save_plots": "A14 item 9", "test.save_visual_info": "A14 item 9"}
 
 
 def _cfg(opts):
@@ -46,6 +50,39 @@ def test_unserved_output_keys_raise_in_both_tools(tmp_path, key, tool):
     with pytest.raises(NotImplementedError, match=SLICES[key]) as err:
         run(cfg, "no-such-device", log=lambda s: None)
     assert key in str(err.value)
+
+
+@pytest.mark.parametrize("tool", ("train", "evaluate"))
+def test_global_buffer_on_is_served_in_both_tools(tmp_path, tool):
+    """``global_buffer_on`` runs in both tools: training a ``rel_aware``
+    BGNN for 2 steps pickles both keys, one entry a step, each a column of
+    the valid pairs' rows; evaluating writes no buffer."""
+    import pickle
+
+    from torch_port_legacy_case import TOOL_OPTS
+
+    from veto_tpu_torch.utils import global_buffer
+
+    cfg = _cfg(TOOL_OPTS + ["relation.predictor=BGNNPredictor", "relation.rel_aware=True",
+                            "relation.mp_valid_pairs=8", "global_buffer_on=True",
+                            "solver.max_iter=2", f"output_dir={tmp_path}"])
+    path = tmp_path / "inter_data_buffer.pkl"
+    try:
+        if tool == "train":
+            train(cfg, "cpu", log=lambda s: None)
+            with open(path, "rb") as f:
+                data = pickle.load(f)
+            assert set(data) == {"rel_pn-train_y", "rel_pn-train_pred"}
+            assert [len(e) for e in data["rel_pn-train_y"]] == [
+                len(e) for e in data["rel_pn-train_pred"]]
+            assert len(data["rel_pn-train_y"]) == 2
+            assert all(e.ndim == 2 and e.shape[1] == 1 and len(e) > 0
+                       for e in data["rel_pn-train_pred"])
+        else:
+            relation_test_net.evaluate(cfg, "cpu", max_batches=1, log=lambda s: None)
+            assert (tmp_path / "evaluation_res.txt").exists() and not path.exists()
+    finally:
+        global_buffer.reset()
 
 
 def test_evaluate_writes_evaluation_res_like_the_jax_tool(tmp_path, monkeypatch):

@@ -106,7 +106,11 @@ def prepare_record(dataset, index: int, min_size: int, max_size: int,
 
 
 class SGGLoader:
-    """Deterministic bucketed loader over a VG/GQA-style dataset."""
+    """Deterministic bucketed loader over a VG/GQA-style dataset.  With
+    ``world`` processes, rank ``rank`` reads its shard of each epoch's
+    order, the indices ``[rank::world]`` (the JAX loader's ``host_id`` /
+    ``num_hosts``), in ``iterations`` and ``epochs`` alike; ``batch_size``
+    is then the rank's share of the global batch."""
 
     def __init__(self, dataset, batch_size: int, max_boxes: int = 80,
                  num_obj_classes: int = 151, min_size: int = 800,
@@ -114,7 +118,8 @@ class SGGLoader:
                  pixel_mean=(102.9801, 115.9465, 122.7717),
                  pixel_std=(1.0, 1.0, 1.0), use_depth: bool = True,
                  shuffle: bool = True, seed: int = 1,
-                 size_divisibility: int = 32, num_workers: int = 4):
+                 size_divisibility: int = 32, num_workers: int = 4,
+                 rank: int = 0, world: int = 1):
         self.dataset = dataset
         self.batch_size = batch_size
         self.max_boxes = max_boxes
@@ -127,6 +132,7 @@ class SGGLoader:
         self.shuffle = shuffle
         self.seed = seed
         self.num_workers = num_workers
+        self.rank, self.world = rank, world
         self.pad_shapes = {
             "landscape": bucket_shape(min_size, max_size, size_divisibility),
             "portrait": bucket_shape(max_size, min_size, size_divisibility),
@@ -137,7 +143,7 @@ class SGGLoader:
         if self.shuffle:
             rng = np.random.RandomState((self.seed, epoch).__hash__() % (2**31))
             rng.shuffle(idx)
-        return idx
+        return idx[self.rank:: self.world]
 
     def _record(self, index: int) -> Dict:
         return prepare_record(self.dataset, index, self.min_size, self.max_size,

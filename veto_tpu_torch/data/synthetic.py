@@ -93,11 +93,15 @@ class SyntheticSGGDataset:
             rec["keypoints"] = kps
         return rec
 
-    def batches(self, batch_size: int, max_boxes: int):
-        """Yield (numpy SGGBatch, list[record]) batches covering the dataset."""
+    def batches(self, batch_size: int, max_boxes: int, rank: int = 0,
+                world: int = 1):
+        """Yield (numpy SGGBatch, list[record]) batches covering the dataset
+        (with ``world`` ranks, rank ``rank``'s shard: the images
+        ``[rank::world]``); the last batch wraps around to the first."""
         from .batching import make_sgg_batch
 
-        for start in range(0, len(self), batch_size):
-            recs = [self[i % len(self)] for i in range(start, start + batch_size)]
+        idx = list(range(len(self)))[rank::world]
+        for start in range(0, len(idx), batch_size):
+            recs = [self[idx[i % len(idx)]] for i in range(start, start + batch_size)]
             yield make_sgg_batch(recs, self.image_size, max_boxes,
                                  self.num_obj_classes), recs

@@ -64,6 +64,23 @@ box drawn from ``state.generator`` after the other draws of the step (or
 fc7 under it take no gradient, and ``grad_norm`` counts none for them
 (the JAX step's global norm counts the gradient its attribute loss sends
 into that frozen box head: ROADMAP queue C).
+
+Data parallelism (``create_train_state(dp=)``, a
+``distributed.DataParallel``; the step takes the ranks from its state):
+each of W ranks runs the step on its ``1/W`` of the global batch, and the
+W ranks compute what one process computes on the whole of it.  The
+samplers and MEET's routing draw at the global batch's size and keep this
+rank's rows; the BatchNorms take the global batch's statistics; every
+loss divides this rank's numerator by the global denominator; after the
+backward one flattened f32 all-reduce sums the gradients and the losses
+over the ranks (a sum, not DDP's mean), so ``loss``, ``grad_norm``, the
+clip and the update are the global step's, alike on every rank.
+
+``collect_diagnostics`` (the tools' ``global_buffer_on``) adds, for a
+predictor with relness logits (BGNN or MSDN with ``relation.rel_aware``),
+the JAX step's diagnostics under ``buffer``: ``rel_pn-train_y`` (the
+sampled pairs' foreground), ``rel_pn-train_pred`` (the sigmoid of the
+relness logit) and ``mask``, this rank's rows.
 """
 
 from __future__ import annotations
@@ -84,6 +101,7 @@ from ..models.relation.sampling import (
 )
 from ..models.sgg import DetectOutput, check_mode
 from ..solver.optim import FROZEN_DETECTOR, Optimizer, make_optimizer
+from .distributed import DataParallel, all_reduce_grads, attach
 
 
 @dataclass
@@ -95,16 +113,19 @@ class TrainState:
     generator: Optional[torch.Generator] = None  # the pair sampler's
     meet: Optional[MeetConfig] = None  # its constants on the model's device
     attribute_cfg: Optional[dict] = None  # attribute_loss's keyword arguments
+    dp: Optional[DataParallel] = None  # the ranks of a data-parallel step
 
 
 def create_train_state(model: nn.Module, solver_cfg, class_weights=None,
                        mode: str = "predcls", loss_variant: str = "weighted_ce",
-                       meet=None, attribute_cfg: Optional[dict] = None) -> TrainState:
+                       meet=None, attribute_cfg: Optional[dict] = None,
+                       dp: Optional[DataParallel] = None) -> TrainState:
     """The state of a training run over ``model``'s parameters; ``meet`` (a
     :class:`MeetConfig`) trains MEET's per-group losses, and then the
     class weights are not used; ``attribute_cfg`` holds
     :func:`attribute_loss`'s keyword arguments (its defaults when None)
-    for a model with ``attribute_on``."""
+    for a model with ``attribute_on``; ``dp`` the ranks of a data-parallel
+    step (its BatchNorms are given them)."""
     check_mode(mode)
     if mode != model.mode:
         raise ValueError(f"mode {mode!r} for a model built for {model.mode!r}")
@@ -118,16 +139,19 @@ def create_train_state(model: nn.Module, solver_cfg, class_weights=None,
         meet = meet._replace(
             incre_idx=torch.as_tensor(meet.incre_idx, device=dev),
             sample_rate=torch.as_tensor(meet.sample_rate, device=dev))
+    attach(model, dp)
     return TrainState(model, make_optimizer(solver_cfg, model), cw, meet=meet,
-                      attribute_cfg=attribute_cfg)
+                      attribute_cfg=attribute_cfg, dp=dp)
 
 
 def sample_pairs(batch, generator: torch.Generator,
                  batch_size_per_image: int = 1024,
-                 positive_fraction: float = 0.25) -> RelSample:
-    """The step's training pairs of each image of ``batch`` (tensors)."""
+                 positive_fraction: float = 0.25,
+                 dp: Optional[DataParallel] = None) -> RelSample:
+    """The step's training pairs of each image of ``batch`` (tensors); under
+    ``dp`` this rank's rows of the global batch's draw."""
     return gtbox_relsample(batch.rel_matrix, batch.box_mask, generator,
-                           batch_size_per_image, positive_fraction)
+                           batch_size_per_image, positive_fraction, dp)
 
 
 class DetSample(NamedTuple):
@@ -141,7 +165,8 @@ def sample_detections(model: nn.Module, batch, generator: torch.Generator,
                       batch_size_per_image: int = 1024,
                       positive_fraction: float = 0.25,
                       num_sample_per_gt_rel: int = 4,
-                      require_overlap: bool = False) -> DetSample:
+                      require_overlap: bool = False,
+                      dp: Optional[DataParallel] = None) -> DetSample:
     """SGDet: detect, assign GT labels to the detections and sample the
     step's pairs over them (``relation.num_sample_per_gt_rel``,
     ``relation.require_box_overlap``)."""
@@ -155,7 +180,7 @@ def sample_detections(model: nn.Module, batch, generator: torch.Generator,
         generator, batch_size=batch_size_per_image,
         positive_fraction=positive_fraction,
         num_sample_per_gt_rel=num_sample_per_gt_rel,
-        require_overlap=require_overlap)
+        require_overlap=require_overlap, dp=dp)
     return DetSample(det, gt_labels, pairs)
 
 
@@ -173,12 +198,12 @@ def _rel_losses(state: TrainState, rel_logits, labels, mask,
     draw from ``state.generator``."""
     if state.meet is None:
         return {"rel_loss": weighted_ce_loss(rel_logits, labels, mask,
-                                             state.class_weights)}
+                                             state.class_weights, state.dp)}
     if member is None and state.generator is None:
         raise ValueError("MEET's routing draws from state.generator: set it")
     m = state.meet
     return meet_losses(state.generator, rel_logits, labels, mask, m.incre_idx,
-                       m.sample_rate, m.group_sizes, member=member)
+                       m.sample_rate, m.group_sizes, member=member, dp=state.dp)
 
 
 def _binary_loss(bi_preds: torch.Tensor, binary_rel: torch.Tensor,
@@ -230,7 +255,8 @@ def forward_backward(state: TrainState, batch,
                      member: Optional[torch.Tensor] = None,
                      attribute_draws: Optional[torch.Tensor] = None,
                      gumbel: Optional[torch.Tensor] = None,
-                     forest=None) -> Dict[str, torch.Tensor]:
+                     forest=None,
+                     collect_diagnostics: bool = False) -> Dict[str, object]:
     """Train-mode forward and the loss's backward on the given pairs: the
     trainable parameters' ``.grad`` hold the step's gradients.  Returns the
     losses, detached: ``loss`` (their sum), ``rel_loss`` (with MEET the
@@ -239,11 +265,14 @@ def forward_backward(state: TrainState, batch,
     (``attribute_draws``, (B * N,) uniforms, rank its negatives in place of
     a draw), outside PredCls ``obj_loss`` and for VCTree ``binary_loss``
     (its SGCls / SGDet decoder's noise ``gumbel`` (B, N, C - 1) in place of
-    a draw; ``forest`` in place of the one it builds)."""
+    a draw; ``forest`` in place of the one it builds); with
+    ``collect_diagnostics`` and relness logits, the ``buffer``
+    diagnostics.  Under ``state.dp`` the losses are this rank's shares."""
     model = state.model
     model.train()
     state.optimizer.zero_grad()
     legacy = getattr(model, "legacy", False)
+    diagnostics = None
     if isinstance(samples, DetSample):
         det, pairs = samples.det, samples.pairs
         dets = det.detections
@@ -268,7 +297,7 @@ def forward_backward(state: TrainState, batch,
         # term moves the loss value, not the update; a legacy predictor's
         # refined logits train on it
         losses["obj_loss"] = weighted_ce_loss(out.obj_dists, samples.gt_labels,
-                                              dets.mask, None)
+                                              dets.mask, None, state.dp)
     else:
         if gumbel is None:
             gumbel = draw_gumbel(model, batch.boxes.shape[1], batch.boxes.shape[0],
@@ -285,7 +314,13 @@ def forward_backward(state: TrainState, batch,
         if out.relness_logits is not None:  # BGNN's relness pre-classifier
             losses["pre_rel_classify_loss"] = rel_aware_focal_loss(
                 out.relness_logits, samples.labels, samples.mask,
-                model.num_rel_classes)
+                model.num_rel_classes, dp=state.dp)
+            if collect_diagnostics:
+                diagnostics = {
+                    "rel_pn-train_y": samples.labels > 0,
+                    "rel_pn-train_pred": torch.sigmoid(
+                        out.relness_logits[..., -1].detach().float()),
+                    "mask": samples.mask}
         if out.attribute_logits is not None:
             losses["attribute_loss"] = _attribute_loss(
                 state, out.attribute_logits, batch, attribute_draws)
@@ -296,22 +331,33 @@ def forward_backward(state: TrainState, batch,
             # moves the loss value, not the update; a legacy predictor's
             # refined logits train on it.
             losses["obj_loss"] = weighted_ce_loss(out.obj_dists, batch.labels,
-                                                  batch.box_mask, None)
+                                                  batch.box_mask, None, state.dp)
     loss = sum(losses.values())
     loss.backward()
-    return {"loss": loss.detach(), **{k: v.detach() for k, v in losses.items()}}
+    metrics = {"loss": loss.detach(), **{k: v.detach() for k, v in losses.items()}}
+    if diagnostics is not None:
+        metrics["buffer"] = diagnostics
+    return metrics
 
 
 def train_on_pairs(state: TrainState, batch,
                    samples: Union[RelSample, DetSample], lr_scale: float,
                    member: Optional[torch.Tensor] = None,
                    attribute_draws: Optional[torch.Tensor] = None,
-                   gumbel: Optional[torch.Tensor] = None) -> Dict[str, object]:
+                   gumbel: Optional[torch.Tensor] = None,
+                   collect_diagnostics: bool = False) -> Dict[str, object]:
     """Forward, loss, backward and update on the given pairs (with MEET
     routed by ``member``, the attribute loss's negatives ranked by
-    ``attribute_draws``, VCTree's decoder fed ``gumbel``, when given)."""
+    ``attribute_draws``, VCTree's decoder fed ``gumbel``, when given).
+    Under ``state.dp`` the samples are this rank's rows, and the gradients
+    and losses are summed over the ranks before the update."""
     metrics = forward_backward(state, batch, samples, member, attribute_draws,
-                               gumbel)
+                               gumbel, collect_diagnostics=collect_diagnostics)
+    if state.dp is not None:
+        names = [k for k in metrics if k != "buffer"]
+        summed = all_reduce_grads(state.optimizer.params, state.dp.group,
+                                  extra=[metrics[k] for k in names])
+        metrics.update(zip(names, summed))
     grad_norm = state.optimizer.step(lr_scale)
     state.step += 1
     return {**metrics, "grad_norm": grad_norm.detach(),
@@ -321,15 +367,19 @@ def train_on_pairs(state: TrainState, batch,
 def train_step(state: TrainState, batch, generator: torch.Generator,
                lr_scale: float, batch_size_per_image: int = 1024,
                positive_fraction: float = 0.25, num_sample_per_gt_rel: int = 4,
-               require_overlap: bool = False) -> Dict[str, object]:
+               require_overlap: bool = False,
+               collect_diagnostics: bool = False) -> Dict[str, object]:
     """One whole step: sample the pairs (in SGDet: detect, then sample over
     the detections with ``num_sample_per_gt_rel`` and ``require_overlap``),
-    then train on them."""
+    then train on them; under ``state.dp`` the ranks' step over the global
+    batch."""
     if state.model.mode == "sgdet":
         samples = sample_detections(state.model, batch, generator,
                                     batch_size_per_image, positive_fraction,
-                                    num_sample_per_gt_rel, require_overlap)
+                                    num_sample_per_gt_rel, require_overlap,
+                                    state.dp)
     else:
         samples = sample_pairs(batch, generator, batch_size_per_image,
-                               positive_fraction)
-    return train_on_pairs(state, batch, samples, lr_scale)
+                               positive_fraction, state.dp)
+    return train_on_pairs(state, batch, samples, lr_scale,
+                          collect_diagnostics=collect_diagnostics)

@@ -60,7 +60,16 @@ class BatchNorm2d(nn.BatchNorm2d):
     variance included (torch's own ``F.batch_norm`` would store the
     unbiased one).  ``momentum`` is flax's (the kept share, default 0.9);
     torch's attribute of that name holds ``1 - momentum``.
+
+    Under data parallelism (``dp``, a ``distributed.DataParallel`` that
+    ``distributed.attach`` sets) the training statistics are the global
+    batch's: the f32 sums and the count are all-reduced, the gradient
+    flowing back through the reduction, and flax's arithmetic is applied
+    to the global sums (``nn.SyncBatchNorm``'s Welford merge and unbiased
+    running variance are not flax's).
     """
+
+    dp = None
 
     def __init__(self, features: int, momentum: float = 0.9):
         super().__init__(features, eps=1e-5, momentum=1.0 - momentum)
@@ -73,7 +82,10 @@ class BatchNorm2d(nn.BatchNorm2d):
 class BatchNorm1d(nn.BatchNorm1d):
     """:class:`BatchNorm2d`'s arithmetic over the last axis of (..., F): in
     training the statistics of every row of every leading axis, padded rows
-    included, as flax's ``BatchNorm`` takes them."""
+    included, as flax's ``BatchNorm`` takes them (the global batch's under
+    ``dp``)."""
+
+    dp = None
 
     def __init__(self, features: int, momentum: float = 0.9):
         super().__init__(features, eps=1e-5, momentum=1.0 - momentum)
@@ -86,8 +98,11 @@ class BatchNorm1d(nn.BatchNorm1d):
 def _flax_batch_norm(bn, x: torch.Tensor, dims, view) -> torch.Tensor:
     xf = x.float()
     if bn.training:
-        mean = xf.mean(dim=dims)
-        var = torch.clamp((xf * xf).mean(dim=dims) - mean * mean, min=0.0)
+        if bn.dp is None:
+            mean = xf.mean(dim=dims)
+            var = torch.clamp((xf * xf).mean(dim=dims) - mean * mean, min=0.0)
+        else:
+            mean, var = _global_moments(bn.dp, xf, dims)
         keep = bn.keep
         with torch.no_grad():
             bn.running_mean.copy_(keep * bn.running_mean + (1.0 - keep) * mean)
@@ -97,6 +112,21 @@ def _flax_batch_norm(bn, x: torch.Tensor, dims, view) -> torch.Tensor:
     mul = torch.rsqrt(var + bn.eps) * bn.weight
     y = (xf - mean.view(view)) * mul.view(view)
     return (y + bn.bias.view(view)).to(x.dtype)
+
+
+def _global_moments(dp, xf: torch.Tensor, dims):
+    """The mean and flax's fast variance ``max(E[x^2] - E[x]^2, 0)`` of
+    ``xf`` over ``dims`` of every rank's batch: Σx, Σx² and the count in one
+    all-reduce whose backward all-reduces the gradient."""
+    count = 1
+    for d in dims:
+        count *= xf.shape[d]
+    s1, s2 = xf.sum(dim=dims), (xf * xf).sum(dim=dims)
+    sums = dp.sum(torch.cat([s1, s2, s1.new_full((1,), float(count))]))
+    c = s1.shape[0]
+    n = sums[2 * c]
+    mean = sums[:c] / n
+    return mean, torch.clamp(sums[c: 2 * c] / n - mean * mean, min=0.0)
 
 
 class LayerNorm(nn.Module):

@@ -36,6 +36,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...engine import distributed
 from ...ops.nms import first_argmax
 from ..layers import Dense
 from .predictor_veto import VetoTrunk, weighted_ce_loss
@@ -139,20 +140,23 @@ class MeetPredictor(nn.Module):
 
 # ------------------------------------------------------------- training
 def meet_route(generator: torch.Generator, labels: torch.Tensor,
-               mask: torch.Tensor, incre_idx, sample_rate) -> torch.Tensor:
+               mask: torch.Tensor, incre_idx, sample_rate,
+               dp=None) -> torch.Tensor:
     """Group membership (..., G) bool of each sample: a background sample
     goes to one group drawn uniformly, a foreground one to the groups
     ``[0, act)`` where ``act`` is the largest stage whose threshold accepts
     one uniform draw, or whose number is below the label's own group; a
     masked sample to none.  Draws (first the background groups, then the
-    uniforms) from ``generator``, on the labels' device."""
+    uniforms) from ``generator``, on the labels' device; under data
+    parallelism (``dp``) this rank's rows of draws at the global batch's
+    size."""
     dev = labels.device
     incre_idx = torch.as_tensor(incre_idx, device=dev)
     sample_rate = torch.as_tensor(sample_rate, device=dev)
     g = sample_rate.shape[0]
     safe = labels.clamp(min=0).long()
-    bg_group = torch.randint(0, g, labels.shape, generator=generator, device=dev)
-    u = torch.rand(labels.shape, generator=generator, device=dev)
+    bg_group = distributed.randint(dp, 0, g, labels.shape, generator, dev)
+    u = distributed.rand(dp, labels.shape, generator, dev)
     acts = torch.arange(1, g + 1, device=dev)
     thresholds = sample_rate[:, safe].movedim(0, -1)                   # (..., G)
     cond = (u[..., None] <= thresholds) | (acts < incre_idx[safe][..., None])
@@ -178,20 +182,22 @@ def meet_group_labels(labels: torch.Tensor,
 
 def meet_losses(generator: Optional[torch.Generator], group_logits, labels,
                 mask, incre_idx, sample_rate, group_sizes: Sequence[int],
-                member: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+                member: Optional[torch.Tensor] = None,
+                dp=None) -> Dict[str, torch.Tensor]:
     """The cross-entropy of each (expert, group) head over the samples
     routed to it, no class weights, keyed ``group_{k}{e+1}_CE_loss``
     expert-major.  The routing is :func:`meet_route`'s draw from
     ``generator``, shared by the experts, unless ``member`` (..., G) is
-    given.  A group no sample reached has loss 0."""
+    given.  A group no sample reached has loss 0.  Under data parallelism
+    (``dp``) each loss takes the global batch's denominator."""
     if member is None:
-        member = meet_route(generator, labels, mask, incre_idx, sample_rate)
+        member = meet_route(generator, labels, mask, incre_idx, sample_rate, dp)
     glabels = meet_group_labels(labels, group_sizes)
     losses = {}
     for e, expert in enumerate(group_logits):
         for k, logits in enumerate(expert):
             losses[f"group_{k}{e + 1}_CE_loss"] = weighted_ce_loss(
-                logits, glabels[k], member[..., k] & mask, None)
+                logits, glabels[k], member[..., k] & mask, None, dp)
     return losses
 
 

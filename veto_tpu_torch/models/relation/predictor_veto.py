@@ -36,6 +36,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...engine import distributed
 from ...ops.box_ops import center_xywh, xyxy_to_xywh
 from ...ops.fused_encoder import (
     EncoderLayerParams, _gelu_exact, _gelu_grad, _ln, fused_encoder_layer,
@@ -70,10 +71,13 @@ def beta_class_weights(pred_counts, beta: float = 0.999) -> np.ndarray:
 
 def weighted_ce_loss(logits: torch.Tensor, labels: torch.Tensor,
                      mask: torch.Tensor,
-                     class_weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     class_weights: Optional[torch.Tensor] = None,
+                     dp=None) -> torch.Tensor:
     """Mean weighted cross-entropy over the valid entries (``mask``):
     ``sum(w_y nll) / max(sum(w_y), 1e-6)``, torch's
-    ``CrossEntropyLoss(weight=w)``; labels of masked entries are ignored."""
+    ``CrossEntropyLoss(weight=w)``; labels of masked entries are ignored.
+    Under data parallelism (``dp``) the denominator is the global batch's:
+    this rank's share of the global loss."""
     safe = torch.where(mask, labels, 0).long()
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -logp.gather(-1, safe[..., None])[..., 0]
@@ -81,7 +85,7 @@ def weighted_ce_loss(logits: torch.Tensor, labels: torch.Tensor,
         w = mask.float()
     else:
         w = torch.where(mask, class_weights[safe], 0.0)
-    return (nll * w).sum() / torch.clamp(w.sum(), min=1e-6)
+    return (nll * w).sum() / torch.clamp(distributed.total(dp, w.sum()), min=1e-6)
 
 
 class MaskedBatchNorm(nn.Module):
@@ -91,8 +95,13 @@ class MaskedBatchNorm(nn.Module):
     rows only, in f32 (``cnt = max(sum(mask), 1)``, biased variance), and
     the running ones updated with momentum 0.001 (``0.999 running + 0.001
     batch``).  The normalization runs in the input's dtype, as in the JAX
-    module.
+    module.  Under data parallelism (``dp``, set by
+    ``distributed.attach``) the statistics are the global batch's: the
+    count and both sums are all-reduced, the gradient flowing back through
+    the reductions.
     """
+
+    dp = None
 
     def __init__(self, features: int, eps: float = 1e-5,
                  momentum: float = 0.001):
@@ -108,9 +117,15 @@ class MaskedBatchNorm(nn.Module):
         if self.training:
             m = mask.reshape(-1).float()[:, None]
             flat = x.reshape(-1, x.shape[-1]).float()
-            cnt = torch.clamp(m.sum(), min=1.0)
-            mean = (flat * m).sum(0) / cnt
-            var = ((flat - mean).square() * m).sum(0) / cnt
+            if self.dp is None:
+                cnt = torch.clamp(m.sum(), min=1.0)
+                mean = (flat * m).sum(0) / cnt
+                var = ((flat - mean).square() * m).sum(0) / cnt
+            else:
+                sums = self.dp.sum(torch.cat([(flat * m).sum(0), m.sum().reshape(1)]))
+                cnt = torch.clamp(sums[-1], min=1.0)
+                mean = sums[:-1] / cnt
+                var = self.dp.sum(((flat - mean).square() * m).sum(0)) / cnt
             with torch.no_grad():
                 k = self.momentum
                 self.running_mean.copy_((1 - k) * self.running_mean + k * mean)

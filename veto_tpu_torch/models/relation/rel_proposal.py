@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...engine import distributed
 from ...ops.box_ops import encode_box_info
 from ..layers import Dense, LayerNorm
 from .legacy.context import soft_embed, take_rows
@@ -74,11 +75,14 @@ class RelAwareRelFeature(nn.Module):
 
 def rel_aware_focal_loss(logits: torch.Tensor, rel_labels: torch.Tensor,
                          pair_mask: torch.Tensor, num_rel_classes: int,
-                         alpha: float = 1.0, gamma: float = 2.0) -> torch.Tensor:
+                         alpha: float = 1.0, gamma: float = 2.0,
+                         dp=None) -> torch.Tensor:
     """The focal BCE of the (B, P, C) hybrid logits against the one-hot
     foreground class and the binary foreground column, summed over the
     classes and the valid pairs of each image, divided by the count of
-    positive targets of the batch (at least 1), averaged over the images."""
+    positive targets of the batch (at least 1), averaged over the images.
+    Under data parallelism (``dp``) the count and the number of images
+    are the global batch's: this rank's share of the global loss."""
     fg = rel_labels > 0
     onehot = F.one_hot(torch.clamp(rel_labels, min=0).long(),
                        num_rel_classes)[..., 1:].float()
@@ -88,5 +92,7 @@ def rel_aware_focal_loss(logits: torch.Tensor, rel_labels: torch.Tensor,
     bce = torch.clamp(x, min=0) - x * targets + torch.log1p(torch.exp(-x.abs()))
     focal = alpha * (1.0 - torch.exp(-bce)) ** gamma * bce
     focal = torch.where(pair_mask[..., None], focal, 0.0).sum(-1)
-    n_fg = torch.clamp((targets > 0).sum(), min=1)
-    return (focal.sum(-1) / n_fg).mean()
+    n_fg = torch.clamp(distributed.total(dp, (targets > 0).sum()), min=1)
+    if dp is None:
+        return (focal.sum(-1) / n_fg).mean()
+    return (focal.sum(-1) / n_fg).sum() / (focal.shape[0] * dp.world)

@@ -9,6 +9,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from ...engine import distributed
 from ...ops.box_ops import box_iou
 
 
@@ -68,7 +69,7 @@ def _rank(x: torch.Tensor) -> torch.Tensor:
 
 def gtbox_relsample(rel_matrix: torch.Tensor, box_mask: torch.Tensor,
                     generator: torch.Generator, batch_size: int = 1024,
-                    positive_fraction: float = 0.25) -> RelSample:
+                    positive_fraction: float = 0.25, dp=None) -> RelSample:
     """Training pairs over GT boxes, batched (JAX ``gtbox_relsample``).
 
     rel_matrix (B, N, N) predicate per GT pair (0 none, -1 a dropped
@@ -81,6 +82,8 @@ def gtbox_relsample(rel_matrix: torch.Tensor, box_mask: torch.Tensor,
 
     The draws come from ``generator`` (on the tensors' device); they cannot
     repeat ``jax.random``'s, so the sampler is held to the rules above.
+    Under data parallelism (``dp``) each draw is made at the global batch's
+    size and this rank keeps its own images' rows.
     """
     b, n = box_mask.shape
     dev = box_mask.device
@@ -92,7 +95,7 @@ def gtbox_relsample(rel_matrix: torch.Tensor, box_mask: torch.Tensor,
     valid = box_mask[:, ii] & box_mask[:, jj] & (ii != jj)
     fg = valid & (flat_rel > 0)
     bg = valid & (flat_rel <= 0)
-    r = torch.rand((2, b, big), generator=generator, device=dev)
+    r = distributed.rand(dp, (2, b, big), generator, dev, batch_dim=1)
     inf = torch.full((), float("inf"), device=dev)
     fg_rank = _rank(torch.where(fg, r[0], inf))
     bg_rank = _rank(torch.where(bg, r[1], inf))
@@ -125,7 +128,7 @@ def detect_relsample(rel_matrix: torch.Tensor, rel_matrix_all: torch.Tensor,
                      batch_size: int = 1024, positive_fraction: float = 0.25,
                      num_sample_per_gt_rel: int = 4, fg_thres: float = 0.5,
                      require_overlap: bool = False,
-                     max_gt_rels: int = 160) -> DetRelSample:
+                     max_gt_rels: int = 160, dp=None) -> DetRelSample:
     """SGDet training pairs over the detections, batched (JAX
     ``detect_relsample``; the reference's ``detect_relsample`` with
     ``motif_rel_fg_bg_sampling``).
@@ -162,6 +165,9 @@ def detect_relsample(rel_matrix: torch.Tensor, rel_matrix_all: torch.Tensor,
 
     The draws come from ``generator`` (on the tensors' device); they cannot
     repeat ``jax.random``'s, so the sampler is held to the rules above.
+    Under data parallelism (``dp``) each draw is made at the global batch's
+    size (its other axes are the padded shapes: GT boxes, detections) and
+    this rank keeps its own images' rows.
     """
     b, t = tgt_mask.shape
     d = prp_mask.shape[1]
@@ -201,7 +207,7 @@ def detect_relsample(rel_matrix: torch.Tensor, rel_matrix_all: torch.Tensor,
 
     # ---- at most K pairs a GT relation, weighted: Gumbel top-k
     w = rows(ious, rel_h)[:, :, :, None] * rows(ious, rel_t)[:, :, None, :]
-    u = torch.rand((b, r, d * d), generator=generator, device=dev)
+    u = distributed.rand(dp, (b, r, d * d), generator, dev)
     gumbel = -torch.log(-torch.log(u.clamp(min=torch.finfo(torch.float32).tiny)))
     key = torch.where(cand.reshape(b, r, -1),
                       torch.log(w.reshape(b, r, -1).clamp(min=1e-20)) + gumbel,
@@ -215,7 +221,7 @@ def detect_relsample(rel_matrix: torch.Tensor, rel_matrix_all: torch.Tensor,
     fg_lab_all = rel_lab_all[..., None].expand(-1, -1, kk).reshape(b, -1)
 
     # the foreground cap, a uniform draw
-    uf = torch.rand(fg_sel.shape, generator=generator, device=dev)
+    uf = distributed.rand(dp, fg_sel.shape, generator, dev)
     fg_rank = _rank(torch.where(fg_sel, uf, inf))
     fg_keep = fg_sel & (fg_rank < num_pos)
     num_fg = fg_keep.sum(1, keepdim=True)
@@ -234,7 +240,7 @@ def detect_relsample(rel_matrix: torch.Tensor, rel_matrix_all: torch.Tensor,
     num_neg = torch.minimum(batch_size - num_fg, possibility.sum(1, keepdim=True))
     q_rank = _rank(torch.where(possibility, -quality, inf))
     eligible = possibility & (q_rank < 2 * num_neg)
-    ub = torch.rand(possibility.shape, generator=generator, device=dev)
+    ub = distributed.rand(dp, possibility.shape, generator, dev)
     bg_rank = _rank(torch.where(eligible, ub, inf))
     bg_keep = eligible & (bg_rank < num_neg)
 

@@ -584,54 +584,58 @@ def build_model(cfg, device=None, seed: int = None,
             f"{cfg.model.stage_with_dcn}: the port has the ResNet-FPN bodies and "
             "VGG-16, without deformable convs (ROADMAP queue A14 item 10)")
     m = cfg.model
-    model = SGGModel(
-        num_obj_classes=cfg.model.num_obj_classes,
-        num_rel_classes=cfg.relation.num_classes, mode=cfg.relation.mode,
-        stage_blocks=cfg.model.stage_blocks, groups=cfg.model.resnet_groups,
-        width_per_group=cfg.model.resnet_width_per_group,
-        fpn_channels=cfg.model.fpn_channels,
-        pooler_resolution=cfg.relation.pooler_resolution,
-        pooler_scales=(0.0625,) if vgg else cfg.relation.pooler_scales,
-        pooler_sampling_ratio=cfg.relation.pooler_sampling_ratio,
-        veto_dim=cfg.veto.t_input_dim, veto_layers=cfg.veto.enc_layers,
-        veto_heads=cfg.veto.nheads, veto_patch_size=cfg.veto.patch_size,
-        veto_depth_proj_dim=cfg.veto.depth_proj_dim,
-        veto_visual_proj_dim=cfg.veto.visual_proj_dim,
-        fold_bn=cfg.model.fold_bn,
-        dtype=torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32,
-        veto_encoder_impl=cfg.veto.encoder_impl,
-        box_pooler_resolution=cfg.model.box_pooler_resolution,
-        box_mlp_dim=cfg.model.box_mlp_head_dim,
-        # the RPN and box-head budgets as the JAX tool builds the model
-        # (tools/relation_train_net.py:260-272): the test budgets in
-        # training too, the fpn post-NMS budget = the post-NMS one
-        anchor_sizes=(tuple(m.anchor_sizes),) if vgg else m.anchor_sizes,
-        anchor_strides=(16,) if vgg else m.anchor_strides,
-        aspect_ratios=cfg.model.aspect_ratios,
-        rpn_pre_nms_top_n=cfg.model.rpn_pre_nms_top_n_test,
-        rpn_post_nms_top_n=cfg.model.rpn_post_nms_top_n_test,
-        rpn_nms_thresh=cfg.model.rpn_nms_thresh,
-        rpn_fpn_post_nms_top_n=cfg.model.rpn_post_nms_top_n_test,
-        box_score_thresh=cfg.model.box_score_thresh,
-        box_nms_thresh=cfg.model.box_nms_thresh,
-        nms_filter_duplicates=cfg.model.nms_filter_duplicates,
-        detections_per_img=cfg.model.box_detections_per_img,
-        meet_group_sizes=meet.group_sizes if meet else None,
-        meet_experts=meet.experts_per_group if meet else 1,
-        train_detector=train_detector,
-        attribute_on=m.attribute_on, num_attributes=m.num_attributes,
-        mask_on=m.mask_on, mask_conv_layers=m.mask_conv_layers,
-        mask_pooler_resolution=m.mask_pooler_resolution,
-        keypoint_on=m.keypoint_on, num_keypoints=m.num_keypoints,
-        keypoint_conv_layers=m.keypoint_conv_layers,
-        keypoint_pooler_resolution=m.keypoint_pooler_resolution,
-        predictor=predictor,
-        context_hidden_dim=cfg.relation.context_hidden_dim,
-        context_pooling_dim=cfg.relation.context_pooling_dim,
-        backbone_type=cfg.model.backbone,
-        bgnn_rel_aware=cfg.relation.rel_aware,
-        bgnn_mp_valid_pairs=cfg.relation.mp_valid_pairs,
-    ).to(dev)
+    # constructed on its device (the default initialisation there is cheap;
+    # init_weights then overwrites every parameter and BatchNorm statistic)
+    with torch.device(dev):
+        model = SGGModel(
+            num_obj_classes=cfg.model.num_obj_classes,
+            num_rel_classes=cfg.relation.num_classes, mode=cfg.relation.mode,
+            stage_blocks=cfg.model.stage_blocks, groups=cfg.model.resnet_groups,
+            width_per_group=cfg.model.resnet_width_per_group,
+            fpn_channels=cfg.model.fpn_channels,
+            pooler_resolution=cfg.relation.pooler_resolution,
+            pooler_scales=(0.0625,) if vgg else cfg.relation.pooler_scales,
+            pooler_sampling_ratio=cfg.relation.pooler_sampling_ratio,
+            veto_dim=cfg.veto.t_input_dim, veto_layers=cfg.veto.enc_layers,
+            veto_heads=cfg.veto.nheads, veto_patch_size=cfg.veto.patch_size,
+            veto_depth_proj_dim=cfg.veto.depth_proj_dim,
+            veto_visual_proj_dim=cfg.veto.visual_proj_dim,
+            fold_bn=cfg.model.fold_bn,
+            dtype=torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32,
+            veto_encoder_impl=cfg.veto.encoder_impl,
+            box_pooler_resolution=cfg.model.box_pooler_resolution,
+            box_mlp_dim=cfg.model.box_mlp_head_dim,
+            # the RPN and box-head budgets as the JAX tool builds the model
+            # (tools/relation_train_net.py:260-272): the test budgets in
+            # training too, the fpn post-NMS budget = the post-NMS one
+            anchor_sizes=(tuple(m.anchor_sizes),) if vgg else m.anchor_sizes,
+            anchor_strides=(16,) if vgg else m.anchor_strides,
+            aspect_ratios=cfg.model.aspect_ratios,
+            rpn_pre_nms_top_n=cfg.model.rpn_pre_nms_top_n_test,
+            rpn_post_nms_top_n=cfg.model.rpn_post_nms_top_n_test,
+            rpn_nms_thresh=cfg.model.rpn_nms_thresh,
+            rpn_fpn_post_nms_top_n=cfg.model.rpn_post_nms_top_n_test,
+            box_score_thresh=cfg.model.box_score_thresh,
+            box_nms_thresh=cfg.model.box_nms_thresh,
+            nms_filter_duplicates=cfg.model.nms_filter_duplicates,
+            detections_per_img=cfg.model.box_detections_per_img,
+            meet_group_sizes=meet.group_sizes if meet else None,
+            meet_experts=meet.experts_per_group if meet else 1,
+            train_detector=train_detector,
+            attribute_on=m.attribute_on, num_attributes=m.num_attributes,
+            mask_on=m.mask_on, mask_conv_layers=m.mask_conv_layers,
+            mask_pooler_resolution=m.mask_pooler_resolution,
+            keypoint_on=m.keypoint_on, num_keypoints=m.num_keypoints,
+            keypoint_conv_layers=m.keypoint_conv_layers,
+            keypoint_pooler_resolution=m.keypoint_pooler_resolution,
+            predictor=predictor,
+            context_hidden_dim=cfg.relation.context_hidden_dim,
+            context_pooling_dim=cfg.relation.context_pooling_dim,
+            backbone_type=cfg.model.backbone,
+            bgnn_rel_aware=cfg.relation.rel_aware,
+            bgnn_mp_valid_pairs=cfg.relation.mp_valid_pairs,
+        )
+    model = model.to(dev)
     init_weights(model, cfg.solver.seed if seed is None else seed)
     return model.eval()
 

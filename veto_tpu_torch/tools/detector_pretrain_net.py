@@ -96,6 +96,7 @@ def train(cfg, device=None, log=print, model=None, datasets=None):
     datasets; by default both are built from ``cfg``."""
     import torch
 
+    from ..engine import distributed
     from ..engine.batch import DeviceFeeder
     from ..engine.pretrain import (
         create_detector_state, detector_budgets, detector_train_step,
@@ -107,6 +108,8 @@ def train(cfg, device=None, log=print, model=None, datasets=None):
     from ..utils.preemption import PreemptionGuard
     from .relation_train_net import batches_for, build_dataset
 
+    distributed.refuse_ranks("detector pretraining (its losses have their "
+                             "own denominators)")
     solver = cfg.solver
     budgets = detector_budgets(cfg)
     train_ds, val_ds = datasets if datasets is not None else (

@@ -36,11 +36,20 @@ its MEET heads under ``ensemble.enabled`` (``*_MEET`` names, and
 the PredCls / SGCls predictions).  ``configs/vgg_vg_predcls.yaml``
 evaluates VETO on the single-scale VGG-16 detector.
 
+Under ``torchrun --nproc_per_node=W -m veto_tpu_torch.tools.relation_test_net``
+(or a process group the caller started) each rank evaluates its shard of
+the split (``[rank::W]``, ``test.ims_per_batch`` images a batch) and, with
+``test.sync_gather``, the ranks' evaluators are merged
+(``engine/gather.py``): every rank then holds the split's metrics, and
+rank 0 writes the files.  With W > 1 only the configurations of
+``distributed.SCOPE`` run (ROADMAP queue A12b).  ``global_buffer_on`` is
+taken: the eval step returns no diagnostics (as in the JAX tool), so the
+buffer stays empty and nothing is written.
+
 Not yet ported (they raise ``NotImplementedError``, naming the slice that
-brings them): the output keys ``test.save_plots``,
-``test.save_visual_info`` and ``global_buffer_on``, the other legacy
-predictors (Causal, KERN, AGRCNN, Naive, RelatednessTest), stage-wise
-recall, multi-device evaluation.  The bbox-aug test-time
+brings them): the output keys ``test.save_plots`` and
+``test.save_visual_info``, the other legacy predictors (Causal, KERN,
+AGRCNN, Naive, RelatednessTest), stage-wise recall.  The bbox-aug test-time
 augmentation (``test.bbox_aug_*``, ``engine/bbox_aug.py``) serves the
 detector tools' evaluation (``detector_pretest_net``); this tool, like the
 JAX package's, does not run it.
@@ -89,13 +98,23 @@ def make_sgg_evaluator(cfg, train_ds=None, eval_ds=None):
         zs = load_zeroshot_triplets_file(cfg.test.zeroshot_file)
     elif (cfg.test.zeroshot_eval and hasattr(train_ds, "relationships")
           and hasattr(eval_ds, "relationships")):
+        from ..engine.distributed import is_main
+
+        from ..utils.checkpoint import atomic_write
+
         cache = os.path.join(cfg.output_dir, "zeroshot_triplets.npy")
         if os.path.exists(cache):
             zs = np.load(cache)
         else:
             zs = compute_zeroshot_triplets(train_ds, eval_ds)
-            os.makedirs(cfg.output_dir, exist_ok=True)
-            np.save(cache, zs)
+            if is_main():  # every rank computes the same set
+                os.makedirs(cfg.output_dir, exist_ok=True)
+
+                def write(tmp):  # renamed into place whole: other ranks read it
+                    with open(tmp, "wb") as f:
+                        np.save(f, zs)
+
+                atomic_write(cache, write)
     parts = None
     if (cfg.test.longtail_eval and cfg.relation.num_classes == 51
             and "GQA" not in cfg.data.dataset):
@@ -107,7 +126,7 @@ def make_sgg_evaluator(cfg, train_ds=None, eval_ds=None):
 
 
 def evaluate(cfg, device=None, max_batches: int = 0, log=print, model=None,
-             split: str = "test", dataset=None, train_dataset=None):
+             split: str = "test", dataset=None, train_dataset=None, dp=None):
     """Evaluate ``split`` (``max_batches`` batches of it, or all of it; the
     synthetic split has 16 images, or ``max_batches`` batches' worth).
     Returns the evaluator's aggregate (in SGDet with the COCO bbox mAP under
@@ -118,7 +137,12 @@ def evaluate(cfg, device=None, max_batches: int = 0, log=print, model=None,
     ``model`` is an already built :class:`SGGModel`, evaluated as it is; by
     default one is built from ``cfg`` on ``device`` and the latest
     checkpoint of ``output_dir/ckpt`` restored into it.  ``dataset`` (and
-    ``train_dataset``, for the zero-shot triplets) stand in for the files."""
+    ``train_dataset``, for the zero-shot triplets) stand in for the files.
+    Under a process group (joined by :func:`distributed.init_from_env`
+    unless the caller gives its ``dp`` and ``device``) each rank evaluates
+    its shard (``max_batches`` batches of it); with ``test.sync_gather``
+    the aggregate is every rank's images'."""
+    from ..engine import distributed
     from ..evaluation.coco_map import CocoMapEvaluator
     from ..models.sgg import build_model
     from ..utils.checkpoint import CheckpointManager
@@ -128,6 +152,12 @@ def evaluate(cfg, device=None, max_batches: int = 0, log=print, model=None,
     )
 
     refuse_unserved_outputs(cfg)
+    if model is not None:
+        device = next(model.parameters()).device
+    if dp is None:
+        dp, device = distributed.init_from_env(device)
+    rank, world = (0, 1) if dp is None else (dp.rank, dp.world)
+    distributed.check_scope(cfg, world)
 
     if model is None:
         model = build_model(cfg, device)
@@ -141,7 +171,7 @@ def evaluate(cfg, device=None, max_batches: int = 0, log=print, model=None,
     bsz = cfg.test.ims_per_batch
     if dataset is None:
         dataset = (build_dataset(cfg, split) if cfg.data.data_dir else
-                   synthetic_eval_dataset(cfg, max_batches * bsz or 16))
+                   synthetic_eval_dataset(cfg, max_batches * bsz * world or 16))
     if (train_dataset is None and cfg.test.zeroshot_eval and cfg.data.data_dir
             and not cfg.test.zeroshot_file):
         train_dataset = build_dataset(cfg, "train")
@@ -150,23 +180,25 @@ def evaluate(cfg, device=None, max_batches: int = 0, log=print, model=None,
     coco = (CocoMapEvaluator(num_classes=cfg.model.num_obj_classes)
             if cfg.relation.mode == "sgdet" else None)
     agg, seconds = run_validation(model, step,
-                                  batches_for(cfg, dataset, split)(0),
-                                  evaluator, dev, max_batches, log, coco)
+                                  batches_for(cfg, dataset, split, rank, world)(0),
+                                  evaluator, dev, max_batches, log, coco,
+                                  gather=dp if cfg.test.sync_gather else None)
     if coco is not None:
         agg["bbox"] = det = coco.aggregate()
         log(f"detection mAP {det['mAP']:.4f}  AP50 {det['AP50']:.4f}  "
             f"AP75 {det['AP75']:.4f}")
     summary = evaluator.summary_string()
     log(summary)
-    # the summary as a text file, as the JAX tool writes it
-    os.makedirs(cfg.output_dir, exist_ok=True)
-    with open(os.path.join(cfg.output_dir, "evaluation_res.txt"), "w") as f:
-        f.write(summary + "\n")
+    if rank == 0:  # the summary as a text file, as the JAX tool writes it
+        os.makedirs(cfg.output_dir, exist_ok=True)
+        with open(os.path.join(cfg.output_dir, "evaluation_res.txt"), "w") as f:
+            f.write(summary + "\n")
     return agg, seconds
 
 
 def main(argv=None):
     from ..config import load_config
+    from ..engine import distributed
 
     parser = argparse.ArgumentParser(description="VETO relation evaluation "
                                                  "(PyTorch port)")
@@ -179,7 +211,16 @@ def main(argv=None):
     parser.add_argument("opts", nargs="*", default=[])
     args = parser.parse_args(argv)
     cfg = load_config(args.config, args.opts)
-    agg, _ = evaluate(cfg, args.device, args.max_batches, split=args.split)
+    dp, device = distributed.init_from_env(args.device)
+    main_rank = dp is None or dp.rank == 0
+    try:
+        agg, _ = evaluate(cfg, device, args.max_batches, split=args.split,
+                          log=print if main_rank else (lambda *_: None), dp=dp)
+    finally:
+        if dp is not None:
+            distributed.shutdown()
+    if not main_rank:
+        return agg
     out = {m: {str(k): v for k, v in vals.items()} for m, vals in agg.items()
            if m != "mR_per_class" and isinstance(vals, dict)}
     os.makedirs(cfg.output_dir, exist_ok=True)

@@ -59,11 +59,35 @@ refined object logits train on ``obj_loss``, and VCTree adds
 ``binary_loss``.  ``configs/vgg_vg_predcls.yaml`` (``model.backbone=
 VGG-16``) trains on the single-scale VGG-16 detector.
 
+Data-parallel training over W processes, one a card::
+
+    torchrun --nproc_per_node=W -m veto_tpu_torch.tools.relation_train_net \\
+        --config configs/veto_vg_predcls.yaml [opts ...]
+
+(or :func:`train` under a process group the caller has started).  Each
+rank reads its shard of the data (``SGGLoader(rank=, world=)``) at
+``solver.ims_per_batch // W`` images a step, the global batch staying
+``solver.ims_per_batch``; the W ranks' step is the one-process step on the
+global batch (``engine/distributed.py``).  Validation evaluates each
+rank's shard and, with ``test.sync_gather``, merges the evaluators over the
+ranks (``engine/gather.py``), so that every rank feeds the same mR@100 to
+the plateau decay and the early stop; the preemption flag is agreed at
+every step.  Only rank 0 writes the checkpoints, ``metrics.jsonl``, the
+log file and ``inter_data_buffer.pkl``; every rank restores.  With W > 1
+only the configurations of ``distributed.SCOPE`` run; the others raise
+``NotImplementedError`` (ROADMAP queue A12b).
+
+``global_buffer_on``: for a predictor with relness logits (BGNN or MSDN
+with ``relation.rel_aware``) each step's relness targets and scores go to
+the global buffer (``utils/global_buffer.py``: ``rel_pn-train_y``,
+``rel_pn-train_pred``, the valid pairs' rows, gathered over the ranks),
+pickled to ``output_dir/inter_data_buffer.pkl`` at the end.
+
 Not yet ported (they raise ``NotImplementedError``): the output keys
-``test.save_plots``, ``test.save_visual_info`` and ``global_buffer_on``
+``test.save_plots`` and ``test.save_visual_info``
 (:data:`UNSERVED_OUTPUTS`), the other legacy predictors (Causal, KERN,
 AGRCNN, Naive, RelatednessTest: their slices of A14), the other loss
-variants, Open Images data (A14), multi-device training.
+variants, Open Images data (A14).
 """
 
 from __future__ import annotations
@@ -83,8 +107,6 @@ UNSERVED_OUTPUTS = (
                         "utils/viz.py's frequency and recall plots)"),
     ("test.save_visual_info", "the tools' other outputs (ROADMAP queue A14 "
                               "item 9: the per-image visual_info dump)"),
-    ("global_buffer_on", "multi-device training (ROADMAP queue A12: "
-                         "utils/global_buffer.py and its rel-PN dump)"),
 )
 
 
@@ -194,22 +216,27 @@ def build_dataset(cfg, split: str):
         resampling=resampling, seed=cfg.solver.seed)
 
 
-def batches_for(cfg, dataset, split: str):
+def batches_for(cfg, dataset, split: str, rank: int = 0, world: int = 1):
     """``gen(max_iter, start_iter=0)`` → (host SGGBatch, records): for
     "train" ``max_iter - start_iter`` batches, else one pass over the split
-    (``max_iter`` ignored)."""
+    (``max_iter`` ignored).  With ``world`` ranks, rank ``rank``'s shard:
+    train batches of ``solver.ims_per_batch // world`` images (eval batches
+    stay ``test.ims_per_batch`` a rank)."""
     from ..data.synthetic import SyntheticSGGDataset
+    from ..engine.distributed import local_batch
 
     train = split == "train"
-    bsz = cfg.solver.ims_per_batch if train else cfg.test.ims_per_batch
+    bsz = (local_batch(cfg.solver.ims_per_batch, world) if train
+           else cfg.test.ims_per_batch)
     if isinstance(dataset, SyntheticSGGDataset):
         def gen(max_iter, start_iter=0):
             if not train:
-                yield from dataset.batches(bsz, cfg.data.max_boxes)
+                yield from dataset.batches(bsz, cfg.data.max_boxes, rank, world)
                 return
             it = start_iter
             while it < max_iter:
-                for batch, recs in dataset.batches(bsz, cfg.data.max_boxes):
+                for batch, recs in dataset.batches(bsz, cfg.data.max_boxes,
+                                                   rank, world):
                     yield batch, recs
                     it += 1
                     if it >= max_iter:
@@ -224,7 +251,7 @@ def batches_for(cfg, dataset, split: str):
         max_size=cfg.data.max_size_train if train else cfg.data.max_size_test,
         pixel_mean=cfg.data.pixel_mean, pixel_std=cfg.data.pixel_std,
         use_depth=cfg.data.use_depth, shuffle=train, seed=cfg.solver.seed,
-        size_divisibility=cfg.data.size_divisibility)
+        size_divisibility=cfg.data.size_divisibility, rank=rank, world=world)
 
     def gen(max_iter, start_iter=0):
         if train:
@@ -317,12 +344,15 @@ def make_eval_fn(cfg, model):
 
 
 def run_validation(model, eval_step, batches, evaluator, device,
-                   max_batches: int = 0, log=None, coco_evaluator=None):
+                   max_batches: int = 0, log=None, coco_evaluator=None,
+                   gather=None):
     """``batches`` (host batches of the val or test split; the first
     ``max_batches`` of them, or all) through :class:`DeviceFeeder`, the eval
     step (the model in eval mode, so its BatchNorms read and keep their
     running statistics; its mode is restored after) and the evaluator (in
-    SGDet also ``coco_evaluator``, when given).
+    SGDet also ``coco_evaluator``, when given).  With ``gather`` (a
+    ``distributed.DataParallel``) the ranks' evaluators are merged first
+    (``sync_gather_evaluator``): the aggregate is then every rank's images'.
     Returns the aggregate and the seconds each batch took from its hand-out
     by the feeder (its pinned copy to the card overlapping the batch before)
     to its predictions back on the host."""
@@ -350,10 +380,14 @@ def run_validation(model, eval_step, batches, evaluator, device,
                             coco_evaluator=coco_evaluator)
     finally:
         model.train(was_training)
+    if gather is not None:
+        from ..engine.gather import sync_gather_evaluator
+
+        sync_gather_evaluator(evaluator, gather.host_group)
     return evaluator.aggregate(), seconds
 
 
-def train(cfg, device=None, log=print, model=None, datasets=None):
+def train(cfg, device=None, log=print, model=None, datasets=None, dp=None):
     """Train to ``solver.max_iter`` (from the latest checkpoint in
     ``output_dir/ckpt`` when there is one).  Returns the train state and
     one dict per step run: loss, rel_loss (with MEET the group_* losses
@@ -364,24 +398,39 @@ def train(cfg, device=None, log=print, model=None, datasets=None):
 
     ``model`` is an already built :class:`SGGModel` (by default one is
     built from ``cfg`` on ``device``); ``datasets`` a (train, val) pair of
-    datasets with the reader's interface (by default :func:`build_dataset`'s)."""
+    datasets with the reader's interface (by default :func:`build_dataset`'s).
+    Under a process group (``torchrun``'s variables, or a group the caller
+    started) this process is one rank of a data-parallel run
+    (:func:`distributed.init_from_env`, unless the caller gives its ``dp``
+    and ``device``); the losses and ``grad_norm`` are the global step's on
+    every rank."""
     import torch
 
     refuse_unserved_outputs(cfg)
+    from ..engine import distributed
     from ..engine.batch import DeviceFeeder
     from ..engine.train import create_train_state, train_step
     from ..models.sgg import build_model
     from ..solver.optim import LRController
+    from ..utils import global_buffer
     from ..utils.checkpoint import CheckpointManager
     from ..utils.logger import JSONLWriter, MetricLogger
     from ..utils.preemption import PreemptionGuard
     from .relation_test_net import make_sgg_evaluator
 
+    if model is not None:
+        device = next(model.parameters()).device
+    if dp is None:
+        dp, device = distributed.init_from_env(device)
+    rank, world = (0, 1) if dp is None else (dp.rank, dp.world)
+    distributed.check_scope(cfg, world)
+    distributed.local_batch(cfg.solver.ims_per_batch, world)  # raises early
     solver = cfg.solver
     loss_variant = cfg.relation.loss_variant
     if cfg.relation.label_smoothing and loss_variant == "weighted_ce":
         loss_variant = "label_smoothing"
-    writer = JSONLWriter(cfg.output_dir, tensorboard=cfg.tensorboard_on)
+    writer = JSONLWriter(cfg.output_dir, tensorboard=cfg.tensorboard_on) if (
+        rank == 0) else None
     train_ds, val_ds = datasets if datasets is not None else (
         build_dataset(cfg, "train"), build_dataset(cfg, "val"))
     if model is None:
@@ -391,9 +440,9 @@ def train(cfg, device=None, log=print, model=None, datasets=None):
     state = create_train_state(model, solver, rel_class_weights(cfg),
                                mode=cfg.relation.mode, loss_variant=loss_variant,
                                meet=build_meet_config(cfg),
-                               attribute_cfg=attribute_config(cfg))
+                               attribute_cfg=attribute_config(cfg), dp=dp)
     state.generator = torch.Generator(device=dev).manual_seed(solver.seed)
-    ckpt = CheckpointManager(os.path.join(cfg.output_dir, "ckpt"))
+    ckpt = CheckpointManager(os.path.join(cfg.output_dir, "ckpt"), dp=dp)
     extra = ckpt.restore(state, log=log)
     start_iter = state.step
     ctrl = LRController(solver)
@@ -401,15 +450,21 @@ def train(cfg, device=None, log=print, model=None, datasets=None):
         ctrl.__dict__.update({k: extra[k] for k in _CTRL_FIELDS if k in extra})
     if start_iter:
         log(f"resumed from iteration {start_iter}")
+    if dp is not None:
+        log(f"rank {rank} of {world} over {dp.backend}: "
+            f"{solver.ims_per_batch // world} images a step on {dev}")
 
     def ctrl_state():
         return {k: getattr(ctrl, k) for k in _CTRL_FIELDS}
 
+    if cfg.global_buffer_on:
+        global_buffer.enable(True, dp)
+    gather = dp if cfg.test.sync_gather else None
     evaluator = make_sgg_evaluator(cfg, train_ds, val_ds)
     eval_step = make_eval_fn(cfg, model)
-    val_gen = batches_for(cfg, val_ds, "val")
-    feeder = DeviceFeeder(
-        batches_for(cfg, train_ds, "train")(solver.max_iter, start_iter), dev)
+    val_gen = batches_for(cfg, val_ds, "val", rank, world)
+    feeder = DeviceFeeder(batches_for(cfg, train_ds, "train", rank, world)(
+        solver.max_iter, start_iter), dev)
     batches = iter(feeder)
 
     def fence():
@@ -429,9 +484,14 @@ def train(cfg, device=None, log=print, model=None, datasets=None):
                            cfg.relation.batch_size_per_image,
                            cfg.relation.positive_fraction,
                            cfg.relation.num_sample_per_gt_rel,
-                           cfg.relation.require_box_overlap)
+                           cfg.relation.require_box_overlap,
+                           collect_diagnostics=cfg.global_buffer_on)
             fence()  # the update's launches included
             now = time.perf_counter()
+            buf = m.pop("buffer", None)
+            if buf is not None:
+                for key in ("rel_pn-train_y", "rel_pn-train_pred"):
+                    global_buffer.store_data(key, buf[key], mask=buf["mask"])
             losses = [k for k in m if k.endswith("loss")]
             rec = {k: float(m[k]) for k in losses + ["grad_norm"]}
             rec.update(lr_scale=scale, seconds=now - t0,
@@ -439,7 +499,7 @@ def train(cfg, device=None, log=print, model=None, datasets=None):
                        image_shape=tuple(batch.images.shape[1:3]))
             history.append(rec)
             meters.update(time=rec["step_seconds"])
-            if it % 30 == 0:
+            if it % 30 == 0 and writer is not None:
                 writer.write(it, {k: rec[k] for k in losses + ["grad_norm",
                                                                "lr_scale"]})
             log(f"iter {it}/{solver.max_iter}  loss {rec['loss']:.4f}  "
@@ -447,7 +507,8 @@ def train(cfg, device=None, log=print, model=None, datasets=None):
                 f"{rec['seconds']:.3f} s on {dev} ({rec['step_seconds']:.3f} s "
                 f"a step, {rec['wait_seconds']:.3f} s waiting for data)  "
                 f"eta {meters.eta_string(it + 1, solver.max_iter)}")
-            if guard.requested:
+            stop = guard.requested if dp is None else dp.agree(guard.requested)
+            if stop:
                 ckpt.save(it + 1, state, extra=ctrl_state())
                 log(f"preemption signal: checkpointed at iter {it + 1}")
                 break
@@ -455,10 +516,16 @@ def train(cfg, device=None, log=print, model=None, datasets=None):
                 ckpt.save(it + 1, state, extra=ctrl_state())
             if (it + 1) % solver.val_period == 0:
                 agg, _ = run_validation(model, eval_step, val_gen(0),
-                                        evaluator, dev)
-                rec["val_mR100"] = mr100 = agg["mR"][100]
+                                        evaluator, dev, gather=gather)
+                mr100 = agg["mR"][100]
+                if dp is not None and gather is None:
+                    # each rank validated its own shard: take rank 0's
+                    # reading, so that every rank decides alike
+                    mr100 = distributed.broadcast_value(mr100, dp)
+                rec["val_mR100"] = mr100
                 log(f"validation @ {it + 1}:\n{evaluator.summary_string()}")
-                writer.write(it + 1, {"val_mR100": mr100})
+                if writer is not None:
+                    writer.write(it + 1, {"val_mR100": mr100})
                 ctrl.report_validation(mr100)  # the plateau signal
                 if ctrl.should_stop:
                     log("max LR decays reached; stopping")
@@ -468,27 +535,41 @@ def train(cfg, device=None, log=print, model=None, datasets=None):
         batches.close()
         guard.restore()
     ckpt.save(state.step, state, extra=ctrl_state())
+    if cfg.global_buffer_on:
+        path = global_buffer.save_buffer(cfg.output_dir)
+        if path:
+            log(f"saved the global buffer: {path}")
     log(f"training done at iteration {state.step}")
     return state, history
 
 
 def main(argv=None):
     from ..config import load_config
+    from ..engine import distributed
     from ..utils.logger import setup_logger
 
     parser = argparse.ArgumentParser(description="VETO relation training "
                                                  "(PyTorch port)")
     parser.add_argument("--config", default=None)
     parser.add_argument("--device", default=None,
-                        help="cuda (default) or cpu")
+                        help="cuda (default; cuda:LOCAL_RANK under torchrun) "
+                             "or cpu")
     parser.add_argument("opts", nargs="*", default=[])
     args = parser.parse_args(argv)
     cfg = load_config(args.config, args.opts)
-    os.makedirs(cfg.output_dir, exist_ok=True)
-    cfg.dump(os.path.join(cfg.output_dir, "config.json"))
-    logger = setup_logger("veto_tpu_torch", cfg.output_dir)
-    _, history = train(cfg, args.device, log=logger.info)
-    print(json.dumps(history[-1] if history else {}))
+    dp, device = distributed.init_from_env(args.device)
+    rank = 0 if dp is None else dp.rank
+    if rank == 0:
+        os.makedirs(cfg.output_dir, exist_ok=True)
+        cfg.dump(os.path.join(cfg.output_dir, "config.json"))
+    logger = setup_logger("veto_tpu_torch", cfg.output_dir, rank=rank)
+    try:
+        _, history = train(cfg, device, log=logger.info, dp=dp)
+    finally:
+        if dp is not None:
+            distributed.shutdown()
+    if rank == 0:
+        print(json.dumps(history[-1] if history else {}))
     return history
 
 

@@ -13,6 +13,12 @@ names it (as the reference's Checkpointer keeps it); the newest ``keep``
 files stay.  A checkpoint restores on any device: tensors are copied to the
 model's device; a generator state saved on another device type is left
 out (the sampler then restarts from its seed, with a log line).
+
+Under data parallelism (``CheckpointManager(dp=)``) only rank 0 writes;
+the other ranks wait at a barrier until the file is in place, so that
+every rank can then restore it.  The ranks' states are equal (the summed
+gradients, the global BatchNorm statistics, the generator kept in step),
+so a checkpoint of a run of W ranks restores into a run of any other W.
 """
 
 from __future__ import annotations
@@ -25,9 +31,10 @@ import torch
 
 
 class CheckpointManager:
-    def __init__(self, directory: str, keep: int = 5):
+    def __init__(self, directory: str, keep: int = 5, dp=None):
         self.directory = os.path.abspath(directory)
         self.keep = keep
+        self.dp = dp
 
     def path(self, step: int) -> str:
         return os.path.join(self.directory, f"model_{step:07d}.pth")
@@ -41,7 +48,11 @@ class CheckpointManager:
             if m)
 
     def save(self, step: int, state, extra: Optional[Dict[str, Any]] = None) -> str:
-        """Persist a :class:`TrainState` at ``step`` (plus host-side extras)."""
+        """Persist a :class:`TrainState` at ``step`` (plus host-side extras);
+        under ``dp`` rank 0 writes and every rank returns once it has."""
+        if self.dp is not None and self.dp.rank != 0:
+            self.dp.barrier()
+            return self.path(step)
         os.makedirs(self.directory, exist_ok=True)
         gen = state.generator
         payload = {
@@ -53,15 +64,17 @@ class CheckpointManager:
             "extra": extra,
         }
         path = self.path(step)
-        _atomic(path, lambda tmp: torch.save(payload, tmp))
+        atomic_write(path, lambda tmp: torch.save(payload, tmp))
 
         def pointer(tmp):
             with open(tmp, "w") as f:
                 f.write(str(step))
 
-        _atomic(os.path.join(self.directory, "last_checkpoint"), pointer)
+        atomic_write(os.path.join(self.directory, "last_checkpoint"), pointer)
         for old in self.steps()[:-self.keep]:
             os.remove(self.path(old))
+        if self.dp is not None:
+            self.dp.barrier()
         return path
 
     def latest_step(self) -> Optional[int]:
@@ -124,7 +137,9 @@ def _groups(param_groups):
     return [(g.get("label"), "betas" in g) for g in param_groups]
 
 
-def _atomic(path: str, write) -> None:
+def atomic_write(path: str, write) -> None:
+    """``write(tmp)`` to a temporary name beside ``path``, then rename it
+    into place: a reader sees the old file or the whole new one."""
     tmp = f"{path}.{os.getpid()}.tmp"
     write(tmp)
     os.replace(tmp, path)
