@@ -210,8 +210,10 @@ catches its own failure:
     (VCTree: the count of forest nodes that differ between the two runs,
     then the logits with the plain run's forest given to both), the
     context's ms (VCTree: the tree build's and one TreeLSTM pass's), the
-    eval forward's busy share; 2 train steps of 12 through ``train`` (B3 2
-    a step, no B3-bwd: the body is frozen and no depth is read; finite
+    eval forward's busy share; one train step of 12 through the engine's
+    ``train_step`` (what ``train`` runs each iteration; phases 10-18 drive
+    the tool's loop and checkpoints) (B3 2, no B3-bwd: the body is frozen
+    and no depth is read; finite
     losses, ``binary_loss`` for VCTree, every trainable tensor changed,
     every trainable BatchNorm's statistics updated, the detector
     bit-unchanged) and one step's gradients against the plain versions, in
@@ -274,9 +276,33 @@ catches its own failure:
     widths kept).  (c) Two ranks over NCCL
     across cards, only when the machine has two; else it says it did not
     run.  The phase prints its seconds.
-22. One JSON line ``{"kernels": [...]}`` (all nine kernels, N1 last;
+22. The rest of the zoo at full width (``phase_zoo_rest``).  The causal
+    predictor (``CausalAnalysisPredictor``, ``TDE`` with the ``gate``
+    fusion), KERN, AGRCNN, Naive and RelatednessTest on the frozen R-101
+    body (``context_hidden_dim`` 512, ``context_pooling_dim`` 4096, bf16),
+    each in PredCls: one eval batch of 8 (2048 pairs an image) through
+    ``evaluate`` with exact launches (B3 2), its logits against the plain
+    versions at phase 5's tolerances, the eval forward's ms and busy
+    share; the head in f32 on image 0's first 512 pairs on the card against
+    the same head on the CPU (1e-4 of the largest |logit|), and its f32
+    forward and backward twice on the card, every gradient bit-equal; one
+    engine train step of 12 (B3 2), finite, its peak memory.  The causal
+    predictor also with ``NIE``, ``TE`` and the ``sum`` fusion, finite.
+    Motifs with ``attribute_on`` (the module on a model with the attribute
+    head, which feeds it): one eval batch (B3 3), its logits and attribute
+    logits against the plain versions, the f32 checks.  The causal
+    predictor and AGRCNN in SGCls (B3 3) and SGDet (B3 3, N1 mask 2, scan
+    2): one eval batch and one train step each; AGRCNN's SGCls batch once
+    more with ``use_obj_recls_logits``, its ``obj_prediction_nms`` labels on
+    the card bit-equal to the CPU's.  The main path (VETO PredCls, 12 x
+    800x1344, 1024 pairs an image) one step with each loss variant
+    (``label_smoothing``, ``ldam``, ``balanced_norm``; B1, B2a, B2b 6, B3 2,
+    B3-bwd 1), the balanced norm's running probability moved and
+    bit-equal after a checkpoint's round trip.  The phase prints its
+    seconds and its numbers.
+23. One JSON line ``{"kernels": [...]}`` (all nine kernels, N1 last;
     ``launches`` from the main path's training run, or the path that runs
-    each, with the counted runs of phases 19 and 20 added) and, last,
+    each, with the counted runs of phases 19, 20 and 22 added) and, last,
     ``{"ok": true, "device": {...}}``.
 
 Every f32 comparison runs with TF32 off (``torch.backends.cudnn.allow_tf32``
@@ -4050,7 +4076,7 @@ def phase_heads():
 # ------------------------------------------------------------------ phase 19
 LEGACY = ("MotifPredictor", "VCTreePredictor", "TransformerPredictor",
           "TransLikePredictor")
-LEGACY_STEPS = 2  # PredCls train steps a predictor
+LEGACY_STEPS = 1  # PredCls train steps a predictor
 
 
 def legacy_cfg(config, predictor, opts=()):
@@ -4123,43 +4149,80 @@ def legacy_evaluate(model, cfg, what, per_batch):
     return ms, peak, counted
 
 
-def legacy_train(model, cfg, per_step, what, steps, datasets=None, idle=()):
-    """``relation_train_net.train`` for ``steps`` full-width steps: exact
-    launches at every step, finite losses (``binary_loss`` for VCTree),
-    every trainable tensor changed (but those under the ``idle`` prefixes,
-    which no loss of the step reaches), the frozen detector bit-unchanged,
-    every trainable BatchNorm's statistics updated.  Returns the state, ms
-    a step (the last), the peak memory and the launches counted."""
-    from veto_tpu_torch.tools.relation_train_net import train
+def engine_steps(model, cfg, per_step, what, steps, dataset=None):
+    """``steps`` engine train steps (``train_step``: what the train tool runs
+    each iteration, without its loop's feeder, logging and checkpoint) of
+    ``solver.ims_per_batch`` images of ``dataset`` (default the synthetic
+    train split), the state built as the tool builds it (the class
+    weights, MEET, the loss variant with LDAM's margins, the seeded
+    generator): exact launches at every step, finite losses and a finite
+    nonzero gradient norm.  Returns the state, each step's losses with its
+    ``seconds``, the peak memory and the launches counted."""
+    from veto_tpu_torch.engine.train import create_train_state, train_step
+    from veto_tpu_torch.ops.losses import ldam_margins
+    from veto_tpu_torch.tools.relation_train_net import (
+        batches_for, build_meet_config, predicate_counts_of, rel_class_weights,
+        synthetic_train_dataset,
+    )
 
-    cfg = cfg.override("solver.max_iter", steps)
+    variant = cfg.relation.loss_variant
+    margins = (ldam_margins(predicate_counts_of(cfg), cfg.relation.ldam_max_m)
+               if variant == "ldam" else None)
+    state = create_train_state(model, cfg.solver, rel_class_weights(cfg),
+                               mode=cfg.relation.mode, loss_variant=variant,
+                               meet=build_meet_config(cfg), ldam_margins=margins)
+    state.generator = torch.Generator(device=DEVICE).manual_seed(cfg.solver.seed)
+    if dataset is None:
+        dataset = synthetic_train_dataset(cfg)
+    gen = batches_for(cfg, dataset, "train")(steps)
+    history, counts = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    read_counters(reset=True)
+    try:
+        for batch, _ in gen:
+            b = batch.to(DEVICE)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = train_step(state, b, state.generator, 1.0,
+                           cfg.relation.batch_size_per_image,
+                           cfg.relation.positive_fraction,
+                           cfg.relation.num_sample_per_gt_rel,
+                           cfg.relation.require_box_overlap)
+            torch.cuda.synchronize()
+            rec = {k: float(v) for k, v in m.items()
+                   if k.endswith("loss") or k == "grad_norm"}
+            history.append(dict(rec, seconds=time.perf_counter() - t0))
+            counts.append(read_counters(reset=True))
+    finally:
+        gen.close()
+    peak = torch.cuda.max_memory_allocated()
+    model.eval()
+    if len(history) != steps or counts != [per_step] * steps:
+        raise AssertionError(f"{what}: launches {counts}, want {per_step} a step")
+    if not all(np.isfinite(v) for r in history for v in r.values()) or not all(
+            r["grad_norm"] > 0 for r in history):
+        raise AssertionError(f"{what}: non-finite or zero losses: {history}")
+    return state, history, peak, add_launches({}, *counts)
+
+
+def legacy_train(model, cfg, per_step, what, steps, datasets=None, idle=()):
+    """:func:`engine_steps` for ``steps`` full-width steps (on the first of
+    ``datasets``, when given): exact launches at every step, finite losses
+    (``binary_loss`` for VCTree), every trainable tensor changed (but those
+    under the ``idle`` prefixes, which no loss of the step reaches), the
+    frozen detector bit-unchanged, every trainable BatchNorm's statistics
+    updated.  Returns the state, ms a step (the last), the peak memory and
+    the launches counted."""
     frozen = frozen_state(model)
     before = {n: p.detach().clone() for n, p in model.named_parameters()
               if p.requires_grad}
     stats0 = {n: b.clone() for n, b in model.named_buffers()
               if not n.startswith("backbone.")
               and n.endswith(("running_mean", "running_var"))}
-    counts = []
-
-    def log(line):
-        if line.startswith("iter "):
-            counts.append(read_counters(reset=True))
-            line += f"  launches {json.dumps(counts[-1])}"
-        print(f"  {line}")
-
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    read_counters(reset=True)
-    try:
-        state, history = train(cfg, model=model, log=log, datasets=datasets)
-    finally:  # a checkpoint of the full-width model holds about 1.7 GB
-        shutil.rmtree(cfg.output_dir, ignore_errors=True)
-    peak = torch.cuda.max_memory_allocated()
-    if counts != [per_step] * steps:
-        raise AssertionError(f"{what}: launches {counts}, want {per_step} a step")
+    state, history, peak, counted = engine_steps(
+        model, cfg, per_step, what, steps, datasets[0] if datasets else None)
     keys = [k for k in history[-1] if k.endswith("loss")] + ["grad_norm"]
-    if not all(np.isfinite(r[k]) for r in history for k in keys):
-        raise AssertionError(f"{what}: non-finite losses: {history}")
     if cfg.relation.predictor.startswith("VCTree") and "binary_loss" not in keys:
         raise AssertionError(f"{what}: no binary_loss")
     for k, v in frozen_state(model).items():
@@ -4177,7 +4240,7 @@ def legacy_train(model, cfg, per_step, what, steps, datasets=None, idle=()):
           f"peak memory {peak / 2 ** 30:.2f} GiB; {len(before)} trainable tensors "
           f"changed, {len(stats0)} BatchNorm statistics updated, {len(frozen)} "
           "detector tensors bit-unchanged")
-    return state, ms, peak, add_launches({}, *counts)
+    return state, ms, peak, counted
 
 
 def legacy_context_ms(model, cfg, b):
@@ -4406,8 +4469,8 @@ def vgg_level_pool(gen, b=8, h=800, w=1344, c=512):
     rois an image): the RGB pool at P = 8 and the box head's at P = 7
     against their plain versions; the backward (its tile rows 2 at 512 bf16
     channels, C and Python agreeing) against the plain backward, two runs
-    bit-equal; the forward's device ms against its bound (bytes).  Returns
-    its numbers."""
+    bit-equal; both kernels' device ms against their bounds (bytes).
+    Returns its numbers."""
     from veto_tpu_torch.ops import cuda_lib
     from veto_tpu_torch.ops import roi_align_windowed as rw
 
@@ -4425,15 +4488,25 @@ def vgg_level_pool(gen, b=8, h=800, w=1344, c=512):
         ref = rw.reference_multilevel_roi_align_batched([fmap], rois, scale, p, 2)
         errs.append(check_close(f"P = {p}", got, ref, atol=1e-5, rtol=1e-5))
     g = torch.randn(b, 80, 8, 8, c, generator=gen, device=DEVICE)
-    got, again = (rw._launch_backward([fmap], [True], rois, g, scale, 8, 2)[0]
-                  for _ in range(2))
+
+    def bwd():
+        return rw._launch_backward([fmap], [True], rois, g, scale, 8, 2)[0]
+
+    got, again = bwd(), bwd()
     ref = rw.reference_multilevel_roi_align_backward([fmap], [True], rois, g, scale,
                                                      8, 2)[0]
     if not torch.equal(got, again):
         raise AssertionError("512-channel backward: two kernel runs differ")
     errs.append(check_close("backward bf16 (two kernel runs bit-equal)", got, ref,
                             atol=1e-5, rtol=2 ** -7))
-    del got, again, ref, g
+    del got, again, ref
+    # the backward: the f32 gradient and the rois read, the bf16 map written
+    bwd_ms = device_ms(bwd, "roi_align_bwd_kernel", 20)
+    bwd_bytes = g.numel() * 4 + rois.numel() * 4 + fmap.numel() * 2
+    bwd_bound = bwd_bytes / PEAK_BYTES * 1e3
+    print(f"  backward: kernel {bwd_ms:.4f} ms on the device, {bwd_bytes / 1e6:.1f} MB "
+          f"-> bound {bwd_bound:.4f} ms (bytes), {bwd_bytes / bwd_ms / 1e6:.0f} GB/s")
+    del g
     fwd = lambda: rw.multilevel_roi_align_batched([fmap], rois, scale, 8, 2)  # noqa: E731
     ms = device_ms(fwd, "roi_align_fwd_kernel", 20)
     plain_ms = cuda_ms(lambda: rw.reference_multilevel_roi_align_batched(
@@ -4451,7 +4524,7 @@ def vgg_level_pool(gen, b=8, h=800, w=1344, c=512):
     del fmap
     release()
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
-                max_abs_err=max(errs))
+                max_abs_err=max(errs), bwd_ms=bwd_ms, bwd_bound_ms=bwd_bound)
 
 
 def zoo_vgg(numbers, launches, level_pool):
@@ -4712,6 +4785,379 @@ def phase_zoo(level_pool):
     release()
     print(f"[zoo numbers] {card()}: {json.dumps(numbers)}")
     print(f"[zoo] phase 20 took {numbers['seconds']:.1f} s")
+    return numbers, launches
+
+
+# ------------------------------------------------------------------ phase 22
+# the rest of the zoo's predictors and the options each runs with
+ZOO_REST = (("CausalAnalysisPredictor", ("relation.causal_effect_type=TDE",
+                                         "relation.causal_fusion_type=gate")),
+            ("KERNPredictor", ()), ("AGRCNNPredictor", ()), ("NaivePredictor", ()),
+            ("RelatednessTestPredictor", ()))
+CPU_PAIRS = 512  # the pairs of image 0 that the CPU comparison runs
+LOSS_VARIANTS = ("label_smoothing", "ldam", "balanced_norm")
+
+
+def head_inputs(model, cfg, b):
+    """One eval batch's forward and the relation head's inputs in it (its
+    positional and keyword arguments, captured by a pre-hook)."""
+    seen = {}
+    hook = model.relation.register_forward_pre_hook(
+        lambda m, args, kw: seen.__setitem__("in", (args, kw)), with_kwargs=True)
+    try:
+        out = eval_forward(model, cfg, b)
+    finally:
+        hook.remove()
+    return out, seen["in"]
+
+
+def as_f32(head):
+    """A copy of a relation head computing in f32 (its parameters are f32
+    already: every compute dtype set to f32)."""
+    import copy
+
+    head = copy.deepcopy(head).float()
+    for m in head.modules():
+        if isinstance(getattr(m, "dtype", None), torch.dtype):
+            m.dtype = torch.float32
+        if hasattr(m, "compute_dtype"):
+            m.compute_dtype = torch.float32
+    return head
+
+
+def slice_inputs(args, kw, device, pairs=CPU_PAIRS):
+    """The head's inputs cut to image 0 and its first ``pairs`` pairs, floats
+    in f32, on ``device`` (copies outside inference mode, so that autograd
+    may save them)."""
+    def cut(name, t):
+        if not torch.is_tensor(t):
+            return t
+        t = t[:1].clone()
+        if name in ("pair_idx", "union", "pair_mask"):
+            t = t[:, :pairs]
+        return (t.float() if t.is_floating_point() else t).to(device)
+
+    names = ("boxes", "box_mask", "labels", "logits", "pair_idx", "roi", "union",
+             "sizes", "bpc")
+    return ([cut(n, a) for n, a in zip(names, args)],
+            {k: cut(k, v) for k, v in kw.items()})
+
+
+def head_loss(out):
+    """A scalar of every output a step trains (the relation logits, and the
+    object, attribute and relness logits where the head has them)."""
+    loss = torch.logsumexp(out.rel_dists.float(), -1).mean()
+    for extra in (out.obj_dists, out.att_dists, out.relness_logits):
+        if extra is not None and extra.requires_grad:
+            loss = loss + extra.float().square().mean()
+    return loss
+
+
+def zoo_rest_head_checks(model, args, kw, what):
+    """The head in f32 on image 0's first ``CPU_PAIRS`` pairs: its relation
+    logits on the card against the same head on the CPU (1e-4 of the
+    largest |logit|, mean 1e-5: f32 on both, summation order only, through
+    the LSTM / GGNN / attention loops), then its forward and backward in
+    training twice on the card, every gradient bit-equal.  Returns the
+    largest difference over that scale."""
+    head = as_f32(model.relation)
+    a, k = slice_inputs(args, kw, DEVICE)
+    head.eval()
+    with torch.inference_mode():
+        got = head(*a, **k).rel_dists
+    cpu = as_f32(model.relation).cpu().eval()
+    ca, ck = slice_inputs(args, kw, "cpu")
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        ref = cpu(*ca, **ck).rel_dists
+    cpu_s = time.perf_counter() - t0
+    del cpu
+    scale = float(ref.abs().max())
+    err = check_close(f"{what} f32 logits, card vs CPU ({a[4].shape[1]} pairs of "
+                      f"image 0, CPU {cpu_s:.1f} s)", got.cpu(), ref, atol=1e-4 * scale,
+                      rtol=0.0, mean_tol=1e-5 * scale) / scale
+    head.train()
+    runs = []
+    for _ in range(2):
+        head.zero_grad(set_to_none=True)
+        head_loss(head(*a, **k)).backward()
+        runs.append({n: p.grad.clone() for n, p in head.named_parameters()
+                     if p.grad is not None})
+    varies = [n for n in runs[0] if not torch.equal(runs[0][n], runs[1][n])]
+    if varies or not runs[0]:
+        raise AssertionError(f"{what}: two f32 runs of the head's step differ in "
+                             f"{varies}")
+    if not all(bool(torch.isfinite(g).all()) for g in runs[0].values()):
+        raise AssertionError(f"{what}: non-finite f32 gradients")
+    print(f"  {what}: the head's f32 step twice on the card: {len(runs[0])} gradient "
+          "tensors bit-equal and finite")
+    del head
+    return err
+
+
+def zoo_rest_step(model, cfg, per, what):
+    """One step of :func:`engine_steps` (the loss of
+    ``relation.loss_variant``), some trainable tensor changed.  Returns the
+    state, its ms (the first step, warm-up included), peak memory and the
+    launches counted."""
+    before = {n: p.detach().clone() for n, p in model.named_parameters()
+              if p.requires_grad}
+    state, history, peak, counted = engine_steps(model, cfg, per, what, 1)
+    moved = sum(not torch.equal(p, before[n]) for n, p in model.named_parameters()
+                if p.requires_grad)
+    if moved == 0:
+        raise AssertionError(f"{what}: no trainable tensor changed")
+    rec = history[0]
+    ms = 1e3 * rec.pop("seconds")
+    print(f"  [{what}] one step of {cfg.solver.ims_per_batch}: "
+          f"{', '.join(f'{k} {v:.4f}' for k, v in rec.items())}; {ms:.1f} ms (the "
+          f"first, warm-up included); peak memory {peak / 2 ** 30:.2f} GiB; "
+          f"{moved} of {len(before)} trainable tensors changed")
+    return state, ms, peak, counted
+
+
+def zoo_rest_predictor(predictor, opts, b, body, numbers, launches):
+    """One predictor in PredCls on the frozen R-101 body: one eval batch
+    through ``evaluate`` (B3 2), its logits against the plain versions, the
+    eval forward's ms and busy share, the f32 head on the card against the
+    CPU and twice bit-equal (:func:`zoo_rest_head_checks`), one engine
+    train step (B3 2); the causal predictor also its other effects."""
+    cfg = legacy_cfg(PREDCLS, predictor, opts)
+    model, body = legacy_model(cfg, body)
+    per = expected(multilevel_roi_align=2)
+    eval_ms, eval_peak, counted = legacy_evaluate(model, cfg,
+                                                  f"{predictor} PredCls eval", per)
+    add_launches(launches, counted)
+    check_zoo_logits(model, cfg, b, f"{predictor} PredCls")
+    out, (args, kw) = head_inputs(model, cfg, b)
+    if (out.relness_logits is not None) != (predictor == "RelatednessTestPredictor"):
+        raise AssertionError(f"{predictor}: relness logits {out.relness_logits}")
+    fwd = lambda: eval_logits(model, cfg, b)  # noqa: E731
+    wall, busy = cuda_ms(fwd, 1, 1), busy_ms(fwd, 1)
+    row = dict(eval_ms=eval_ms, eval_forward_ms=wall, eval_busy_share=busy / wall,
+               eval_peak_gib=eval_peak / 2 ** 30)
+    if predictor == "CausalAnalysisPredictor":
+        head, effects = model.relation, {}
+        for effect, fusion in (("NIE", "gate"), ("TE", "gate"), ("TDE", "sum")):
+            head.effect_type, head.fusion_type = effect, fusion
+            logits = eval_logits(model, cfg, b)
+            if not bool(torch.isfinite(logits).all()):
+                raise AssertionError(f"causal {effect} {fusion}: non-finite logits")
+            effects[f"{effect}-{fusion}"] = float(logits.abs().max())
+        head.effect_type, head.fusion_type = "TDE", "gate"
+        print(f"  causal effects NIE, TE (gate) and TDE (sum): finite, largest "
+              f"|logit| {json.dumps(effects)}")
+        row["effects_max_logit"] = effects
+    row["cpu_err"] = zoo_rest_head_checks(model, args, kw, predictor)
+    _, train_ms, train_peak, counted = zoo_rest_step(model, cfg, per,
+                                                     f"{predictor} train")
+    add_launches(launches, counted)
+    row.update(train_ms=train_ms, train_peak_gib=train_peak / 2 ** 30)
+    numbers[predictor] = row
+    print(f"  [{predictor}] eval forward {wall:.1f} ms by CUDA events, {busy:.1f} ms "
+          f"busy on the device ({busy / wall:.2f})")
+    del model
+    release()
+    return body
+
+
+def zoo_rest_other_modes(predictor, opts, body, numbers, launches):
+    """SGCls (B3 3) and SGDet (B3 3, N1 mask 2, scan 2): one eval batch
+    through ``evaluate`` and one engine train step each; AGRCNN's SGCls eval
+    also once with ``use_obj_recls_logits`` (its refined object logits
+    relabelled by ``obj_prediction_nms`` on the card), labels held to the
+    same NMS on the CPU."""
+    from veto_tpu_torch.ops.nms import obj_prediction_nms
+
+    for config, per, mode in ((SGCLS, expected(multilevel_roi_align=3), "SGCls"),
+                              (SGDET, expected(multilevel_roi_align=3, nms_mask=2,
+                                               nms_scan=2), "SGDet")):
+        cfg = legacy_cfg(config, predictor, opts)
+        model, body = legacy_model(cfg, body)
+        b = next(synthetic_eval_dataset_batches(cfg))
+        if mode == "SGDet":
+            draw_cls_score(model, cfg, b)
+        eval_ms, eval_peak, counted = legacy_evaluate(model, cfg,
+                                                      f"{predictor} {mode} eval", per)
+        add_launches(launches, counted)
+        row = dict(eval_ms=eval_ms, eval_peak_gib=eval_peak / 2 ** 30)
+        if predictor == "AGRCNNPredictor" and mode == "SGCls":
+            head, seen = model.relation, {}
+            head.use_obj_recls_logits = True
+            hook = head.register_forward_hook(
+                lambda m, a, kw, out: seen.update(args=a, kw=kw, out=out),
+                with_kwargs=True)
+            try:
+                eval_forward(model, cfg, b)
+            finally:
+                hook.remove()
+                head.use_obj_recls_logits = False
+            out, a = seen["out"], seen["args"]
+            ref = obj_prediction_nms(a[0][:, :, None, :].expand(
+                -1, -1, out.obj_dists.shape[-1], -1).cpu(), out.obj_dists.cpu(), 0.5,
+                valid_mask=a[1].cpu())
+            if not torch.equal(out.obj_preds.cpu(), ref):
+                raise AssertionError("AGRCNN reclassified labels: card vs CPU differ")
+            print(f"  AGRCNN use_obj_recls_logits: obj_prediction_nms on the card, "
+                  f"{int(a[1].sum())} labels bit-equal to the CPU's")
+        _, train_ms, train_peak, counted = zoo_rest_step(model, cfg, per,
+                                                         f"{predictor} {mode} train")
+        add_launches(launches, counted)
+        row.update(train_ms=train_ms, train_peak_gib=train_peak / 2 ** 30)
+        numbers[f"{predictor} {mode}"] = row
+        del model
+        release()
+    return body
+
+
+def zoo_rest_attribute_motifs(b, body, numbers, launches):
+    """Motifs with ``attribute_on`` (``MotifPredictor(attribute_on=True)``,
+    which the JAX model's ``build_model`` never builds: the module on a
+    PredCls model with ``model.attribute_on``, fed by its attribute head):
+    one eval batch (B3 3: the attribute head's pool, the box and union
+    pools) with its logits against the plain versions; the head's f32
+    checks of :func:`zoo_rest_head_checks`."""
+    import torch.nn.functional as F  # noqa: N812
+
+    from veto_tpu_torch.models.relation.legacy import MotifPredictor
+    from veto_tpu_torch.models.relation.sampling import prepare_test_pairs
+    from veto_tpu_torch.models.sgg import init_weights
+    from veto_tpu_torch.ops import cuda_lib
+
+    cfg = legacy_cfg(PREDCLS, "MotifPredictor", ("model.attribute_on=True",))
+    model, body = legacy_model(cfg, body)
+    with torch.device(DEVICE):
+        head = MotifPredictor(cfg.model.num_obj_classes, cfg.relation.num_classes,
+                              hidden_dim=cfg.relation.context_hidden_dim,
+                              pooling_dim=cfg.relation.context_pooling_dim,
+                              in_channels=cfg.relation.context_pooling_dim,
+                              attribute_on=True, num_att_classes=cfg.model.num_attributes,
+                              dtype=model.relation.dtype)
+    init_weights(head, cfg.solver.seed)
+    model.relation = head.eval()
+    gen = torch.Generator(device=DEVICE).manual_seed(22)
+    attrs = torch.randint(0, cfg.model.num_attributes, b.boxes.shape[:2] + (10,),
+                          generator=gen, device=DEVICE, dtype=torch.int32)
+    attrs = attrs * (torch.rand(attrs.shape, generator=gen, device=DEVICE) < 0.3)
+    attrs = attrs * b.box_mask[..., None]
+
+    def forward():
+        with torch.inference_mode():
+            feats = model.extract_features(b.images)
+            pi, pm = prepare_test_pairs(b.box_mask, b.box_mask.float(),
+                                        cfg.relation.max_proposal_pairs)
+            h, w = b.images.shape[1:3]
+            sizes = torch.tensor([[w, h]], dtype=torch.float32,
+                                 device=DEVICE).expand(b.boxes.shape[0], 2)
+            att_logits = model.attribute_forward(feats, b.boxes)
+            roi = model.rel_box_extractor(model._pool_boxes(feats, b.boxes, 7))
+            union = model.union_extractor(feats, b.boxes, pi, sizes)
+            logits = F.one_hot(b.labels.long(), cfg.model.num_obj_classes).float() \
+                * 2000.0 - 1000.0
+            args = (b.boxes, b.box_mask, b.labels, logits, pi, roi, union, sizes, None)
+            kw = dict(pair_mask=pm, attributes=attrs, attribute_logits=att_logits)
+            return head(*args, **kw), args, kw
+
+    forward()  # warm-up
+    read_counters(reset=True)
+    out, args, kw = forward()
+    counted = read_counters(reset=True)
+    per = expected(multilevel_roi_align=3)
+    if counted != per:
+        raise AssertionError(f"attribute Motifs: launches {counted}, want {per}")
+    add_launches(launches, counted)
+    with cuda_lib.plain_kernels():
+        ref = forward()[0]
+    for name in ("rel_dists", "att_dists"):
+        g, r = getattr(out, name), getattr(ref, name)
+        check_close(f"attribute Motifs {name} kernels vs plain", g, r,
+                    atol=0.05 * float(r.abs().max()), rtol=0.0,
+                    mean_tol=0.01 * float(r.abs().mean()))
+    wall = cuda_ms(forward, 1, 1)
+    busy = busy_ms(forward, 1)
+    err = zoo_rest_head_checks(model, args, kw, "MotifPredictor attribute_on")
+    numbers["MotifPredictor attribute_on"] = dict(
+        eval_forward_ms=wall, eval_busy_share=busy / wall, cpu_err=err,
+        att_dists=list(out.att_dists.shape))
+    print(f"  [MotifPredictor attribute_on] eval forward {wall:.1f} ms by CUDA events, "
+          f"{busy:.1f} ms busy on the device ({busy / wall:.2f}); att_dists "
+          f"{tuple(out.att_dists.shape)}")
+    del model, head
+    release()
+    return body
+
+
+def zoo_rest_loss_variants(numbers, launches):
+    """The main path (VETO PredCls, ``configs/veto_vg_predcls.yaml``) with
+    each loss variant: one engine train step of 12 images at 800x1344, 1024
+    pairs an image, from the seeded weights, with exact launches (B1, B2a,
+    B2b 6, B3 2, B3-bwd 1);
+    the balanced norm's running probability moved by the step (the
+    background's still 1) and bit-equal after a checkpoint's save and
+    restore into a fresh state."""
+    from veto_tpu_torch.config import load_config
+    from veto_tpu_torch.engine.train import create_train_state
+    from veto_tpu_torch.models.sgg import build_model
+    from veto_tpu_torch.utils.checkpoint import CheckpointManager
+
+    cfg = load_config(os.path.join(ROOT, "configs", PREDCLS))
+    model = build_model(cfg)
+    per = expected(fused_encoder_layer=6, encoder_ffn_bwd=6, encoder_att_bwd=6,
+                   multilevel_roi_align=2, roi_align_backward=1)
+    print(f"[zoo rest, loss variants] the main path, one step of "
+          f"{cfg.solver.ims_per_batch} each from the seeded weights: "
+          f"{', '.join(LOSS_VARIANTS)}")
+    seeded = {k: v.clone() for k, v in model.state_dict().items()}
+    for variant in LOSS_VARIANTS:
+        model.load_state_dict(seeded)
+        state, ms, peak, counted = zoo_rest_step(
+            model, cfg.override("relation.loss_variant", variant), per,
+            f"main path, {variant}")
+        add_launches(launches, counted)
+        numbers[f"main path {variant}"] = dict(train_ms=ms, train_peak_gib=peak / 2 ** 30)
+    # the balanced norm's state after its step, through a checkpoint
+    start = torch.full_like(state.loss_state, 0.03)
+    start[0] = 1.0
+    moved = int((state.loss_state != start).sum())
+    if moved == 0 or float(state.loss_state[0]) != 1.0:
+        raise AssertionError(f"balanced norm state {state.loss_state}")
+    ckpt = CheckpointManager(scratch_dir())
+    ckpt.save(state.step, state)
+    fresh = create_train_state(model, cfg.solver, None, loss_variant="balanced_norm")
+    ckpt.restore(fresh)
+    if not torch.equal(fresh.loss_state, state.loss_state):
+        raise AssertionError("balanced norm state: the checkpoint's differs")
+    print(f"  balanced norm: {moved} of {start.numel()} labeling probabilities moved "
+          "by the step (the background's 1), bit-equal after the checkpoint's "
+          "round trip")
+    numbers["balanced_norm_moved"] = moved
+    del model, state, fresh, seeded
+    release()
+
+
+def phase_zoo_rest():
+    """Phase 22: the rest of the zoo at full width (see the module
+    docstring).  Returns its numbers and the launches of its counted
+    runs."""
+    t0 = time.perf_counter()
+    numbers, launches = {}, {}
+    print("[zoo rest] Causal (TDE, gate), KERN, AGRCNN, Naive, RelatednessTest and "
+          "Motifs with attributes on the frozen R-101 body (context_hidden_dim 512, "
+          "context_pooling_dim 4096, bf16); the main path with the loss variants")
+    cfg = legacy_cfg(PREDCLS, "NaivePredictor")
+    b = next(synthetic_eval_dataset_batches(cfg))
+    body = None
+    for predictor, opts in ZOO_REST:
+        body = zoo_rest_predictor(predictor, opts, b, body, numbers, launches)
+    body = zoo_rest_attribute_motifs(b, body, numbers, launches)
+    for predictor, opts in (ZOO_REST[0], ZOO_REST[2]):
+        body = zoo_rest_other_modes(predictor, opts, body, numbers, launches)
+    zoo_rest_loss_variants(numbers, launches)
+    numbers["launches"] = {k: v for k, v in launches.items() if v}
+    numbers["seconds"] = time.perf_counter() - t0
+    release()
+    print(f"[zoo rest numbers] {card()}: {json.dumps(numbers)}")
+    print(f"[zoo rest] phase 22 took {numbers['seconds']:.1f} s")
     return numbers, launches
 
 
@@ -5260,13 +5706,15 @@ def main() -> int:
     _, zoo_launches = timed("20 zoo", phase_zoo, level_pool)
     release()
     timed("21 ddp", phase_ddp)
+    _, rest_launches = timed("22 zoo rest", phase_zoo_rest)
+    release()
     # each kernel's launches on the training path that runs it, and those
-    # of phases 19 and 20's counted runs (N1's: its mask launches)
+    # of phases 19, 20 and 22's counted runs (N1's: its mask launches)
     launches.update(pair_attention=pa_launches["pair_attention"],
                     pair_attention_backward=pa_launches["pair_attention_backward"],
                     encoder_mono_bwd=mono_launches["encoder_mono_bwd"],
                     greedy_nms=n1_launches)
-    for counted in (legacy_launches, zoo_launches):
+    for counted in (legacy_launches, zoo_launches, rest_launches):
         for name, n in counted.items():
             if name in launches:
                 launches[name] += n

@@ -24,6 +24,8 @@ import jax.numpy as jnp
 
 import veto_tpu.ops.pair_attention as jpa
 
+from torch_port_threads import one_torch_thread_per_worker  # noqa: F401
+
 from veto_tpu_torch.ops import fused_encoder as fe
 
 P, T, D, H = 8, 19, 96, 6

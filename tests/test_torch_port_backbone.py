@@ -12,6 +12,8 @@ import jax.numpy as jnp
 from veto_tpu.models.backbone.depth_resnet import DepthResNet18 as JDepth
 from veto_tpu.models.backbone.resnet import ResNetFPNBackbone as JBackbone
 
+from torch_port_threads import one_torch_thread_per_worker  # noqa: F401
+
 from veto_tpu_torch.models.backbone.depth_resnet import DepthResNet18
 from veto_tpu_torch.models.backbone.resnet import ResNetFPNBackbone
 from veto_tpu_torch.utils.jax_weights import flax_to_state_dict

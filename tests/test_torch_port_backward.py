@@ -20,6 +20,8 @@ import veto_tpu.ops.fused_encoder as jfe
 from veto_tpu.ops.roi_align import multilevel_roi_align as j_multilevel
 from veto_tpu.ops.roi_align import roi_align as j_roi_align
 
+from torch_port_threads import one_torch_thread_per_worker  # noqa: F401
+
 from veto_tpu_torch.ops import fused_encoder as tfe
 from veto_tpu_torch.ops.roi_align_windowed import multilevel_roi_align_batched
 

@@ -29,6 +29,8 @@ import numpy as np
 import pytest
 import torch
 
+from torch_port_threads import one_torch_thread_per_worker  # noqa: F401
+
 from veto_tpu_torch.ops import cuda_lib
 from veto_tpu_torch.ops import fused_encoder as fe
 

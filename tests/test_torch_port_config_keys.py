@@ -17,9 +17,8 @@ shipped defaults still build, train and evaluate.
   ``test.relation_require_overlap`` reach the SGDet pair sampler and test
   pairs; ``ensemble.enabled`` builds MEET's predictor (A11), a
   ``VETOPredictor_MEET`` name without it the plain VETO one, the four
-  ported legacy ``*_MEET`` predictors their MEET heads, a ported one
-  without MEET heads (BGNN) raises ``ValueError`` with ``ensemble.enabled``,
-  and the legacy predictors still to come raise, naming their slice of A14;
+  ported legacy ``*_MEET`` predictors their MEET heads, one without MEET
+  heads (BGNN, KERN) raises ``ValueError`` with ``ensemble.enabled``;
   ``model.box_pooler_resolution`` and ``model.box_mlp_head_dim`` shape the
   SGCls box head.
 """
@@ -28,6 +27,8 @@ import os
 
 import numpy as np
 import pytest
+
+from torch_port_threads import one_torch_thread_per_worker  # noqa: F401
 
 from veto_tpu_torch.config import load_config
 from veto_tpu_torch.models.sgg import build_model
@@ -211,10 +212,9 @@ def test_sgdet_and_meet_still_raise():
     MEET: ``ensemble.enabled`` builds ``MeetPredictor`` (SGCls here: its
     trunk embeds the hard labels), ``VETOPredictor_MEET`` without it the
     plain VETO predictor, as the JAX tool resolves the name; a legacy
-    ``*_MEET`` predictor of the ported four builds its MEET heads, one
-    without MEET heads (BGNN) raises ``ValueError`` under
-    ``ensemble.enabled``, and one still to come raises, naming its slice
-    of A14."""
+    ``*_MEET`` predictor of the ported four builds its MEET heads, and one
+    without MEET heads (BGNN, KERN) raises ``ValueError`` under
+    ``ensemble.enabled``."""
     from veto_tpu_torch.models.relation.predictor_meet import MeetPredictor
     from veto_tpu_torch.models.relation.predictor_veto import VetoPredictor
 
@@ -239,7 +239,7 @@ def test_sgdet_and_meet_still_raise():
                                        "relation.context_pooling_dim=32"]),
                          "cpu").relation
     assert motifs.meet_heads.rel_out_e0_g4.weight.shape == (12 + 2, 32)
-    with pytest.raises(NotImplementedError, match="A14"):
+    with pytest.raises(ValueError, match="no MEET heads"):
         build_model(_cfg(SMALL + ["relation.predictor=KERNPredictor_MEET",
                                   "ensemble.enabled=True"]), "cpu")
     with pytest.raises(ValueError, match="no MEET heads"):

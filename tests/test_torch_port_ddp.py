@@ -41,6 +41,8 @@ from veto_tpu.models.sgg import SGGModel as JModel
 from veto_tpu.solver.optim import make_optimizer as j_make_optimizer
 
 import torch_port_ddp_worker as worker
+from torch_port_threads import one_torch_thread_per_worker  # noqa: F401
+
 from veto_tpu_torch.config import load_config
 from veto_tpu_torch.data.synthetic import SyntheticSGGDataset
 from veto_tpu_torch.engine import distributed

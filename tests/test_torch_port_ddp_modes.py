@@ -24,6 +24,7 @@ import pytest
 import torch
 
 import torch_port_ddp_worker as worker
+from torch_port_threads import one_torch_thread_per_worker  # noqa: F401
 
 MODES = ("predcls", "sgcls", "sgdet", "meet", "bgnn", "xla")
 FAULTS = ("per_rank_stats", "local_denominators", "averaged_grads")

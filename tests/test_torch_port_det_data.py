@@ -22,6 +22,8 @@ from veto_tpu.data.synthetic import SyntheticSGGDataset as JSynthetic
 from veto_tpu.data.voc import VOCDataset as JVOC
 from veto_tpu.evaluation.voc_eval import VOCEvaluator as JVOCEvaluator
 
+from torch_port_threads import one_torch_thread_per_worker  # noqa: F401
+
 from veto_tpu_torch.config import load_config
 from veto_tpu_torch.data import compound
 from veto_tpu_torch.data.batching import make_sgg_batch

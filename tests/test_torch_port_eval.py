@@ -22,6 +22,8 @@ from veto_tpu.engine.train import make_eval_step as j_make_eval_step
 from veto_tpu.evaluation.sgg_eval import SGGEvaluator as JEvaluator
 from veto_tpu.models.sgg import SGGModel as JModel
 
+from torch_port_threads import one_torch_thread_per_worker  # noqa: F401
+
 from veto_tpu_torch.data.synthetic import SyntheticSGGDataset
 from veto_tpu_torch.engine.evaluate import (
     accumulate_eval, make_eval_step, to_numpy,

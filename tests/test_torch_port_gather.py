@@ -46,6 +46,7 @@ import torch_port_ddp_worker as worker
 from torch_port_det_steps import compiled
 from torch_port_legacy_case import TINY, class_weights, jax_variables
 from torch_port_mp_case import jax_model, mp_kw
+from torch_port_threads import one_torch_thread_per_worker  # noqa: F401
 
 from veto_tpu_torch.config import SolverConfig
 from veto_tpu_torch.data.synthetic import SyntheticSGGDataset

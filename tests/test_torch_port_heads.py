@@ -40,6 +40,7 @@ from veto_tpu.structures.keypoints import keypoints_to_heat_map as j_heat_map
 
 from torch_port_det_steps import jax_draws, keep_grads, run_jax_detector_step
 from torch_port_flax_tree import flax_variables
+from torch_port_threads import one_torch_thread_per_worker  # noqa: F401
 from veto_tpu_torch.config import SolverConfig
 from veto_tpu_torch.data.synthetic import SyntheticSGGDataset
 from veto_tpu_torch.engine import pretrain as tpretrain

@@ -14,6 +14,8 @@ from veto_tpu import native as jnative
 from veto_tpu.data import transforms as jt
 
 import torch_port_jax_native
+from torch_port_threads import one_torch_thread_per_worker  # noqa: F401
+
 from veto_tpu_torch import native
 from veto_tpu_torch.data import transforms as tt
 

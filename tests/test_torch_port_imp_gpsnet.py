@@ -15,6 +15,7 @@ import pytest
 
 from torch_port_legacy_case import make_inputs
 from torch_port_mp_case import MODES, check_eval, check_train
+from torch_port_threads import one_torch_thread_per_worker  # noqa: F401
 
 
 @pytest.fixture(scope="module")

@@ -18,6 +18,8 @@ from veto_tpu.models.backbone.resnet import ResNetFPNBackbone as JBackbone
 from veto_tpu.models.relation.predictor_veto import VetoPredictor as JPredictor
 from veto_tpu.utils import torch_import as jti
 
+from torch_port_threads import one_torch_thread_per_worker  # noqa: F401
+
 from veto_tpu_torch.models.backbone.depth_resnet import DepthResNet18
 from veto_tpu_torch.models.backbone.resnet import ResNetFPNBackbone
 from veto_tpu_torch.models.relation.predictor_veto import VetoPredictor

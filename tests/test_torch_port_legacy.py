@@ -35,6 +35,7 @@ from torch_port_legacy_case import (
     jax_model, jax_train, jax_variables, make_inputs, port_eval, port_model,
     relate_args, sgcls_variables, solver, t_, train_samples,
 )
+from torch_port_threads import one_torch_thread_per_worker  # noqa: F401
 
 from veto_tpu_torch.engine.evaluate import accumulate_eval, to_numpy
 from veto_tpu_torch.engine.train import create_train_state
@@ -200,22 +201,17 @@ def test_train_step_matches_jax(case):
 
 
 def test_resolve_predictor_names():
-    """The ported legacy predictors, their ``_MEET`` names and the JAX tool's
-    ``TransLike_MEET`` alias resolve to their base; the legacy predictors
-    still to come raise ``NotImplementedError`` naming their slice; an
-    unknown name ``ValueError``."""
+    """Every legacy predictor of the JAX model (the rest of the zoo too:
+    causal analysis, KERN, AGRCNN, Naive, RelatednessTest), their ``_MEET``
+    names and the JAX tool's ``TransLike_MEET`` alias resolve to their
+    base; an unknown name raises ``ValueError``."""
     for name in ("MotifPredictor", "VCTreePredictor", "TransformerPredictor",
                  "TransLikePredictor", "VETOPredictor", "IMPPredictor",
-                 "BGNNPredictor", "GPSNetPredictor", "MSDNPredictor"):
+                 "BGNNPredictor", "GPSNetPredictor", "MSDNPredictor",
+                 "CausalAnalysisPredictor", "KERNPredictor", "AGRCNNPredictor",
+                 "NaivePredictor", "RelatednessTestPredictor"):
         assert resolve_predictor(name) == name
         assert resolve_predictor(name + "_MEET") == name
     assert resolve_predictor("TransLike_MEET") == "TransLikePredictor"
-    for name, slice_ in (("CausalAnalysisPredictor", "CausalPredictor"),
-                         ("CausalAnalysisPredictor_MEET", "CausalPredictor"),
-                         ("KERNPredictor", "KERN"), ("AGRCNNPredictor", "KERN"),
-                         ("NaivePredictor", "Naive"),
-                         ("RelatednessTestPredictor", "RelatednessTest")):
-        with pytest.raises(NotImplementedError, match=slice_):
-            resolve_predictor(name)
     with pytest.raises(ValueError):
         resolve_predictor("NoSuchPredictor")

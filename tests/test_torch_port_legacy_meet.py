@@ -28,6 +28,7 @@ from torch_port_legacy_case import (
     jax_eval, jax_model, jax_train, jax_variables, make_inputs, port_batch,
     port_model, relate_args, solver, t_, train_samples,
 )
+from torch_port_threads import one_torch_thread_per_worker  # noqa: F401
 
 from veto_tpu_torch.engine.evaluate import make_meet_eval_step
 from veto_tpu_torch.engine.train import create_train_state

@@ -36,6 +36,8 @@ from veto_tpu.models.relation.sampling import gtbox_relsample as j_relsample
 from veto_tpu.models.sgg import DetectOutput as JDetectOutput
 from veto_tpu.models.sgg import SGGModel as JModel
 
+from torch_port_threads import one_torch_thread_per_worker  # noqa: F401
+
 from veto_tpu_torch.config import SolverConfig, load_config
 from veto_tpu_torch.data import predicate_stats as stats
 from veto_tpu_torch.data.synthetic import SyntheticSGGDataset

@@ -19,6 +19,8 @@ import jax.numpy as jnp
 
 import veto_tpu.ops.fused_encoder as jfe
 
+from torch_port_threads import one_torch_thread_per_worker  # noqa: F401
+
 from veto_tpu_torch.ops import fused_encoder as tfe
 
 P, T, D, F, H = 8, 19, 96, 192, 6

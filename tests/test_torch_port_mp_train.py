@@ -19,6 +19,7 @@ from flax import linen as nn
 
 from torch_port_legacy_case import make_inputs, t_
 from torch_port_mp_case import check_train
+from torch_port_threads import one_torch_thread_per_worker  # noqa: F401
 
 from veto_tpu_torch.models.relation.legacy import GRUCell
 from veto_tpu_torch.utils.jax_weights import gru_cell_params

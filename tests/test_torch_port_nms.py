@@ -17,6 +17,8 @@ import jax.numpy as jnp
 
 from veto_tpu.ops import nms as jn
 
+from torch_port_threads import one_torch_thread_per_worker  # noqa: F401
+
 from veto_tpu_torch.models.detector.rpn import topk_first
 from veto_tpu_torch.ops import cuda_lib
 from veto_tpu_torch.ops import nms as tn

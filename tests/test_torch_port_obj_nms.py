@@ -15,6 +15,8 @@ import jax.numpy as jnp
 
 from veto_tpu.ops.nms import obj_prediction_nms as j_nms
 
+from torch_port_threads import one_torch_thread_per_worker  # noqa: F401
+
 from veto_tpu_torch.ops.nms import class_overlaps, first_argmax, obj_prediction_nms
 
 B, N, C = 3, 12, 9

@@ -23,6 +23,8 @@ from veto_tpu.ops.roi_align_windowed import (
     multilevel_roi_align_batched as j_multilevel,
 )
 
+from torch_port_threads import one_torch_thread_per_worker  # noqa: F401
+
 from veto_tpu_torch.ops import fused_encoder as tfe
 from veto_tpu_torch.ops.roi_align import multilevel_roi_align
 from veto_tpu_torch.ops.roi_align import roi_align as t_roi_align

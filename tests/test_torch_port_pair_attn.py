@@ -27,6 +27,8 @@ from veto_tpu.models.relation.predictor_veto import weighted_ce_loss as j_wce
 from veto_tpu.models.relation.sampling import gtbox_relsample as j_relsample
 from veto_tpu.models.sgg import SGGModel as JModel
 
+from torch_port_threads import one_torch_thread_per_worker  # noqa: F401
+
 from veto_tpu_torch.config import load_config
 from veto_tpu_torch.data.predicate_stats import predicate_counts
 from veto_tpu_torch.data.synthetic import SyntheticSGGDataset

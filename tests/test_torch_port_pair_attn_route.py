@@ -33,6 +33,8 @@ import jax.numpy as jnp
 
 import veto_tpu.ops.pair_attention as jpa
 
+from torch_port_threads import one_torch_thread_per_worker  # noqa: F401
+
 from veto_tpu_torch.ops import cuda_lib
 from veto_tpu_torch.ops import fused_encoder as tfe
 from veto_tpu_torch.ops import pair_attention as tpa

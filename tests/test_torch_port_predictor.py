@@ -20,6 +20,8 @@ from veto_tpu.models.relation.postprocess import postprocess_relations as j_post
 from veto_tpu.models.relation.predictor_veto import VetoPredictor as JPredictor
 from veto_tpu.models.relation.sampling import prepare_test_pairs as j_pairs
 
+from torch_port_threads import one_torch_thread_per_worker  # noqa: F401
+
 from veto_tpu_torch.config import load_config
 from veto_tpu_torch.data.synthetic import SyntheticSGGDataset
 from veto_tpu_torch.evaluation.sgg_eval import SGGEvaluator, vg_longtail_parts

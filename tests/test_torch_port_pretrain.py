@@ -38,6 +38,7 @@ from torch_port_det_steps import jax_draws as _jax_draws
 from torch_port_det_steps import keep_grads as _keep_grads
 from torch_port_det_steps import run_jax_detector_step
 from torch_port_flax_tree import flax_variables
+from torch_port_threads import one_torch_thread_per_worker  # noqa: F401
 from veto_tpu_torch.config import SolverConfig, load_config
 from veto_tpu_torch.data.synthetic import SyntheticSGGDataset
 from veto_tpu_torch.engine import pretrain as tpretrain

@@ -32,6 +32,7 @@ from veto_tpu.config import load_config as j_load_config
 from veto_tpu.solver.optim import LRController as JController
 
 from torch_port_vg_files import write_fake_vg
+from torch_port_threads import one_torch_thread_per_worker  # noqa: F401
 from veto_tpu_torch.config import load_config
 from veto_tpu_torch.engine.train import create_train_state, train_step
 from veto_tpu_torch.models.sgg import build_model

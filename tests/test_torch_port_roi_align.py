@@ -26,6 +26,8 @@ import jax.numpy as jnp
 
 from veto_tpu.ops.roi_align import multilevel_roi_align as j_multilevel
 
+from torch_port_threads import one_torch_thread_per_worker  # noqa: F401
+
 from veto_tpu_torch.ops import cuda_lib
 from veto_tpu_torch.ops import roi_align_windowed as rw
 from veto_tpu_torch.ops.roi_align import fpn_level_assignment

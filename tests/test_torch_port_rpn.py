@@ -27,6 +27,8 @@ from veto_tpu.models.detector.box_head import (
 )
 from veto_tpu.ops import box_ops as jbo
 
+from torch_port_threads import one_torch_thread_per_worker  # noqa: F401
+
 import veto_tpu_torch.models.detector.rpn as trpn
 from veto_tpu_torch.models.detector.anchors import fpn_anchors
 from veto_tpu_torch.models.detector.box_head import (

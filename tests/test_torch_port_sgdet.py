@@ -41,6 +41,8 @@ from veto_tpu.models.relation.sampling import (
 )
 from veto_tpu.models.sgg import SGGModel as JModel
 
+from torch_port_threads import one_torch_thread_per_worker  # noqa: F401
+
 from veto_tpu_torch.config import SolverConfig
 from veto_tpu_torch.data.predicate_stats import predicate_counts
 from veto_tpu_torch.data.synthetic import SyntheticSGGDataset

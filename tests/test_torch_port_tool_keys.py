@@ -22,6 +22,8 @@ import pytest
 
 from veto_tpu.evaluation.sgg_eval import SGGEvaluator as JEvaluator
 
+from torch_port_threads import one_torch_thread_per_worker  # noqa: F401
+
 from veto_tpu_torch.config import load_config
 from veto_tpu_torch.tools import relation_test_net
 from veto_tpu_torch.tools.relation_train_net import UNSERVED_OUTPUTS, train

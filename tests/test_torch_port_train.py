@@ -35,6 +35,9 @@ from veto_tpu.solver.optim import LRController as JLRController
 from veto_tpu.solver.optim import _label_params
 from veto_tpu.solver.optim import make_optimizer as j_make_optimizer
 
+from torch_port_det_steps import compiled, keep_grads
+from torch_port_threads import one_torch_thread_per_worker  # noqa: F401
+
 from veto_tpu_torch.config import SolverConfig
 from veto_tpu_torch.data.predicate_stats import predicate_counts
 from veto_tpu_torch.data.synthetic import SyntheticSGGDataset
@@ -217,12 +220,11 @@ def small_variables():
     jm = JModel(mode="predcls", **SMALL, dtype=jnp.float32,
                 veto_encoder_impl="fused", pooler_impl="separable",
                 veto_remat=False)
-    init = jax.jit(functools.partial(jm.clone(veto_encoder_impl="xla").init,
-                                     train=False))
-    variables = init(
-        jax.random.PRNGKey(0), jbatch.images, jbatch.depth, jbatch.boxes,
-        jbatch.box_mask, jbatch.labels, jbatch.obj_logits,
-        jnp.zeros((2, PAIRS, 2), jnp.int32), jnp.ones((2, PAIRS), bool))
+    init = functools.partial(jm.clone(veto_encoder_impl="xla").init, train=False)
+    args = (jax.random.PRNGKey(0), jbatch.images, jbatch.depth, jbatch.boxes,
+            jbatch.box_mask, jbatch.labels, jbatch.obj_logits,
+            jnp.zeros((2, PAIRS, 2), jnp.int32), jnp.ones((2, PAIRS), bool))
+    variables = compiled(init, *args)(*args)
     rng = np.random.RandomState(0)
     variables = {"params": jax.tree.map(np.asarray, variables["params"]),
                  "batch_stats": _perturb(
@@ -267,8 +269,9 @@ def test_optimizer_matches_optax(small_variables):
     assert {param_label(n) for n in names} == set(code)
 
     tx = j_make_optimizer(_solver(JSolverConfig), params, FROZEN_DETECTOR)
-    opt_state = tx.init(params)
-    update = jax.jit(tx.update)
+    opt_state = jax.jit(tx.init)(params)
+    update, apply = jax.jit(tx.update), jax.jit(optax.apply_updates)
+    global_norm = jax.jit(optax.global_norm)
     opt = make_optimizer(_solver(SolverConfig), model)
     rng = np.random.RandomState(3)
     jp = params
@@ -279,14 +282,13 @@ def test_optimizer_matches_optax(small_variables):
             labels, params)
         opt_state.hyperparams["lr_scale"] = jnp.asarray(lr_scale, jnp.float32)
         updates, opt_state = update(grads, opt_state, jp)
-        jp = optax.apply_updates(jp, updates)
+        jp = apply(jp, updates)
         tg = _state_dict_of(grads)
         for n, p in names.items():
             if p.requires_grad:
                 p.grad = tg[n].clone()
         norm = opt.step(lr_scale)
-        np.testing.assert_allclose(float(norm), float(optax.global_norm(grads)),
-                                   rtol=1e-5)
+        np.testing.assert_allclose(float(norm), float(global_norm(grads)), rtol=1e-5)
         want = _state_dict_of(jax.tree.map(np.asarray, jp))
         for n, p in names.items():
             # f32 Adam in another operation order; each update is ~lr
@@ -395,7 +397,7 @@ def test_depth_backbone_gradient_through_sgg_model(interpret, small_variables):
     ROIAlign Function and gets the gradient ``jax.grad`` gives it (eval-mode
     BN, so only the pooling and the backbone are in question)."""
     jm, variables, batch, jbatch = small_variables
-    js = _jax_samples(jbatch, jax.random.PRNGKey(7))
+    js = jax.jit(_jax_samples)(jbatch, jax.random.PRNGKey(7))
     rng = np.random.RandomState(5)
     w = rng.randn(2, PAIRS, NUM_REL).astype(np.float32)
 
@@ -425,33 +427,25 @@ def test_train_step_matches_jax_f32(interpret, small_variables):
     """One whole PredCls step: JAX's ``make_train_step`` (its samples
     replicated and fed to the port's ``train_on_pairs``) against the port;
     loss, gradient norm, the depth backbone's and relation head's
-    gradients, the new BN statistics; the detector stays as it was."""
+    gradients (the step's own, which its optimizer keeps:
+    ``torch_port_det_steps.keep_grads``), the new BN statistics; the
+    detector stays as it was."""
     jm, variables, batch, jbatch = small_variables
     params, stats = variables["params"], variables["batch_stats"]
     cw = beta_class_weights(predicate_counts("VG")[:NUM_REL])
     lr_scale, key = 0.5, jax.random.PRNGKey(5)
-    tx = j_make_optimizer(_solver(JSolverConfig), params, FROZEN_DETECTOR)
+    tx = keep_grads(j_make_optimizer(_solver(JSolverConfig), params, FROZEN_DETECTOR))
     jstate = JTrainState(step=jnp.asarray(0, jnp.int32), params=params,
-                         batch_stats=stats, opt_state=tx.init(params), rng=key)
+                         batch_stats=stats, opt_state=jax.jit(tx.init)(params), rng=key)
     step = j_make_train_step(jm, tx, cw, batch_size_per_image=PAIRS,
                              positive_fraction=0.25, mode="predcls")
-    new_jstate, jmetrics = jax.jit(step)(jstate, jbatch,
-                                         jnp.asarray(lr_scale, jnp.float32))
-
-    # the step's gradients, as its loss_fn takes them on the same samples
-    js = _jax_samples(jbatch, key)
-
-    def jloss(p):
-        out, mut = jm.apply({"params": p, "batch_stats": stats}, jbatch.images,
-                            jbatch.depth, jbatch.boxes, jbatch.box_mask,
-                            jbatch.labels, jbatch.obj_logits, js.pair_idx,
-                            js.mask, train=True, mutable=["batch_stats"])
-        return j_wce(out.rel_logits, js.labels, js.mask, jnp.asarray(cw))
-
-    jl, jg = jax.jit(jax.value_and_grad(jloss))(params)
-    np.testing.assert_allclose(float(jl), float(jmetrics["loss"]), rtol=1e-6)
+    lr = jnp.asarray(lr_scale, jnp.float32)
+    new_jstate, jmetrics = jax.jit(step)(jstate, jbatch, lr)
+    jg = new_jstate.opt_state[1]
+    js = jax.jit(_jax_samples)(jbatch, key)
     # after the step the port's .grad holds the clipped gradients
     norm = float(optax.global_norm(jg))
+    np.testing.assert_allclose(norm, float(jmetrics["grad_norm"]), rtol=1e-6)
     clip = 1.0 if norm < 5.0 else 5.0 / norm
     ref = _grads_by_name(jax.tree.map(lambda g: g * clip, jg))
 

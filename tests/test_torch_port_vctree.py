@@ -25,6 +25,7 @@ from torch_port_legacy_case import (
     jax_eval, jax_model, jax_train, jax_variables, make_inputs, port_eval,
     port_model, relate_args, sgcls_variables, solver, t_, train_samples,
 )
+from torch_port_threads import one_torch_thread_per_worker  # noqa: F401
 
 from veto_tpu_torch.engine.train import create_train_state, draw_gumbel
 from veto_tpu_torch.models.relation.legacy import build_vctree

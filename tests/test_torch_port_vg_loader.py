@@ -30,6 +30,7 @@ from veto_tpu import native as jnative
 
 import torch_port_jax_native
 from torch_port_vg_files import write_fake_gqa, write_fake_vg
+from torch_port_threads import one_torch_thread_per_worker  # noqa: F401
 from veto_tpu_torch import native
 from veto_tpu_torch.data.gqa import GQADataset
 from veto_tpu_torch.data.loader import SGGLoader

@@ -40,6 +40,7 @@ from veto_tpu.models.relation.predictor_veto import weighted_ce_loss as j_wce
 
 from torch_port_det_steps import compiled
 from torch_port_legacy_case import fill, scaled, t_
+from torch_port_threads import one_torch_thread_per_worker  # noqa: F401
 
 from veto_tpu_torch.config import load_config
 from veto_tpu_torch.data.synthetic import SyntheticSGGDataset

@@ -28,6 +28,7 @@ from veto_tpu.models.backbone.vgg import VGG16Body as JVGG
 
 from torch_port_legacy_case import TOOL_OPTS, make_inputs, relate_args
 from torch_port_mp_case import port_model, variables
+from torch_port_threads import one_torch_thread_per_worker  # noqa: F401
 
 from veto_tpu_torch.config import load_config
 from veto_tpu_torch.models.backbone.vgg import VGG16_CONVS, VGG16Body

@@ -45,7 +45,7 @@ import torch.distributed as dist
 # other raises naming ROADMAP queue A12b
 SCOPE = ("VETOPredictor (veto.encoder_impl auto, fused or xla) in PredCls, "
          "SGCls and SGDet; its MEET heads in PredCls; BGNNPredictor with "
-         "relation.rel_aware in PredCls")
+         "relation.rel_aware in PredCls; the weighted cross-entropy only")
 
 
 class DataParallel:
@@ -286,6 +286,12 @@ def check_scope(cfg, world_size: int) -> None:
     mode = cfg.relation.mode
     if cfg.model.attribute_on:
         _refuse("model.attribute_on", world_size)
+    # their denominators and the balanced norm's running state have no
+    # two-rank test
+    if cfg.relation.loss_variant != "weighted_ce":
+        _refuse(f"relation.loss_variant={cfg.relation.loss_variant}", world_size)
+    if cfg.relation.label_smoothing:
+        _refuse("relation.label_smoothing=True", world_size)
     if pred == "VETOPredictor":
         if cfg.veto.encoder_impl not in ("auto", "fused", "xla"):
             _refuse(f"veto.encoder_impl={cfg.veto.encoder_impl}", world_size)

@@ -29,8 +29,18 @@ to one plain cross-entropy per (expert, group) head,
 ``group_{k}{e+1}_CE_loss``, over the pairs routed to it; the routing draws
 from ``state.generator`` after the pair sampler's draws of the same step
 (the JAX package folds the step's key instead), so a resumed run stays
-bit-equal.  The other loss variants (label smoothing, LDAM, balanced
-norm) raise ``NotImplementedError``.
+bit-equal.
+
+The loss variants (``create_train_state(loss_variant=)``, the tools'
+``relation.loss_variant``, ``relation.label_smoothing=True`` an alias of
+``label_smoothing``): ``rel_loss`` is then the label-smoothed
+cross-entropy, LDAM's margin cross-entropy (``ldam_margins`` from the
+predicate counts, the Rwt class weights) or the balanced norm's NLL (the
+class weights too), as ``ops/losses.py`` computes them.  The balanced norm
+keeps its running labeling probability in ``state.loss_state`` (C,) f32,
+0.03 with the background pinned at 1 at the start, moved by each step's
+forward without a gradient; the checkpoint carries it.  MEET's losses
+override the variant, as in the JAX step.
 
 The legacy predictors (Motifs, VCTree, Transformer, TransLike, and their
 MEET heads), as in the JAX package: their refined ``obj_dists`` carry a
@@ -48,12 +58,15 @@ statistics in the forward, and ``batch_stats`` reports them with the
 rest.
 
 IMP, BGNN, GPSNet and MSDN read the pair mask (their messages skip the
-padded pairs); IMP also embeds ``pred_labels`` (the box head's NMS labels
-in SGCls, the detections' own in SGDet).  BGNN and MSDN with
-``rel_aware`` add ``pre_rel_classify_loss`` in PredCls and SGCls, the
-focal loss of their relness pre-classifier against the sampled pairs'
-labels (``rel_proposal.rel_aware_focal_loss``); the JAX SGDet step adds
-none, and neither does the port's.
+padded pairs); IMP, Naive and RelatednessTest also embed ``pred_labels``
+(the box head's NMS labels in SGCls, the detections' own in SGDet).  BGNN
+and MSDN with ``rel_aware``, and RelatednessTest, add
+``pre_rel_classify_loss`` in PredCls and SGCls, the focal loss of their
+relness pre-classifier against the sampled pairs' labels
+(``rel_proposal.rel_aware_focal_loss``); the JAX SGDet step adds none, and
+neither does the port's.  The causal predictor with an effect updates its
+untreated moving averages (buffers) in the forward, and ``batch_stats``
+reports them beside the BatchNorms' statistics.
 
 Attributes (a model with ``attribute_on``, PredCls and SGCls, as in the
 JAX package): ``attribute_loss`` over every box's attribute list joins the
@@ -77,7 +90,8 @@ over the ranks (a sum, not DDP's mean), so ``loss``, ``grad_norm``, the
 clip and the update are the global step's, alike on every rank.
 
 ``collect_diagnostics`` (the tools' ``global_buffer_on``) adds, for a
-predictor with relness logits (BGNN or MSDN with ``relation.rel_aware``),
+predictor with relness logits (BGNN or MSDN with ``relation.rel_aware``,
+RelatednessTest),
 the JAX step's diagnostics under ``buffer``: ``rel_pn-train_y`` (the
 sampled pairs' foreground), ``rel_pn-train_pred`` (the sigmoid of the
 relness logit) and ``mask``, this rank's rows.
@@ -93,6 +107,7 @@ from torch import nn
 
 from ..models.detector.attribute_head import attribute_loss
 from ..models.detector.box_head import assign_labels_to_proposals
+from ..models.relation.legacy.causal import UNTREATED
 from ..models.relation.predictor_meet import MeetConfig, meet_losses
 from ..models.relation.predictor_veto import weighted_ce_loss
 from ..models.relation.rel_proposal import rel_aware_focal_loss
@@ -100,8 +115,13 @@ from ..models.relation.sampling import (
     DetRelSample, RelSample, binary_relatedness, detect_relsample, gtbox_relsample,
 )
 from ..models.sgg import DetectOutput, check_mode
+from ..ops.losses import (
+    balanced_norm_nll, balanced_norm_probs, label_smoothing_ce, ldam_loss,
+)
 from ..solver.optim import FROZEN_DETECTOR, Optimizer, make_optimizer
 from .distributed import DataParallel, all_reduce_grads, attach
+
+LOSS_VARIANTS = ("weighted_ce", "label_smoothing", "ldam", "balanced_norm")
 
 
 @dataclass
@@ -114,34 +134,52 @@ class TrainState:
     meet: Optional[MeetConfig] = None  # its constants on the model's device
     attribute_cfg: Optional[dict] = None  # attribute_loss's keyword arguments
     dp: Optional[DataParallel] = None  # the ranks of a data-parallel step
+    loss_variant: str = "weighted_ce"  # one of LOSS_VARIANTS
+    ldam_margins: Optional[torch.Tensor] = None  # (num_rel,) with "ldam"
+    # the balanced norm's running labeling probability (num_rel,) f32
+    loss_state: Optional[torch.Tensor] = None
 
 
 def create_train_state(model: nn.Module, solver_cfg, class_weights=None,
                        mode: str = "predcls", loss_variant: str = "weighted_ce",
                        meet=None, attribute_cfg: Optional[dict] = None,
-                       dp: Optional[DataParallel] = None) -> TrainState:
+                       dp: Optional[DataParallel] = None,
+                       ldam_margins=None) -> TrainState:
     """The state of a training run over ``model``'s parameters; ``meet`` (a
     :class:`MeetConfig`) trains MEET's per-group losses, and then the
     class weights are not used; ``attribute_cfg`` holds
     :func:`attribute_loss`'s keyword arguments (its defaults when None)
     for a model with ``attribute_on``; ``dp`` the ranks of a data-parallel
-    step (its BatchNorms are given them)."""
+    step (its BatchNorms are given them).  ``loss_variant`` is one of
+    :data:`LOSS_VARIANTS`; ``"ldam"`` needs ``ldam_margins`` (C,)
+    (``ops.losses.ldam_margins`` of the predicate counts), and
+    ``"balanced_norm"`` starts ``loss_state`` at 0.03, the background's
+    at 1."""
     check_mode(mode)
     if mode != model.mode:
         raise ValueError(f"mode {mode!r} for a model built for {model.mode!r}")
-    if loss_variant != "weighted_ce":
-        raise NotImplementedError(f"loss variant {loss_variant!r}: the port "
-                                  "trains with the weighted cross-entropy")
+    if loss_variant not in LOSS_VARIANTS:
+        raise ValueError(f"loss variant {loss_variant!r}: expected one of "
+                         f"{LOSS_VARIANTS}")
+    if loss_variant == "ldam" and ldam_margins is None:
+        raise ValueError("the ldam loss variant needs ldam_margins")
     dev = next(model.parameters()).device
     cw = None if class_weights is None else torch.as_tensor(
         class_weights, dtype=torch.float32, device=dev)
+    margins = None if ldam_margins is None else torch.as_tensor(
+        ldam_margins, dtype=torch.float32, device=dev)
+    loss_state = None
+    if loss_variant == "balanced_norm":
+        loss_state = torch.full((model.num_rel_classes,), 0.03, device=dev)
+        loss_state[0] = 1.0
     if meet is not None:
         meet = meet._replace(
             incre_idx=torch.as_tensor(meet.incre_idx, device=dev),
             sample_rate=torch.as_tensor(meet.sample_rate, device=dev))
     attach(model, dp)
     return TrainState(model, make_optimizer(solver_cfg, model), cw, meet=meet,
-                      attribute_cfg=attribute_cfg, dp=dp)
+                      attribute_cfg=attribute_cfg, dp=dp, loss_variant=loss_variant,
+                      ldam_margins=margins, loss_state=loss_state)
 
 
 def sample_pairs(batch, generator: torch.Generator,
@@ -185,20 +223,34 @@ def sample_detections(model: nn.Module, batch, generator: torch.Generator,
 
 
 def batch_stats(model: nn.Module) -> Dict[str, torch.Tensor]:
-    """Copies of the running statistics of the trainable BatchNorms."""
+    """Copies of the running statistics of the trainable BatchNorms and of
+    the causal predictor's untreated averages (the JAX step's
+    ``batch_stats``)."""
     return {name: buf.detach().clone() for name, buf in model.named_buffers()
-            if name.rsplit(".", 1)[-1] in ("running_mean", "running_var")
+            if name.rsplit(".", 1)[-1] in ("running_mean", "running_var") + UNTREATED
             and not name.startswith(FROZEN_DETECTOR)}
 
 
 def _rel_losses(state: TrainState, rel_logits, labels, mask,
                 member=None) -> Dict[str, torch.Tensor]:
-    """``rel_loss``, the Rwt weighted cross-entropy; with MEET the per-group
-    cross-entropies instead, routed by ``member`` when given, else by a
-    draw from ``state.generator``."""
+    """``rel_loss``: the Rwt weighted cross-entropy, or the state's loss
+    variant (the balanced norm moves ``state.loss_state``); with MEET the
+    per-group cross-entropies instead, routed by ``member`` when given,
+    else by a draw from ``state.generator``."""
     if state.meet is None:
-        return {"rel_loss": weighted_ce_loss(rel_logits, labels, mask,
-                                             state.class_weights, state.dp)}
+        cw, variant = state.class_weights, state.loss_variant
+        if variant == "label_smoothing":
+            loss = label_smoothing_ce(rel_logits, torch.where(mask, labels, 0), mask=mask)
+        elif variant == "ldam":
+            loss = ldam_loss(rel_logits, labels, mask, state.ldam_margins,
+                             class_weights=cw)
+        elif variant == "balanced_norm":
+            probs, state.loss_state = balanced_norm_probs(
+                rel_logits, labels, mask, state.loss_state, train=True)
+            loss = balanced_norm_nll(probs, labels, mask, cw)
+        else:
+            loss = weighted_ce_loss(rel_logits, labels, mask, cw, state.dp)
+        return {"rel_loss": loss}
     if member is None and state.generator is None:
         raise ValueError("MEET's routing draws from state.generator: set it")
     m = state.meet
@@ -311,7 +363,7 @@ def forward_backward(state: TrainState, batch,
             losses["binary_loss"] = _binary_loss(
                 out.binary_preds, binary_relatedness(batch.rel_matrix, batch.box_mask),
                 batch.box_mask)
-        if out.relness_logits is not None:  # BGNN's relness pre-classifier
+        if out.relness_logits is not None:  # the relness pre-classifier
             losses["pre_rel_classify_loss"] = rel_aware_focal_loss(
                 out.relness_logits, samples.labels, samples.mask,
                 model.num_rel_classes, dp=state.dp)

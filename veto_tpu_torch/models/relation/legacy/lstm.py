@@ -26,7 +26,11 @@ cell) stepped over the sorted proposals, feeding back the label embedding
 (table with a 'start' row 0, labels shifted by +1): the GT label at train
 (background replaced by the argmax foreground), the argmax foreground at
 eval.  Its parameters keep the JAX module's explicit names and (in, out)
-layout.
+layout.  With ``num_att_classes`` > 0 it is the attribute variant: every
+timestep input also carries the attribute table's 'start' row 0, which
+stays constant (the reference assigns the previous attribute embedding
+only after its loop), and a second head ``att_out_w`` / ``att_out_b``
+gives each step's f32 attribute logits.
 """
 
 from __future__ import annotations
@@ -115,20 +119,23 @@ class MaskedBiLSTM(nn.Module):
 class HighwayDecoderLSTM(nn.Module):
     """The Motifs decoder: (B, N, D) sorted inputs, (B, N) mask, sorted GT
     labels (train) → logits (B, N, C) f32 and refined labels (B, N) int32
-    (0 on padding)."""
+    (0 on padding); with ``num_att_classes`` > 0 also the attribute logits
+    (B, N, A) f32."""
 
     def __init__(self, num_obj_classes: int, in_features: int,
                  embed_dim: int = 200, hidden: int = 512, num_att_classes: int = 0,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        if num_att_classes > 0:
-            raise NotImplementedError(
-                "the attribute decoder (num_att_classes > 0) comes with "
-                "AttributeLSTMContext")
         c, e, h = num_obj_classes, embed_dim, hidden
         self.hidden, self.dtype = h, dtype
+        self.att_on = num_att_classes > 0
         self.obj_embed = nn.Parameter(torch.empty(c + 1, e))
-        self.input_w = nn.Parameter(torch.empty(in_features + e, 6 * h))
+        if self.att_on:
+            self.att_embed = nn.Parameter(torch.empty(num_att_classes, e))
+            self.att_out_w = nn.Parameter(torch.empty(h, num_att_classes))
+            self.att_out_b = nn.Parameter(torch.zeros(num_att_classes))
+        extra = 2 * e if self.att_on else e
+        self.input_w = nn.Parameter(torch.empty(in_features + extra, 6 * h))
         self.input_b = nn.Parameter(torch.zeros(6 * h))
         self.state_w = nn.Parameter(torch.empty(h, 5 * h))
         self.state_b = nn.Parameter(torch.zeros(5 * h))
@@ -136,7 +143,7 @@ class HighwayDecoderLSTM(nn.Module):
         self.out_b = nn.Parameter(torch.zeros(c))
 
     def forward(self, feats: torch.Tensor, mask: torch.Tensor,
-                gt_labels: Optional[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+                gt_labels: Optional[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
         cdt, h = self.dtype, self.hidden
         b, n, d = feats.shape
         table = self.obj_embed.to(cdt)
@@ -146,14 +153,20 @@ class HighwayDecoderLSTM(nn.Module):
         # the timestep input is [x_t, previous embedding]: x_t's product for
         # every step at once, the embedding's a step at a time
         xp = torch.matmul(feats.to(cdt), w_in[:d]) + b_in
+        if self.att_on:  # the constant attribute 'start' row
+            e = table.shape[1]
+            xp = xp + torch.matmul(self.att_embed[0].to(cdt), w_in[d + e:])
+            w_prev = w_in[d:d + e]
+        else:
+            w_prev = w_in[d:]
         teacher = self.training and gt_labels is not None
         state = torch.zeros((b, h), dtype=cdt, device=feats.device)
         memory = torch.zeros_like(state)
         prev = table[0].expand(b, -1)
         cls_idx = torch.arange(self.out_b.shape[0] - 1, device=feats.device).expand(b, -1)
-        logits, labels = [], []
+        logits, labels, atts = [], [], []
         for t in range(n):
-            pi = xp[:, t] + torch.matmul(prev, w_in[d:])
+            pi = xp[:, t] + torch.matmul(prev, w_prev)
             ps = torch.addmm(b_st, state, w_st)
 
             def gate(k):
@@ -165,6 +178,9 @@ class HighwayDecoderLSTM(nn.Module):
             hw = torch.sigmoid(gate(4))
             new_state = hw * out + (1.0 - hw) * pi[:, 5 * h:]
             logit = torch.addmm(self.out_b, new_state.float(), self.out_w)
+            if self.att_on:
+                atts.append(torch.addmm(self.att_out_b, new_state.float(),
+                                        self.att_out_w))
             fg = first_argmax(logit[:, 1:], cls_idx) + 1
             refined = torch.where(gt_labels[:, t] > 0, gt_labels[:, t].long(), fg) \
                 if teacher else fg
@@ -174,4 +190,5 @@ class HighwayDecoderLSTM(nn.Module):
             prev = torch.where(m, table[refined + 1], prev)
             logits.append(logit)
             labels.append(torch.where(mask[:, t], refined, 0))
-        return torch.stack(logits, 1), torch.stack(labels, 1).to(torch.int32)
+        out = (torch.stack(logits, 1), torch.stack(labels, 1).to(torch.int32))
+        return out + (torch.stack(atts, 1),) if self.att_on else out

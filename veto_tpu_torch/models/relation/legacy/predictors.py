@@ -39,6 +39,7 @@ from torch import nn
 
 from ....ops.box_ops import encode_box_info
 from ....ops.nms import first_argmax, obj_prediction_nms
+from ...detector.attribute_head import attribute_targets
 from ...layers import BatchNorm1d, Dense
 from ..freq_bias import FrequencyBias
 from .context import (
@@ -61,6 +62,9 @@ class LegacyOutput(NamedTuple):
     # BGNN with rel_aware: (B, P, C) f32 pre-classifier logits, for
     # ``pre_rel_classify_loss`` and the eval's relness
     relness_logits: Optional[torch.Tensor] = None
+    # Motifs with ``attribute_on``: (B, N, num_att) f32 attribute logits (in
+    # PredCls the raw GT multi-hot)
+    att_dists: Optional[torch.Tensor] = None
 
     @property
     def rel_logits(self):
@@ -124,13 +128,15 @@ class _PairHead(nn.Module):
         self.post_cat = Dense(hidden_dim * 2, pooling_dim, dtype=dtype)
 
     def prod(self, edge_ctx: torch.Tensor, pair_idx: torch.Tensor) -> torch.Tensor:
-        """(B, P, 2 hidden) joined head and tail representations."""
+        """(B, P, 2 hidden) joined head and tail representations (gathered as
+        products with the incidence matrix: no backward adds into one
+        address from many threads, so two runs on the card are bit-equal)."""
         rep = self.post_emb(edge_ctx)
         if self.relu_emb:
             rep = F.relu(rep)
         h = self.hidden_dim
-        return torch.cat([gather_rows(rep[..., :h], pair_idx[..., 0]),
-                          gather_rows(rep[..., h:], pair_idx[..., 1])], -1)
+        return torch.cat([take_rows(rep[..., :h], pair_idx[..., 0]),
+                          take_rows(rep[..., h:], pair_idx[..., 1])], -1)
 
 
 class TransformerPredictor(_PairHead):
@@ -195,8 +201,14 @@ class LSTMContext(nn.Module):
     edge_ctx (B, N, hidden)).  In PredCls the GT labels and their one-hot;
     in SGCls and SGDet the decoder's refined labels (teacher-forced at
     train), in SGDet evaluation relabelled by the late NMS (overwrite, the
-    background column at 0).  ``effect_analysis`` (Causal-TDE's moving
-    average decoder input) comes with ``CausalPredictor``."""
+    background column at 0).
+
+    ``effect_analysis`` (Causal-TDE) keeps the buffer
+    ``untreated_dcd_feat``, the moving average of the decoder's input over
+    the valid boxes (``AVERAGE_RATIO`` of each training batch's mean, taken
+    without a gradient; in PredCls, which runs no decoder, it stays at 0);
+    ``ctx_average=True`` in evaluation feeds that average to the decoder in
+    place of the real input (the counterfactual forward)."""
 
     def __init__(self, num_obj_classes: int = 151, embed_dim: int = 200,
                  hidden_dim: int = 512, in_dim: int = 4096, obj_layers: int = 1,
@@ -204,11 +216,9 @@ class LSTMContext(nn.Module):
                  later_nms_thres: float = 0.3, effect_analysis: bool = False,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        if effect_analysis:
-            raise NotImplementedError(
-                "LSTMContext.effect_analysis (Causal-TDE) comes with CausalPredictor")
         self.num_obj_classes, self.mode, self.dtype = num_obj_classes, mode, dtype
         self.later_nms_thres = later_nms_thres
+        self.effect_analysis = effect_analysis
         self.obj_embed1 = nn.Embedding(num_obj_classes, embed_dim)
         self.obj_embed2 = nn.Embedding(num_obj_classes, embed_dim)
         self.pos_fc1 = Dense(9, 32, dtype=dtype)
@@ -220,12 +230,14 @@ class LSTMContext(nn.Module):
         if mode != "predcls":
             self.decoder_rnn = HighwayDecoderLSTM(num_obj_classes, pre + hidden_dim,
                                                   embed_dim, hidden_dim, dtype=dtype)
+        if effect_analysis:
+            self.register_buffer("untreated_dcd_feat", torch.zeros(pre + hidden_dim))
         self.edge_ctx_rnn = MaskedBiLSTM(embed_dim + in_dim + hidden_dim, hidden_dim,
                                          edge_layers, dtype)
         self.lin_edge_h = Dense(2 * hidden_dim, hidden_dim, dtype=dtype)
 
     def forward(self, roi_features, boxes, box_mask, obj_labels, predict_logits,
-                image_sizes, boxes_per_cls=None):
+                image_sizes, boxes_per_cls=None, ctx_average: bool = False):
         cdt = self.dtype
         if self.mode == "predcls":
             obj_embed = self.obj_embed1(obj_labels.long()).to(cdt)
@@ -245,10 +257,15 @@ class LSTMContext(nn.Module):
             obj_preds = obj_labels
             obj_dists = F.one_hot(obj_labels.long(), self.num_obj_classes).float()
         else:
+            dec_inp = torch.cat([sorted_pre, enc], -1)
+            if self.effect_analysis:
+                if self.training:
+                    moving_average(self.untreated_dcd_feat, dec_inp, sorted_mask)
+                elif ctx_average:
+                    dec_inp = self.untreated_dcd_feat.to(dec_inp.dtype).expand_as(dec_inp)
             sorted_labels = (torch.gather(obj_labels, 1, perm) if self.training
                              else None)
-            logits, refined = self.decoder_rnn(torch.cat([sorted_pre, enc], -1),
-                                               sorted_mask, sorted_labels)
+            logits, refined = self.decoder_rnn(dec_inp, sorted_mask, sorted_labels)
             obj_dists = gather_rows(logits, inv)
             obj_preds = torch.gather(refined, 1, inv)
             if self.mode == "sgdet" and not self.training:
@@ -265,11 +282,122 @@ class LSTMContext(nn.Module):
         return obj_dists, obj_preds, gather_rows(self.lin_edge_h(edge), inv)
 
 
+# the share of each training batch's mean in a Causal-TDE moving average
+AVERAGE_RATIO = 0.0005
+
+
+@torch.no_grad()
+def moving_average(holder: torch.Tensor, x: torch.Tensor, mask: torch.Tensor,
+                   ratio: float = AVERAGE_RATIO) -> None:
+    """``holder`` ← ``holder * (1 - ratio) + ratio * mean``, the f32 mean of
+    ``x`` (..., F) over the rows where ``mask`` (...) is set (at least one
+    row counted), without a gradient: the Causal-TDE "untreated" buffers."""
+    m = mask.reshape(-1).float()
+    mean = (x.reshape(-1, x.shape[-1]).float() * m[:, None]).sum(0) / \
+        torch.clamp(m.sum(), min=1.0)
+    holder.copy_(holder * (1 - ratio) + ratio * mean)
+
+
+def norm_sigmoid(logits: torch.Tensor) -> torch.Tensor:
+    """The reference's ``normalize_sigmoid_logits``: the f32 sigmoid over the
+    last axis divided by its sum (+ 1e-12)."""
+    p = torch.sigmoid(logits.float())
+    return p / (p.sum(-1, keepdim=True) + 1e-12)
+
+
+class AttributeLSTMContext(nn.Module):
+    """The attribute-aware Motifs context (``attribute_on``): (obj_dists,
+    obj_preds, att_dists, edge_ctx).  Beside :class:`LSTMContext`'s, the
+    object stream embeds the attributes (in PredCls the normalized GT
+    multi-hot through ``att_embed1``, else the normalized sigmoid of the
+    detector's attribute logits), the decoder is the attribute variant
+    (:class:`HighwayDecoderLSTM` with ``num_att_classes``), the edge stream
+    adds the normalized sigmoid of ``att_dists`` through ``att_embed2``.
+    In PredCls ``obj_dists`` is the ±1000 one-hot and ``att_dists`` the raw
+    GT multi-hot, whose sigmoid the edge stream then takes (the reference's
+    quirk, kept).  The position net has no BatchNorm, and no late NMS runs
+    in SGDet, as in the JAX module."""
+
+    def __init__(self, num_obj_classes: int = 151, num_att_classes: int = 201,
+                 embed_dim: int = 200, hidden_dim: int = 512, in_dim: int = 4096,
+                 obj_layers: int = 1, edge_layers: int = 1, mode: str = "predcls",
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.num_obj_classes, self.num_att_classes = num_obj_classes, num_att_classes
+        self.mode, self.dtype = mode, dtype
+        self.obj_embed1 = nn.Embedding(num_obj_classes, embed_dim)
+        self.obj_embed2 = nn.Embedding(num_obj_classes, embed_dim)
+        self.att_embed1 = nn.Embedding(num_att_classes, embed_dim)
+        self.att_embed2 = nn.Embedding(num_att_classes, embed_dim)
+        self.pos_fc1 = Dense(9, 32, dtype=dtype)
+        self.pos_fc2 = Dense(32, 128, dtype=dtype)
+        pre = in_dim + 2 * embed_dim + 128
+        self.obj_ctx_rnn = MaskedBiLSTM(pre, hidden_dim, obj_layers, dtype)
+        self.lin_obj_h = Dense(2 * hidden_dim, hidden_dim, dtype=dtype)
+        if mode != "predcls":
+            self.decoder_rnn = HighwayDecoderLSTM(num_obj_classes, pre + hidden_dim,
+                                                  embed_dim, hidden_dim,
+                                                  num_att_classes, dtype=dtype)
+        self.edge_ctx_rnn = MaskedBiLSTM(2 * embed_dim + in_dim + hidden_dim,
+                                         hidden_dim, edge_layers, dtype)
+        self.lin_edge_h = Dense(2 * hidden_dim, hidden_dim, dtype=dtype)
+
+    def forward(self, roi_features, boxes, box_mask, obj_labels, attributes,
+                predict_logits, attribute_logits, image_sizes):
+        """``attributes`` (B, N, 10) padded GT attribute ids, ``attribute_logits``
+        (B, N, A) the attribute head's (read outside PredCls)."""
+        cdt = self.dtype
+        gt_multihot = attribute_targets(attributes, self.num_att_classes)
+        if self.mode == "predcls":
+            obj_embed = self.obj_embed1(obj_labels.long()).to(cdt)
+            gt_norm = gt_multihot / (gt_multihot.sum(-1, keepdim=True) + 1e-12)
+            att_embed = torch.matmul(gt_norm.to(cdt), self.att_embed1.weight.to(cdt))
+        else:
+            obj_embed = soft_embed(self.obj_embed1, predict_logits, cdt)
+            att_embed = torch.matmul(norm_sigmoid(attribute_logits).to(cdt),
+                                     self.att_embed1.weight.to(cdt))
+        g = F.relu(self.pos_fc1(encode_box_info(boxes, image_sizes).to(cdt)))
+        g = F.relu(self.pos_fc2(g))
+        x = roi_features.to(cdt)
+        obj_pre = torch.cat([x, obj_embed, att_embed, g], -1)
+
+        perm, inv = centerx_perm(boxes, box_mask)
+        sorted_pre = gather_rows(obj_pre, perm)
+        sorted_mask = torch.gather(box_mask, 1, perm)
+        enc = self.lin_obj_h(self.obj_ctx_rnn(sorted_pre, sorted_mask))
+
+        if self.mode == "predcls":
+            obj_preds = obj_labels
+            obj_dists = F.one_hot(obj_labels.long(),
+                                  self.num_obj_classes).float() * 2000.0 - 1000.0
+            att_dists = gt_multihot
+        else:
+            sorted_labels = (torch.gather(obj_labels, 1, perm) if self.training
+                             else None)
+            logits, refined, att = self.decoder_rnn(torch.cat([sorted_pre, enc], -1),
+                                                    sorted_mask, sorted_labels)
+            obj_dists = gather_rows(logits, inv)
+            obj_preds = torch.gather(refined, 1, inv)
+            att_dists = gather_rows(att, inv)
+
+        obj_ctx = gather_rows(enc, inv)
+        att2 = torch.matmul(norm_sigmoid(att_dists).to(cdt),
+                            self.att_embed2.weight.to(cdt))
+        edge_pre = torch.cat([self.obj_embed2(obj_preds.long()).to(cdt), att2, x,
+                              obj_ctx], -1)
+        edge = self.edge_ctx_rnn(gather_rows(edge_pre, perm), sorted_mask)
+        return obj_dists, obj_preds, att_dists, gather_rows(self.lin_edge_h(edge), inv)
+
+
 class MotifPredictor(_PairHead):
     """Neural Motifs: the biLSTM context, the union-gated pair rep,
     ``rel_compress`` and the frequency bias (with MEET the group heads on
-    the gated rep, no bias).  ``attribute_on`` comes with
-    ``AttributeLSTMContext``; the JAX module's ``use_vision`` and
+    the gated rep, no bias).  ``attribute_on`` swaps in
+    :class:`AttributeLSTMContext`, fed the GT ``attributes`` and the
+    attribute head's ``attribute_logits``, and returns its ``att_dists``
+    too; the JAX model's ``build_model`` never builds it so (its
+    ``model.attribute_on`` adds the attribute head beside a plain Motifs),
+    and neither does the port's.  The JAX module's ``use_vision`` and
     ``use_bias``, on in every configuration, are fixed on."""
 
     def __init__(self, num_obj_classes: int = 151, num_rel_classes: int = 51,
@@ -277,14 +405,16 @@ class MotifPredictor(_PairHead):
                  in_channels: int = 4096, mode: str = "predcls",
                  meet_group_sizes: Optional[Sequence[int]] = None,
                  meet_experts: int = 1, attribute_on: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 num_att_classes: int = 201, dtype: torch.dtype = torch.float32):
         super().__init__(hidden_dim, pooling_dim, dtype)
+        self.dtype, self.attribute_on = dtype, attribute_on
         if attribute_on:
-            raise NotImplementedError(
-                "MotifPredictor with attribute_on comes with AttributeLSTMContext")
-        self.dtype = dtype
-        self.context_layer = LSTMContext(num_obj_classes, embed_dim, hidden_dim,
-                                         in_channels, mode=mode, dtype=dtype)
+            self.context_layer = AttributeLSTMContext(
+                num_obj_classes, num_att_classes, embed_dim, hidden_dim, in_channels,
+                mode=mode, dtype=dtype)
+        else:
+            self.context_layer = LSTMContext(num_obj_classes, embed_dim, hidden_dim,
+                                             in_channels, mode=mode, dtype=dtype)
         self.meet = meet_group_sizes is not None
         if self.meet:
             self.meet_heads = MeetRelHeads(pooling_dim, meet_group_sizes, meet_experts)
@@ -294,19 +424,25 @@ class MotifPredictor(_PairHead):
 
     def forward(self, boxes, box_mask, obj_labels, predict_logits, pair_idx,
                 roi_features, union_features, image_sizes, boxes_per_cls=None,
-                gumbel=None, forest=None, pair_mask=None,
-                pred_labels=None) -> LegacyOutput:
-        obj_dists, obj_preds, edge_ctx = self.context_layer(
-            roi_features, boxes, box_mask, obj_labels, predict_logits, image_sizes,
-            boxes_per_cls)
+                gumbel=None, forest=None, pair_mask=None, pred_labels=None,
+                attributes=None, attribute_logits=None) -> LegacyOutput:
+        att_dists = None
+        if self.attribute_on:
+            obj_dists, obj_preds, att_dists, edge_ctx = self.context_layer(
+                roi_features, boxes, box_mask, obj_labels, attributes, predict_logits,
+                attribute_logits, image_sizes)
+        else:
+            obj_dists, obj_preds, edge_ctx = self.context_layer(
+                roi_features, boxes, box_mask, obj_labels, predict_logits,
+                image_sizes, boxes_per_cls)
         prod_rep = (self.post_cat(self.prod(edge_ctx, pair_idx))
                     * union_features.to(self.dtype))
         if self.meet:
-            return LegacyOutput(obj_dists, None, obj_preds,
+            return LegacyOutput(obj_dists, None, obj_preds, att_dists=att_dists,
                                 group_logits=self.meet_heads(prod_rep))
         rel_dists = (self.rel_compress(prod_rep)
                      + self.freq_bias(pair_classes(obj_preds, pair_idx)))
-        return LegacyOutput(obj_dists, rel_dists, obj_preds)
+        return LegacyOutput(obj_dists, rel_dists, obj_preds, att_dists=att_dists)
 
 
 def valid_pairs(pair_mask: Optional[torch.Tensor], pair_idx: torch.Tensor) -> torch.Tensor:

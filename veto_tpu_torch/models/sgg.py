@@ -42,7 +42,9 @@ the JAX package.
 The legacy predictors (``predictor`` one of :data:`LEGACY_PORTED`: Motifs,
 VCTree, Transformer, TransLike, with ``meet_group_sizes`` their MEET
 heads; IMP, BGNN, GPSNet, MSDN, BGNN and MSDN with the
-relation-confidence pre-classifier under ``bgnn_rel_aware``) take the JAX
+relation-confidence pre-classifier under ``bgnn_rel_aware``; causal
+analysis with ``causal_effect_type`` and ``causal_fusion_type``; KERN,
+AGRCNN, Naive and RelatednessTest) take the JAX
 package's legacy route through the model: no depth backbone; the boxes
 pooled 7x7 on P2-P5 into a trainable copy of the box MLP
 (``rel_box_extractor``, ``context_pooling_dim`` wide), the pairs' union
@@ -50,13 +52,12 @@ boxes pooled 7x7 into the union features (``union_extractor``), so two B3
 launches a forward (three in SGCls, with the box head's own pool);
 the predictor gets the GT labels (teacher-forced by the Motifs decoder in
 training) and the proposals' logits, and refines the object labels
-itself (IMP also embeds ``pred_labels``: in SGCls the box head's NMS
-labels, in SGDet the detections').  :class:`SGGForward` then carries the
+itself (IMP, Naive and RelatednessTest also embed ``pred_labels``: in
+SGCls the box head's NMS labels, in SGDet the detections').  :class:`SGGForward` then carries the
 predictor's refined ``obj_dists`` and labels, VCTree's ``binary_preds``
 and the relness pre-classifier's ``relness_logits``.  Image sizes
 default to the padded input's, as in the JAX model; SGDet passes the
-true ones and the detections' ``boxes_per_cls``.  The other legacy names
-raise ``NotImplementedError`` (:func:`resolve_predictor`).
+true ones and the detections' ``boxes_per_cls``.
 
 Training: the detector is frozen (the JAX package's ``FROZEN_DETECTOR``,
 ``tools/relation_train_net.py:297``), the RPN and box head included: its
@@ -126,20 +127,12 @@ from .relation.predictor_veto import VetoPredictor
 from .relation.union_features import UnionFeatureExtractor
 
 MODES = ("predcls", "sgcls", "sgdet")
-# the JAX model's legacy predictors (``SGGModel.LEGACY_PREDICTORS``) and,
-# for those still missing, the slice of the port that brings each
+# the JAX model's legacy predictors (``SGGModel.LEGACY_PREDICTORS``)
 LEGACY_PREDICTORS = ("TransformerPredictor", "TransLikePredictor", "IMPPredictor",
                      "MotifPredictor", "VCTreePredictor", "BGNNPredictor",
                      "GPSNetPredictor", "MSDNPredictor", "CausalAnalysisPredictor",
                      "KERNPredictor", "NaivePredictor", "RelatednessTestPredictor",
                      "AGRCNNPredictor")
-_KERN_ETC = "the slice of KERN, AGRCNN, Naive and RelatednessTest"
-_LEGACY_TO_COME = {
-    "CausalAnalysisPredictor": "the CausalPredictor slice "
-                               "(LSTMContext.effect_analysis)",
-    "KERNPredictor": _KERN_ETC, "AGRCNNPredictor": _KERN_ETC,
-    "NaivePredictor": _KERN_ETC, "RelatednessTestPredictor": _KERN_ETC,
-}
 
 
 def check_mode(mode: str) -> None:
@@ -204,7 +197,8 @@ class SGGModel(nn.Module):
                  keypoint_pooler_resolution: int = 14,
                  predictor: str = "VETOPredictor", context_hidden_dim: int = 512,
                  context_pooling_dim: int = 4096, backbone_type: str = "R-101-FPN",
-                 bgnn_rel_aware: bool = False, bgnn_mp_valid_pairs: int = 200):
+                 bgnn_rel_aware: bool = False, bgnn_mp_valid_pairs: int = 200,
+                 causal_effect_type: str = "none", causal_fusion_type: str = "sum"):
         super().__init__()
         check_mode(mode)
         if resolve_predictor(predictor) != predictor:
@@ -293,6 +287,9 @@ class SGGModel(nn.Module):
                 extra = dict(meet_group_sizes=meet_group_sizes, meet_experts=meet_experts)
             if predictor in REL_AWARE:
                 extra = dict(rel_aware=bgnn_rel_aware, mp_valid_pairs=bgnn_mp_valid_pairs)
+            if predictor == "CausalAnalysisPredictor":
+                extra = dict(effect_type=causal_effect_type,
+                             fusion_type=causal_fusion_type)
             self.relation = LEGACY_PORTED[predictor](
                 num_obj_classes=num_obj_classes, num_rel_classes=num_rel_classes,
                 hidden_dim=context_hidden_dim, pooling_dim=context_pooling_dim,
@@ -540,19 +537,13 @@ def resolve_predictor(name: str) -> str:
     resolves it: a ``*_MEET`` name selects its base (the ensemble heads
     come with ``ensemble.enabled``, not with the name), and
     ``TransLike_MEET`` is ``TransLikePredictor``.  The port has VETO's and
-    the legacy predictors of :data:`LEGACY_PORTED`; another legacy name
-    raises ``NotImplementedError`` naming the slice that brings it, an
-    unknown one ``ValueError``."""
+    every legacy predictor of the JAX model (:data:`LEGACY_PORTED`); an
+    unknown name raises ``ValueError``."""
     base = name[: -len("_MEET")] if name.endswith("_MEET") else name
     if base == "TransLike":
         base = "TransLikePredictor"
     if base == "VETOPredictor" or base in LEGACY_PORTED:
         return base
-    if base in _LEGACY_TO_COME:
-        raise NotImplementedError(
-            f"predictor {name!r}: the port has VETOPredictor and "
-            f"{', '.join(LEGACY_PORTED)}; {base} comes "
-            f"with {_LEGACY_TO_COME[base]}, ROADMAP queue A14")
     raise ValueError(f"predictor {name!r}: no such relation predictor (the JAX "
                      f"model's: VETOPredictor, {', '.join(LEGACY_PREDICTORS)})")
 
@@ -570,7 +561,8 @@ def build_model(cfg, device=None, seed: int = None,
     geometry (``tools/relation_train_net.py``): the config's anchor sizes as
     one level's, stride 16, pooler scale 1/16.  ``relation.rel_aware`` and
     ``relation.mp_valid_pairs`` configure BGNN's and MSDN's relation
-    confidence."""
+    confidence, ``relation.causal_effect_type`` and
+    ``relation.causal_fusion_type`` the causal-analysis predictor."""
     from ..tools.relation_train_net import build_meet_config
 
     dev = resolve_device(device)
@@ -634,6 +626,8 @@ def build_model(cfg, device=None, seed: int = None,
             backbone_type=cfg.model.backbone,
             bgnn_rel_aware=cfg.relation.rel_aware,
             bgnn_mp_valid_pairs=cfg.relation.mp_valid_pairs,
+            causal_effect_type=cfg.relation.causal_effect_type,
+            causal_fusion_type=cfg.relation.causal_fusion_type,
         )
     model = model.to(dev)
     init_weights(model, cfg.solver.seed if seed is None else seed)
@@ -678,8 +672,9 @@ def init_weights(model: nn.Module, seed: int) -> None:
                 else p.shape[0]
             std = math.sqrt(2.0 / (out_ch * p.shape[2] * p.shape[3])) / .87962566103423978
             nn.init.trunc_normal_(p, 0.0, 1.0, -2.0, 2.0, generator=gen).mul_(std)
-        elif leaf in ("cls_token", "pos_embedding", "obj_embed") or name.endswith(
+        elif leaf in ("cls_token", "pos_embedding", "obj_embed", "att_embed") or name.endswith(
                 ("obj_embed1.weight", "obj_embed2.weight", "obj_sem_embed.weight",
+                 "att_embed1.weight", "att_embed2.weight",
                  "obj_embed_on_prob_dist.weight", "obj_embed_on_pred_label.weight")):
             p.normal_(0.0, 1.0, generator=gen)
         elif leaf == "relness_alpha":

@@ -33,7 +33,10 @@ its MEET heads under ``ensemble.enabled`` (``*_MEET`` names, and
 ``TransLike_MEET``, select the same base, as in the JAX tool), and
 ``IMPPredictor``, ``BGNNPredictor``, ``GPSNetPredictor`` and
 ``MSDNPredictor`` (BGNN's relness, with ``relation.rel_aware``, rides in
-the PredCls / SGCls predictions).  ``configs/vgg_vg_predcls.yaml``
+the PredCls / SGCls predictions), ``CausalAnalysisPredictor`` (its
+``relation.causal_effect_type`` difference of logits: TDE, NIE or TE),
+``KERNPredictor``, ``AGRCNNPredictor``, ``NaivePredictor`` and
+``RelatednessTestPredictor`` (its relness rides as BGNN's).  ``configs/vgg_vg_predcls.yaml``
 evaluates VETO on the single-scale VGG-16 detector.
 
 Under ``torchrun --nproc_per_node=W -m veto_tpu_torch.tools.relation_test_net``
@@ -48,8 +51,7 @@ buffer stays empty and nothing is written.
 
 Not yet ported (they raise ``NotImplementedError``, naming the slice that
 brings them): the output keys ``test.save_plots`` and
-``test.save_visual_info``, the other legacy predictors (Causal, KERN,
-AGRCNN, Naive, RelatednessTest), stage-wise recall.  The bbox-aug test-time
+``test.save_visual_info``, stage-wise recall.  The bbox-aug test-time
 augmentation (``test.bbox_aug_*``, ``engine/bbox_aug.py``) serves the
 detector tools' evaluation (``detector_pretest_net``); this tool, like the
 JAX package's, does not run it.

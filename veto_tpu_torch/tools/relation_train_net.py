@@ -54,9 +54,20 @@ each with its MEET heads under ``ensemble.enabled`` (``*_MEET`` names, and
 ``IMPPredictor``, ``BGNNPredictor``, ``GPSNetPredictor`` and
 ``MSDNPredictor`` (BGNN and MSDN with ``relation.rel_aware`` and
 ``relation.mp_valid_pairs``: the relness pre-classifier adds
+``pre_rel_classify_loss`` in PredCls and SGCls), ``CausalAnalysisPredictor``
+(``relation.causal_effect_type`` none / TDE / NIE / TE,
+``relation.causal_fusion_type`` sum / gate; its untreated averages ride in
+the checkpoint), ``KERNPredictor``, ``AGRCNNPredictor``, ``NaivePredictor``
+and ``RelatednessTestPredictor`` (its relness adds
 ``pre_rel_classify_loss`` in PredCls and SGCls); in SGCls and SGDet their
 refined object logits train on ``obj_loss``, and VCTree adds
-``binary_loss``.  ``configs/vgg_vg_predcls.yaml`` (``model.backbone=
+``binary_loss``.
+
+``relation.loss_variant`` (``weighted_ce``, ``label_smoothing``, ``ldam``
+with ``relation.ldam_max_m`` over the predicate counts, ``balanced_norm``,
+whose running labeling probability rides in the checkpoint;
+``relation.label_smoothing=True`` selects ``label_smoothing``) picks
+``rel_loss``, as in the JAX tool.  ``configs/vgg_vg_predcls.yaml`` (``model.backbone=
 VGG-16``) trains on the single-scale VGG-16 detector.
 
 Data-parallel training over W processes, one a card::
@@ -78,16 +89,14 @@ only the configurations of ``distributed.SCOPE`` run; the others raise
 ``NotImplementedError`` (ROADMAP queue A12b).
 
 ``global_buffer_on``: for a predictor with relness logits (BGNN or MSDN
-with ``relation.rel_aware``) each step's relness targets and scores go to
+with ``relation.rel_aware``, RelatednessTest) each step's relness targets and scores go to
 the global buffer (``utils/global_buffer.py``: ``rel_pn-train_y``,
 ``rel_pn-train_pred``, the valid pairs' rows, gathered over the ranks),
 pickled to ``output_dir/inter_data_buffer.pkl`` at the end.
 
 Not yet ported (they raise ``NotImplementedError``): the output keys
 ``test.save_plots`` and ``test.save_visual_info``
-(:data:`UNSERVED_OUTPUTS`), the other legacy predictors (Causal, KERN,
-AGRCNN, Naive, RelatednessTest: their slices of A14), the other loss
-variants, Open Images data (A14).
+(:data:`UNSERVED_OUTPUTS`), Open Images data (A14).
 """
 
 from __future__ import annotations
@@ -262,23 +271,27 @@ def batches_for(cfg, dataset, split: str, rank: int = 0, world: int = 1):
     return gen
 
 
-def rel_class_weights(cfg):
-    """The Rwt beta weights of the dataset's predicate counts, or None."""
+def predicate_counts_of(cfg) -> np.ndarray:
+    """The training predicate counts: ``pred_counts_path`` (a reference
+    ``pred_counts.pkl``), else the built-in VG or GQA constants."""
     from ..data.predicate_stats import predicate_counts
-    from ..models.relation.predictor_veto import beta_class_weights
 
-    if not cfg.relation.beta_loss:
-        return None
     if cfg.pred_counts_path:
         import pickle
 
         with open(cfg.pred_counts_path, "rb") as fin:
-            counts = np.asarray(pickle.load(fin), np.float64)
-    else:
-        counts = predicate_counts(
-            "GQA" if "GQA" in cfg.data.dataset else "VG"
-        )[: cfg.relation.num_classes]
-    return beta_class_weights(counts, cfg.relation.beta)
+            return np.asarray(pickle.load(fin), np.float64)
+    return predicate_counts(
+        "GQA" if "GQA" in cfg.data.dataset else "VG")[: cfg.relation.num_classes]
+
+
+def rel_class_weights(cfg):
+    """The Rwt beta weights of the dataset's predicate counts, or None."""
+    from ..models.relation.predictor_veto import beta_class_weights
+
+    if not cfg.relation.beta_loss:
+        return None
+    return beta_class_weights(predicate_counts_of(cfg), cfg.relation.beta)
 
 
 def build_meet_config(cfg):
@@ -437,10 +450,16 @@ def train(cfg, device=None, log=print, model=None, datasets=None, dp=None):
         model = build_model(cfg, device)
     dev = next(model.parameters()).device
     load_pretrained_detector(cfg, model, log)
+    margins = None
+    if loss_variant == "ldam":
+        from ..ops.losses import ldam_margins
+
+        margins = ldam_margins(predicate_counts_of(cfg), cfg.relation.ldam_max_m)
     state = create_train_state(model, solver, rel_class_weights(cfg),
                                mode=cfg.relation.mode, loss_variant=loss_variant,
                                meet=build_meet_config(cfg),
-                               attribute_cfg=attribute_config(cfg), dp=dp)
+                               attribute_cfg=attribute_config(cfg), dp=dp,
+                               ldam_margins=margins)
     state.generator = torch.Generator(device=dev).manual_seed(solver.seed)
     ckpt = CheckpointManager(os.path.join(cfg.output_dir, "ckpt"), dp=dp)
     extra = ckpt.restore(state, log=log)

@@ -6,8 +6,9 @@ resumed run needs to continue bit-exactly: the model's ``state_dict`` (the
 trainable depth ResNet-18's and ``pos_bn``'s BatchNorm running statistics
 included), the optimizer's state (Adam's moments and step, or SGD's
 momentum buffers), the iteration, the state of the samplers'
-``torch.Generator`` with its device type, and the host-side extras (the
-``LRController`` fields).  A file is written under a
+``torch.Generator`` with its device type, the loss variant's state (the
+balanced norm's running labeling probability, ``TrainState.loss_state``)
+and the host-side extras (the ``LRController`` fields).  A file is written under a
 temporary name and moved into place, then the ``last_checkpoint`` pointer
 names it (as the reference's Checkpointer keeps it); the newest ``keep``
 files stay.  A checkpoint restores on any device: tensors are copied to the
@@ -61,6 +62,7 @@ class CheckpointManager:
             "optimizer": state.optimizer.inner.state_dict(),
             "generator": None if gen is None else {
                 "device": gen.device.type, "state": gen.get_state()},
+            "loss_state": getattr(state, "loss_state", None),
             "extra": extra,
         }
         path = self.path(step)
@@ -122,6 +124,9 @@ class CheckpointManager:
         state.model.load_state_dict(payload["model"])
         inner.load_state_dict(payload["optimizer"])
         state.step = payload["step"]
+        if (payload.get("loss_state") is not None
+                and getattr(state, "loss_state", None) is not None):
+            state.loss_state = payload["loss_state"].to(state.loss_state.device)
         saved, gen = payload["generator"], state.generator
         if saved is not None and gen is not None:
             if saved["device"] == gen.device.type:

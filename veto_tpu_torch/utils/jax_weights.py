@@ -14,6 +14,8 @@ path is its torch name, with these conversions:
   * Dense kernels ``(in, out)`` → Linear weights ``(out, in)``;
   * norm ``scale`` → ``weight``; ``embedding`` → ``weight``;
   * ``batch_stats`` ``mean``/``var`` → ``running_mean``/``running_var``;
+    the causal predictor's untreated averages (``untreated_*``,
+    ``avg_post_ctx``) keep their names (the port's buffers);
   * the encoder's flat per-layer parameters (``attn{i}_qkv``, ``ffn{i}_fc1``,
     ...) keep their names and their ``(in, out)`` layout — the CUDA layer
     kernel reads them so.
@@ -40,7 +42,10 @@ bias) becomes the port's stacked ``weight_ih`` (4H, D), ``weight_hh``
 
 The VGG-16 body's ``conv{idx}`` kernels (HWIO → OIHW) keep their names,
 as do BGNN's ``relness_alpha`` and the LayerNorms and BatchNorm of the
-message-passing heads.
+message-passing heads, and the rest of the zoo's leaves: the causal
+predictor's spatial gate (flax's ``Dense_0`` / ``Dense_1``), KERN's GGNN,
+AGRCNN's collect units, the attribute decoder's ``att_embed`` /
+``att_out_w`` / ``att_out_b``.
 
 A detector body in the unfolded layout (conv + ``FrozenBatchNorm``) loads
 into an unfolded port model as is, or is folded here (``kernel * scale``,
@@ -147,7 +152,7 @@ def flax_to_state_dict(variables: Mapping,
         sd[".".join(mod + [leaf])] = torch.from_numpy(np.ascontiguousarray(arr))
     for path, arr in _leaves(variables.get("batch_stats", {})):
         *mod, leaf = path
-        sd[".".join(mod + [_STATS[leaf]])] = torch.from_numpy(arr)
+        sd[".".join(mod + [_STATS.get(leaf, leaf)])] = torch.from_numpy(arr)
     return sd
 
 

@@ -28,8 +28,11 @@ downloads); :func:`depth_backbone_state_updates` and
 :func:`apply_updates` writes any of them into a model and reports what it
 skipped (a PredCls model has no RPN and no box head, an SGCls model no
 RPN, so those tensors are reported as missing; an SGDet model loads the
-RPN head and the whole box head, ``bbox_pred`` included).  The motifs/LSTM/attribute converters come with the rest of
-the zoo (A14).
+RPN head and the whole box head, ``bbox_pred`` included).
+:func:`motifs_context_param_updates` and
+:func:`attribute_context_param_updates` (with :func:`lstm_cell_updates`
+and :func:`decoder_rnn_updates`) map a reference Motifs context, plain or
+with attributes, onto the port's.
 """
 
 from __future__ import annotations
@@ -497,4 +500,94 @@ def veto_relation_state_updates(sd: Updates,
     if "rel_out.weight" in sd:
         out[f"{pre}rel_out.weight"] = _f32(sd["rel_out.weight"])
         out[f"{pre}rel_out.bias"] = _f32(sd["rel_out.bias"])
+    return out
+
+
+def lstm_cell_updates(sd: Updates, src: str, dst: str, layers: int = 1) -> Updates:
+    """A reference bidirectional ``nn.LSTM`` ``src`` as the port's
+    ``MaskedBiLSTM`` ``dst``: torch's stacked (i, f, g, o) rows are the
+    port's layout already; its two biases sum into the one a gate."""
+    out: Updates = {}
+    for layer in range(layers):
+        for cell, sfx in ((f"fwd{layer}", ""), (f"bwd{layer}", "_reverse")):
+            out[f"{dst}.{cell}.weight_ih"] = _f32(sd[f"{src}.weight_ih_l{layer}{sfx}"])
+            out[f"{dst}.{cell}.weight_hh"] = _f32(sd[f"{src}.weight_hh_l{layer}{sfx}"])
+            out[f"{dst}.{cell}.bias"] = _f32(sd[f"{src}.bias_ih_l{layer}{sfx}"]
+                                             + sd[f"{src}.bias_hh_l{layer}{sfx}"])
+    return out
+
+
+def decoder_rnn_updates(sd: Updates, src: str, dst: str) -> Updates:
+    """The reference Motifs ``DecoderRNN`` ``src`` as the port's
+    ``HighwayDecoderLSTM`` ``dst`` (its explicit matrices are (in, out):
+    the Linear weights transpose); an ``AttributeDecoderRNN`` also gives
+    ``att_embed`` and the ``out_att`` head."""
+    out = {f"{dst}.obj_embed": _f32(sd[f"{src}.obj_embed.weight"])}
+    for name, ref in (("input", "input_linearity"), ("state", "state_linearity"),
+                      ("out", "out_obj")):
+        out[f"{dst}.{name}_w"] = _f32(sd[f"{src}.{ref}.weight"].T)
+        out[f"{dst}.{name}_b"] = _f32(sd[f"{src}.{ref}.bias"])
+    if f"{src}.out_att.weight" in sd:
+        out[f"{dst}.att_embed"] = _f32(sd[f"{src}.att_embed.weight"])
+        out[f"{dst}.att_out_w"] = _f32(sd[f"{src}.out_att.weight"].T)
+        out[f"{dst}.att_out_b"] = _f32(sd[f"{src}.out_att.bias"])
+    return out
+
+
+def _motifs_common(sd: Updates, pre: str, obj_layers: int,
+                   edge_layers: int) -> Updates:
+    """The leaves the plain and the attribute Motifs contexts share: the
+    two LSTMs, the decoder (SGCls / SGDet checkpoints), ``lin_obj_h`` and
+    ``lin_edge_h``."""
+    out = lstm_cell_updates(sd, "obj_ctx_rnn", f"{pre}obj_ctx_rnn", obj_layers)
+    out.update(lstm_cell_updates(sd, "edge_ctx_rnn", f"{pre}edge_ctx_rnn", edge_layers))
+    if "decoder_rnn.obj_embed.weight" in sd:
+        out.update(decoder_rnn_updates(sd, "decoder_rnn", f"{pre}decoder_rnn"))
+    for name in ("lin_obj_h", "lin_edge_h", "obj_embed1", "obj_embed2"):
+        out[f"{pre}{name}.weight"] = _f32(sd[f"{name}.weight"])
+        if f"{name}.bias" in sd:
+            out[f"{pre}{name}.bias"] = _f32(sd[f"{name}.bias"])
+    return out
+
+
+def _strip(sd: Updates, src_prefix: str) -> Updates:
+    p = (src_prefix + ".") if src_prefix else ""
+    return {k[len(p):]: v for k, v in sd.items() if k.startswith(p)}
+
+
+def motifs_context_param_updates(sd: Updates, src_prefix: str = "",
+                                 obj_layers: int = 1, edge_layers: int = 1,
+                                 dst_prefix: str = "") -> Updates:
+    """A reference Motifs ``LSTMContext`` (``model_motifs.py``) under
+    ``src_prefix`` in the port's ``LSTMContext`` names under ``dst_prefix``
+    (e.g. ``relation.context_layer`` of an ``SGGModel``): ``pos_embed``'s
+    Linear(9, 32), BatchNorm1d(32) with its running statistics and
+    Linear(32, 128) become ``pos_fc1``, ``pos_bn``, ``pos_fc2``."""
+    sd = _strip(sd, src_prefix)
+    pre = f"{dst_prefix}." if dst_prefix else ""
+    out = _motifs_common(sd, pre, obj_layers, edge_layers)
+    for name, idx in (("pos_fc1", 0), ("pos_fc2", 2)):
+        out[f"{pre}{name}.weight"] = _f32(sd[f"pos_embed.{idx}.weight"])
+        out[f"{pre}{name}.bias"] = _f32(sd[f"pos_embed.{idx}.bias"])
+    for leaf in ("weight", "bias", "running_mean", "running_var"):
+        out[f"{pre}pos_bn.{leaf}"] = _f32(sd[f"pos_embed.1.{leaf}"])
+    return out
+
+
+def attribute_context_param_updates(sd: Updates, src_prefix: str = "",
+                                    obj_layers: int = 1, edge_layers: int = 1,
+                                    dst_prefix: str = "") -> Updates:
+    """A reference ``AttributeLSTMContext`` (``model_motifs_with_attribute.py``)
+    in the port's ``AttributeLSTMContext`` names: the attribute tables
+    ``att_embed1`` / ``att_embed2``, ``pos_embed``'s Linear(9, 32) and
+    Linear(32, 128) (a Dropout between, no BatchNorm) as ``pos_fc1`` /
+    ``pos_fc2``, the attribute decoder's extras."""
+    sd = _strip(sd, src_prefix)
+    pre = f"{dst_prefix}." if dst_prefix else ""
+    out = _motifs_common(sd, pre, obj_layers, edge_layers)
+    for name in ("att_embed1", "att_embed2"):
+        out[f"{pre}{name}.weight"] = _f32(sd[f"{name}.weight"])
+    for name, idx in (("pos_fc1", 0), ("pos_fc2", 3)):
+        out[f"{pre}{name}.weight"] = _f32(sd[f"pos_embed.{idx}.weight"])
+        out[f"{pre}{name}.bias"] = _f32(sd[f"pos_embed.{idx}.bias"])
     return out
