@@ -210,10 +210,8 @@ catches its own failure:
     (VCTree: the count of forest nodes that differ between the two runs,
     then the logits with the plain run's forest given to both), the
     context's ms (VCTree: the tree build's and one TreeLSTM pass's), the
-    eval forward's busy share; one train step of 12 through the engine's
-    ``train_step`` (what ``train`` runs each iteration; phases 10-18 drive
-    the tool's loop and checkpoints) (B3 2, no B3-bwd: the body is frozen
-    and no depth is read; finite
+    eval forward's busy share; 2 train steps of 12 through ``train`` (B3 2
+    a step, no B3-bwd: the body is frozen and no depth is read; finite
     losses, ``binary_loss`` for VCTree, every trainable tensor changed,
     every trainable BatchNorm's statistics updated, the detector
     bit-unchanged) and one step's gradients against the plain versions, in
@@ -286,19 +284,23 @@ catches its own failure:
     share; the head in f32 on image 0's first 512 pairs on the card against
     the same head on the CPU (1e-4 of the largest |logit|), and its f32
     forward and backward twice on the card, every gradient bit-equal; one
-    engine train step of 12 (B3 2), finite, its peak memory.  The causal
+    step of 12 through ``train`` (B3 2), finite, its peak memory.  The causal
     predictor also with ``NIE``, ``TE`` and the ``sum`` fusion, finite.
     Motifs with ``attribute_on`` (the module on a model with the attribute
-    head, which feeds it): one eval batch (B3 3), its logits and attribute
-    logits against the plain versions, the f32 checks.  The causal
+    head, which feeds it; no tool builds it) in PredCls and SGCls: one eval
+    batch each (B3 3 / 4) with the attribute head's logits and the
+    relation logits against the plain versions (in SGCls also the attribute
+    decoder's object and attribute logits, compared with teacher forcing;
+    the two runs' decoded labels counted where they differ), the f32
+    checks (in SGCls on the decoder's outputs too).  The causal
     predictor and AGRCNN in SGCls (B3 3) and SGDet (B3 3, N1 mask 2, scan
     2): one eval batch and one train step each; AGRCNN's SGCls batch once
     more with ``use_obj_recls_logits``, its ``obj_prediction_nms`` labels on
     the card bit-equal to the CPU's.  The main path (VETO PredCls, 12 x
     800x1344, 1024 pairs an image) one step with each loss variant
     (``label_smoothing``, ``ldam``, ``balanced_norm``; B1, B2a, B2b 6, B3 2,
-    B3-bwd 1), the balanced norm's running probability moved and
-    bit-equal after a checkpoint's round trip.  The phase prints its
+    B3-bwd 1), the balanced norm's running probability moved and restored
+    bit-equal from the tool's checkpoint.  The phase prints its
     seconds and its numbers.
 23. One JSON line ``{"kernels": [...]}`` (all nine kernels, N1 last;
     ``launches`` from the main path's training run, or the path that runs
@@ -1252,12 +1254,23 @@ def roi_align_bwd_levels(gen, b=2, r=512, h=800, w=1344, c=256, p=7, s=2):
 # ------------------------------------------------------------------ phase 8
 def busy_ms(fn, calls: int) -> float:
     """Device milliseconds per call of ``fn``: every kernel it launches, by
-    ``torch.profiler`` over ``calls`` calls after one warm-up call."""
-    from veto_tpu_torch.tools.profile_eval import trace
-
+    ``torch.profiler`` over ``calls`` calls after one warm-up call.  The
+    trace records the device's activity only: the host's operator events,
+    which this sum does not read, cost seconds on the legacy heads'
+    host-driven loops."""
     fn()
-    got = trace(lambda: [fn() for _ in range(calls)], (), log=lambda s: None)
-    return got["device_busy_ms"] / calls
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and e.self_device_time_total > 0)
+    if us <= 0:
+        raise AssertionError("busy_ms: the trace holds no device time")
+    return us / 1e3 / calls
 
 
 # (T, D, heads) at which the C route rule is held against its Python mirror:
@@ -4076,7 +4089,7 @@ def phase_heads():
 # ------------------------------------------------------------------ phase 19
 LEGACY = ("MotifPredictor", "VCTreePredictor", "TransformerPredictor",
           "TransLikePredictor")
-LEGACY_STEPS = 1  # PredCls train steps a predictor
+LEGACY_STEPS = 2  # PredCls train steps a predictor
 
 
 def legacy_cfg(config, predictor, opts=()):
@@ -4149,79 +4162,61 @@ def legacy_evaluate(model, cfg, what, per_batch):
     return ms, peak, counted
 
 
-def engine_steps(model, cfg, per_step, what, steps, dataset=None):
-    """``steps`` engine train steps (``train_step``: what the train tool runs
-    each iteration, without its loop's feeder, logging and checkpoint) of
-    ``solver.ims_per_batch`` images of ``dataset`` (default the synthetic
-    train split), the state built as the tool builds it (the class
-    weights, MEET, the loss variant with LDAM's margins, the seeded
-    generator): exact launches at every step, finite losses and a finite
-    nonzero gradient norm.  Returns the state, each step's losses with its
-    ``seconds``, the peak memory and the launches counted."""
-    from veto_tpu_torch.engine.train import create_train_state, train_step
-    from veto_tpu_torch.ops.losses import ldam_margins
-    from veto_tpu_torch.tools.relation_train_net import (
-        batches_for, build_meet_config, predicate_counts_of, rel_class_weights,
-        synthetic_train_dataset,
-    )
+def tool_train(model, cfg, per_step, what, steps, datasets=None, on_ckpt=None):
+    """``relation_train_net.train`` on ``model`` for ``steps`` full-width
+    steps (its datasets ``datasets``, by default the tool's own): exact
+    launches at every step, finite losses and a finite nonzero gradient
+    norm at every step.  ``on_ckpt(directory)`` reads the tool's checkpoint
+    directory before it is removed (a checkpoint of a full-width legacy
+    model holds about 1.7 GB).  Returns the state, each step's record, the
+    peak memory and the launches counted; the model is left in eval
+    mode."""
+    from veto_tpu_torch.tools.relation_train_net import train
 
-    variant = cfg.relation.loss_variant
-    margins = (ldam_margins(predicate_counts_of(cfg), cfg.relation.ldam_max_m)
-               if variant == "ldam" else None)
-    state = create_train_state(model, cfg.solver, rel_class_weights(cfg),
-                               mode=cfg.relation.mode, loss_variant=variant,
-                               meet=build_meet_config(cfg), ldam_margins=margins)
-    state.generator = torch.Generator(device=DEVICE).manual_seed(cfg.solver.seed)
-    if dataset is None:
-        dataset = synthetic_train_dataset(cfg)
-    gen = batches_for(cfg, dataset, "train")(steps)
-    history, counts = [], []
+    cfg = cfg.override("solver.max_iter", steps)
+    counts = []
+
+    def log(line):
+        if line.startswith("iter "):
+            counts.append(read_counters(reset=True))
+            line += f"  launches {json.dumps(counts[-1])}"
+        print(f"  {line}")
+
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     read_counters(reset=True)
     try:
-        for batch, _ in gen:
-            b = batch.to(DEVICE)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            m = train_step(state, b, state.generator, 1.0,
-                           cfg.relation.batch_size_per_image,
-                           cfg.relation.positive_fraction,
-                           cfg.relation.num_sample_per_gt_rel,
-                           cfg.relation.require_box_overlap)
-            torch.cuda.synchronize()
-            rec = {k: float(v) for k, v in m.items()
-                   if k.endswith("loss") or k == "grad_norm"}
-            history.append(dict(rec, seconds=time.perf_counter() - t0))
-            counts.append(read_counters(reset=True))
+        state, history = train(cfg, model=model, log=log, datasets=datasets)
+        if on_ckpt is not None:
+            on_ckpt(os.path.join(cfg.output_dir, "ckpt"))
     finally:
-        gen.close()
+        shutil.rmtree(cfg.output_dir, ignore_errors=True)
     peak = torch.cuda.max_memory_allocated()
     model.eval()
     if len(history) != steps or counts != [per_step] * steps:
         raise AssertionError(f"{what}: launches {counts}, want {per_step} a step")
-    if not all(np.isfinite(v) for r in history for v in r.values()) or not all(
+    keys = [k for k in history[-1] if k.endswith("loss")] + ["grad_norm"]
+    if not all(np.isfinite(r[k]) for r in history for k in keys) or not all(
             r["grad_norm"] > 0 for r in history):
         raise AssertionError(f"{what}: non-finite or zero losses: {history}")
     return state, history, peak, add_launches({}, *counts)
 
 
 def legacy_train(model, cfg, per_step, what, steps, datasets=None, idle=()):
-    """:func:`engine_steps` for ``steps`` full-width steps (on the first of
-    ``datasets``, when given): exact launches at every step, finite losses
-    (``binary_loss`` for VCTree), every trainable tensor changed (but those
-    under the ``idle`` prefixes, which no loss of the step reaches), the
-    frozen detector bit-unchanged, every trainable BatchNorm's statistics
-    updated.  Returns the state, ms a step (the last), the peak memory and
-    the launches counted."""
+    """:func:`tool_train` for ``steps`` full-width steps: exact launches at
+    every step, finite losses (``binary_loss`` for VCTree), every trainable
+    tensor changed (but those under the ``idle`` prefixes, which no loss of
+    the step reaches), the frozen detector bit-unchanged, every trainable
+    BatchNorm's statistics updated.  Returns the state, ms a step (the
+    last), the peak memory and the launches counted."""
     frozen = frozen_state(model)
     before = {n: p.detach().clone() for n, p in model.named_parameters()
               if p.requires_grad}
     stats0 = {n: b.clone() for n, b in model.named_buffers()
               if not n.startswith("backbone.")
               and n.endswith(("running_mean", "running_var"))}
-    state, history, peak, counted = engine_steps(
-        model, cfg, per_step, what, steps, datasets[0] if datasets else None)
+    state, history, peak, counted = tool_train(model, cfg, per_step, what, steps,
+                                               datasets)
     keys = [k for k in history[-1] if k.endswith("loss")] + ["grad_norm"]
     if cfg.relation.predictor.startswith("VCTree") and "binary_loss" not in keys:
         raise AssertionError(f"{what}: no binary_loss")
@@ -4853,29 +4848,34 @@ def head_loss(out):
     return loss
 
 
-def zoo_rest_head_checks(model, args, kw, what):
-    """The head in f32 on image 0's first ``CPU_PAIRS`` pairs: its relation
-    logits on the card against the same head on the CPU (1e-4 of the
-    largest |logit|, mean 1e-5: f32 on both, summation order only, through
-    the LSTM / GGNN / attention loops), then its forward and backward in
-    training twice on the card, every gradient bit-equal.  Returns the
-    largest difference over that scale."""
+def zoo_rest_head_checks(model, args, kw, what, outputs=("rel_dists",)):
+    """The head in f32 on image 0's first ``CPU_PAIRS`` pairs: its
+    ``outputs`` (the relation logits; the attribute Motifs decoder's object
+    and attribute logits too) on the card against the same head on the CPU
+    (1e-4 of each one's largest |value|, mean 1e-5: f32 on both, summation
+    order only, through the LSTM / GGNN / attention loops), then its
+    forward and backward in training twice on the card, every gradient
+    bit-equal.  Returns the largest difference over its scale."""
     head = as_f32(model.relation)
     a, k = slice_inputs(args, kw, DEVICE)
     head.eval()
     with torch.inference_mode():
-        got = head(*a, **k).rel_dists
+        got = head(*a, **k)
     cpu = as_f32(model.relation).cpu().eval()
     ca, ck = slice_inputs(args, kw, "cpu")
     t0 = time.perf_counter()
     with torch.inference_mode():
-        ref = cpu(*ca, **ck).rel_dists
+        ref = cpu(*ca, **ck)
     cpu_s = time.perf_counter() - t0
     del cpu
-    scale = float(ref.abs().max())
-    err = check_close(f"{what} f32 logits, card vs CPU ({a[4].shape[1]} pairs of "
-                      f"image 0, CPU {cpu_s:.1f} s)", got.cpu(), ref, atol=1e-4 * scale,
-                      rtol=0.0, mean_tol=1e-5 * scale) / scale
+    err = 0.0
+    for name in outputs:
+        g, r = getattr(got, name), getattr(ref, name)
+        scale = float(r.abs().max())
+        err = max(err, check_close(
+            f"{what} f32 {name}, card vs CPU ({a[4].shape[1]} pairs of image 0, CPU "
+            f"{cpu_s:.1f} s)", g.cpu(), r, atol=1e-4 * scale, rtol=0.0,
+            mean_tol=1e-5 * scale) / scale)
     head.train()
     runs = []
     for _ in range(2):
@@ -4895,22 +4895,24 @@ def zoo_rest_head_checks(model, args, kw, what):
     return err
 
 
-def zoo_rest_step(model, cfg, per, what):
-    """One step of :func:`engine_steps` (the loss of
+def zoo_rest_step(model, cfg, per, what, on_ckpt=None):
+    """One step of the train tool (:func:`tool_train`; the loss of
     ``relation.loss_variant``), some trainable tensor changed.  Returns the
     state, its ms (the first step, warm-up included), peak memory and the
     launches counted."""
     before = {n: p.detach().clone() for n, p in model.named_parameters()
               if p.requires_grad}
-    state, history, peak, counted = engine_steps(model, cfg, per, what, 1)
+    state, history, peak, counted = tool_train(model, cfg, per, what, 1,
+                                               on_ckpt=on_ckpt)
     moved = sum(not torch.equal(p, before[n]) for n, p in model.named_parameters()
                 if p.requires_grad)
     if moved == 0:
         raise AssertionError(f"{what}: no trainable tensor changed")
     rec = history[0]
-    ms = 1e3 * rec.pop("seconds")
+    ms = 1e3 * rec["seconds"]
+    losses = [k for k in rec if k.endswith("loss")] + ["grad_norm"]
     print(f"  [{what}] one step of {cfg.solver.ims_per_batch}: "
-          f"{', '.join(f'{k} {v:.4f}' for k, v in rec.items())}; {ms:.1f} ms (the "
+          f"{', '.join(f'{k} {rec[k]:.4f}' for k in losses)}; {ms:.1f} ms (the "
           f"first, warm-up included); peak memory {peak / 2 ** 30:.2f} GiB; "
           f"{moved} of {len(before)} trainable tensors changed")
     return state, ms, peak, counted
@@ -4920,8 +4922,8 @@ def zoo_rest_predictor(predictor, opts, b, body, numbers, launches):
     """One predictor in PredCls on the frozen R-101 body: one eval batch
     through ``evaluate`` (B3 2), its logits against the plain versions, the
     eval forward's ms and busy share, the f32 head on the card against the
-    CPU and twice bit-equal (:func:`zoo_rest_head_checks`), one engine
-    train step (B3 2); the causal predictor also its other effects."""
+    CPU and twice bit-equal (:func:`zoo_rest_head_checks`), one step of the
+    train tool (B3 2); the causal predictor also its other effects."""
     cfg = legacy_cfg(PREDCLS, predictor, opts)
     model, body = legacy_model(cfg, body)
     per = expected(multilevel_roi_align=2)
@@ -4963,7 +4965,7 @@ def zoo_rest_predictor(predictor, opts, b, body, numbers, launches):
 
 def zoo_rest_other_modes(predictor, opts, body, numbers, launches):
     """SGCls (B3 3) and SGDet (B3 3, N1 mask 2, scan 2): one eval batch
-    through ``evaluate`` and one engine train step each; AGRCNN's SGCls eval
+    through ``evaluate`` and one step of the train tool each; AGRCNN's SGCls eval
     also once with ``use_obj_recls_logits`` (its refined object logits
     relabelled by ``obj_prediction_nms`` on the card), labels held to the
     same NMS on the CPU."""
@@ -5012,89 +5014,123 @@ def zoo_rest_other_modes(predictor, opts, body, numbers, launches):
 
 def zoo_rest_attribute_motifs(b, body, numbers, launches):
     """Motifs with ``attribute_on`` (``MotifPredictor(attribute_on=True)``,
-    which the JAX model's ``build_model`` never builds: the module on a
-    PredCls model with ``model.attribute_on``, fed by its attribute head):
-    one eval batch (B3 3: the attribute head's pool, the box and union
-    pools) with its logits against the plain versions; the head's f32
-    checks of :func:`zoo_rest_head_checks`."""
-    import torch.nn.functional as F  # noqa: N812
-
+    which the JAX model's ``build_model`` never builds, so that no tool
+    reaches it: the module on a PredCls model with ``model.attribute_on``,
+    fed by its attribute head), in PredCls and SGCls.  Each one eval batch
+    (B3 3: the attribute head's pool, the box and union pools; SGCls 4, the
+    box head's pool too) with the attribute head's logits and the relation
+    logits against the plain versions.  In PredCls ``att_dists`` is the GT
+    multi-hot; in SGCls it is the attribute decoder's, and the decoder's
+    object and attribute logits and the relation logits are compared run
+    with teacher forcing (as in training: the labels fed back are the GT's,
+    so that a bf16 rounding that flips one decoded label cannot move the
+    steps after it), the decoded labels of the two eval runs counted where
+    they differ.  Both heads: the f32 checks of
+    :func:`zoo_rest_head_checks` (SGCls on the decoder's outputs too)."""
     from veto_tpu_torch.models.relation.legacy import MotifPredictor
     from veto_tpu_torch.models.relation.sampling import prepare_test_pairs
     from veto_tpu_torch.models.sgg import init_weights
     from veto_tpu_torch.ops import cuda_lib
 
-    cfg = legacy_cfg(PREDCLS, "MotifPredictor", ("model.attribute_on=True",))
-    model, body = legacy_model(cfg, body)
-    with torch.device(DEVICE):
-        head = MotifPredictor(cfg.model.num_obj_classes, cfg.relation.num_classes,
-                              hidden_dim=cfg.relation.context_hidden_dim,
-                              pooling_dim=cfg.relation.context_pooling_dim,
-                              in_channels=cfg.relation.context_pooling_dim,
-                              attribute_on=True, num_att_classes=cfg.model.num_attributes,
-                              dtype=model.relation.dtype)
-    init_weights(head, cfg.solver.seed)
-    model.relation = head.eval()
+    from veto_tpu_torch.config.defaults import DetectorConfig
+
     gen = torch.Generator(device=DEVICE).manual_seed(22)
-    attrs = torch.randint(0, cfg.model.num_attributes, b.boxes.shape[:2] + (10,),
+    attrs = torch.randint(0, DetectorConfig.num_attributes, b.boxes.shape[:2] + (10,),
                           generator=gen, device=DEVICE, dtype=torch.int32)
     attrs = attrs * (torch.rand(attrs.shape, generator=gen, device=DEVICE) < 0.3)
     attrs = attrs * b.box_mask[..., None]
+    h, w = b.images.shape[1:3]
+    sizes = torch.tensor([[w, h]], dtype=torch.float32,
+                         device=DEVICE).expand(b.boxes.shape[0], 2)
+    for config, mode, pools in ((PREDCLS, "predcls", 3), (SGCLS, "sgcls", 4)):
+        cfg = legacy_cfg(config, "MotifPredictor", ("model.attribute_on=True",))
+        model, body = legacy_model(cfg, body)
+        with torch.device(DEVICE):
+            head = MotifPredictor(
+                cfg.model.num_obj_classes, cfg.relation.num_classes,
+                hidden_dim=cfg.relation.context_hidden_dim,
+                pooling_dim=cfg.relation.context_pooling_dim,
+                in_channels=cfg.relation.context_pooling_dim, mode=mode,
+                attribute_on=True, num_att_classes=cfg.model.num_attributes,
+                dtype=model.relation.dtype)
+        init_weights(head, cfg.solver.seed)
+        model.relation = head.eval()
+        what = f"attribute Motifs {mode}"
 
-    def forward():
-        with torch.inference_mode():
-            feats = model.extract_features(b.images)
-            pi, pm = prepare_test_pairs(b.box_mask, b.box_mask.float(),
-                                        cfg.relation.max_proposal_pairs)
-            h, w = b.images.shape[1:3]
-            sizes = torch.tensor([[w, h]], dtype=torch.float32,
-                                 device=DEVICE).expand(b.boxes.shape[0], 2)
-            att_logits = model.attribute_forward(feats, b.boxes)
-            roi = model.rel_box_extractor(model._pool_boxes(feats, b.boxes, 7))
-            union = model.union_extractor(feats, b.boxes, pi, sizes)
-            logits = F.one_hot(b.labels.long(), cfg.model.num_obj_classes).float() \
-                * 2000.0 - 1000.0
-            args = (b.boxes, b.box_mask, b.labels, logits, pi, roi, union, sizes, None)
-            kw = dict(pair_mask=pm, attributes=attrs, attribute_logits=att_logits)
-            return head(*args, **kw), args, kw
+        def forward(teacher=False):
+            with torch.inference_mode():
+                feats = model.extract_features(b.images)
+                pi, pm = prepare_test_pairs(b.box_mask, b.box_mask.float(),
+                                            cfg.relation.max_proposal_pairs)
+                att_logits = model.attribute_forward(feats, b.boxes)
+                roi = model.rel_box_extractor(model._pool_boxes(feats, b.boxes, 7))
+                union = model.union_extractor(feats, b.boxes, pi, sizes)
+                logits = (model._box_logits(feats, b.boxes) if mode == "sgcls" else
+                          torch.nn.functional.one_hot(
+                              b.labels.long(), cfg.model.num_obj_classes).float()
+                          * 2000.0 - 1000.0)
+                args = (b.boxes, b.box_mask, b.labels, logits, pi, roi, union, sizes,
+                        None)
+                kw = dict(pair_mask=pm, attributes=attrs, attribute_logits=att_logits)
+                head.train(teacher)
+                try:
+                    return head(*args, **kw), args, kw
+                finally:
+                    head.eval()
 
-    forward()  # warm-up
-    read_counters(reset=True)
-    out, args, kw = forward()
-    counted = read_counters(reset=True)
-    per = expected(multilevel_roi_align=3)
-    if counted != per:
-        raise AssertionError(f"attribute Motifs: launches {counted}, want {per}")
-    add_launches(launches, counted)
-    with cuda_lib.plain_kernels():
-        ref = forward()[0]
-    for name in ("rel_dists", "att_dists"):
-        g, r = getattr(out, name), getattr(ref, name)
-        check_close(f"attribute Motifs {name} kernels vs plain", g, r,
-                    atol=0.05 * float(r.abs().max()), rtol=0.0,
-                    mean_tol=0.01 * float(r.abs().mean()))
-    wall = cuda_ms(forward, 1, 1)
-    busy = busy_ms(forward, 1)
-    err = zoo_rest_head_checks(model, args, kw, "MotifPredictor attribute_on")
-    numbers["MotifPredictor attribute_on"] = dict(
-        eval_forward_ms=wall, eval_busy_share=busy / wall, cpu_err=err,
-        att_dists=list(out.att_dists.shape))
-    print(f"  [MotifPredictor attribute_on] eval forward {wall:.1f} ms by CUDA events, "
-          f"{busy:.1f} ms busy on the device ({busy / wall:.2f}); att_dists "
-          f"{tuple(out.att_dists.shape)}")
-    del model, head
-    release()
+        forward()  # warm-up
+        read_counters(reset=True)
+        out, args, kw = forward()
+        counted = read_counters(reset=True)
+        per = expected(multilevel_roi_align=pools)
+        if counted != per:
+            raise AssertionError(f"{what}: launches {counted}, want {per}")
+        add_launches(launches, counted)
+        with cuda_lib.plain_kernels():
+            ref, ref_args, ref_kw = forward()
+        pairs = [("attribute head logits", kw["attribute_logits"],
+                  ref_kw["attribute_logits"])]
+        note = ""
+        if mode == "predcls":
+            pairs.append(("rel_dists", out.rel_dists, ref.rel_dists))
+        else:
+            flips = int((out.obj_preds != ref.obj_preds).sum())
+            note = (f"; the two eval runs' decoded labels differ at {flips} of "
+                    f"{int(b.box_mask.sum())} boxes")
+            got_t = forward(teacher=True)[0]
+            with cuda_lib.plain_kernels():
+                ref_t = forward(teacher=True)[0]
+            pairs += [(f"{name} (teacher forcing)", getattr(got_t, name),
+                       getattr(ref_t, name))
+                      for name in ("obj_dists", "att_dists", "rel_dists")]
+        print(f"  {what}: kernels vs plain{note}")
+        for name, g, r in pairs:
+            check_close(f"{what} {name}", g, r, atol=0.05 * float(r.abs().max()),
+                        rtol=0.0, mean_tol=0.01 * float(r.abs().mean()))
+        wall = cuda_ms(forward, 1, 1)
+        busy = busy_ms(forward, 1)
+        err = zoo_rest_head_checks(
+            model, args, kw, f"MotifPredictor attribute_on {mode}",
+            ("rel_dists",) if mode == "predcls" else ("rel_dists", "obj_dists",
+                                                      "att_dists"))
+        numbers[f"MotifPredictor attribute_on {mode}"] = dict(
+            eval_forward_ms=wall, eval_busy_share=busy / wall, cpu_err=err,
+            att_dists=list(out.att_dists.shape))
+        print(f"  [MotifPredictor attribute_on {mode}] eval forward {wall:.1f} ms by "
+              f"CUDA events, {busy:.1f} ms busy on the device ({busy / wall:.2f}); "
+              f"att_dists {tuple(out.att_dists.shape)}")
+        del head, model, out, ref, args, kw, ref_args, ref_kw
+        release()
     return body
 
 
 def zoo_rest_loss_variants(numbers, launches):
     """The main path (VETO PredCls, ``configs/veto_vg_predcls.yaml``) with
-    each loss variant: one engine train step of 12 images at 800x1344, 1024
-    pairs an image, from the seeded weights, with exact launches (B1, B2a,
-    B2b 6, B3 2, B3-bwd 1);
-    the balanced norm's running probability moved by the step (the
-    background's still 1) and bit-equal after a checkpoint's save and
-    restore into a fresh state."""
+    each loss variant: one step of 12 images at 800x1344, 1024 pairs an
+    image, through ``train`` from the seeded weights, with exact launches
+    (B1, B2a, B2b 6, B3 2, B3-bwd 1); the balanced norm's running
+    probability moved by the step (the background's still 1) and restored
+    bit-equal from the tool's checkpoint into a fresh state."""
     from veto_tpu_torch.config import load_config
     from veto_tpu_torch.engine.train import create_train_state
     from veto_tpu_torch.models.sgg import build_model
@@ -5108,30 +5144,36 @@ def zoo_rest_loss_variants(numbers, launches):
           f"{cfg.solver.ims_per_batch} each from the seeded weights: "
           f"{', '.join(LOSS_VARIANTS)}")
     seeded = {k: v.clone() for k, v in model.state_dict().items()}
+    restored = {}
+
+    def restore(directory):
+        fresh = create_train_state(model, cfg.solver, None,
+                                   loss_variant="balanced_norm")
+        CheckpointManager(directory).restore(fresh)
+        restored["loss_state"] = fresh.loss_state
+
     for variant in LOSS_VARIANTS:
         model.load_state_dict(seeded)
+        vcfg = cfg.override("relation.loss_variant", variant).override(
+            "output_dir", scratch_dir())
         state, ms, peak, counted = zoo_rest_step(
-            model, cfg.override("relation.loss_variant", variant), per,
-            f"main path, {variant}")
+            model, vcfg, per, f"main path, {variant}",
+            restore if variant == "balanced_norm" else None)
         add_launches(launches, counted)
         numbers[f"main path {variant}"] = dict(train_ms=ms, train_peak_gib=peak / 2 ** 30)
-    # the balanced norm's state after its step, through a checkpoint
+    # the balanced norm's state after its step, and through the checkpoint
     start = torch.full_like(state.loss_state, 0.03)
     start[0] = 1.0
     moved = int((state.loss_state != start).sum())
     if moved == 0 or float(state.loss_state[0]) != 1.0:
         raise AssertionError(f"balanced norm state {state.loss_state}")
-    ckpt = CheckpointManager(scratch_dir())
-    ckpt.save(state.step, state)
-    fresh = create_train_state(model, cfg.solver, None, loss_variant="balanced_norm")
-    ckpt.restore(fresh)
-    if not torch.equal(fresh.loss_state, state.loss_state):
+    if not torch.equal(restored["loss_state"], state.loss_state):
         raise AssertionError("balanced norm state: the checkpoint's differs")
     print(f"  balanced norm: {moved} of {start.numel()} labeling probabilities moved "
-          "by the step (the background's 1), bit-equal after the checkpoint's "
-          "round trip")
+          "by the step (the background's 1), bit-equal after the tool's checkpoint's "
+          "restore")
     numbers["balanced_norm_moved"] = moved
-    del model, state, fresh, seeded
+    del model, state, seeded, restored
     release()
 
 
@@ -5658,11 +5700,37 @@ def release():
     torch.cuda.empty_cache()
 
 
+_SAVES = [0.0, 0]  # seconds and count of this process's checkpoint saves
+
+
+def count_saves():
+    """Time every ``CheckpointManager.save`` of this process (the tools'
+    and the script's own) into ``_SAVES``; the saves still run as they
+    are."""
+    from veto_tpu_torch.utils.checkpoint import CheckpointManager
+
+    real = CheckpointManager.save
+
+    def save(self, *args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return real(self, *args, **kwargs)
+        finally:
+            _SAVES[0] += time.perf_counter() - t0
+            _SAVES[1] += 1
+
+    CheckpointManager.save = save
+
+
 def timed(label, fn, *args):
-    """``fn(*args)``, its wall seconds printed under ``label``."""
+    """``fn(*args)``, its wall seconds printed under ``label``, with the
+    seconds of the checkpoint saves it made in this process."""
     t0 = time.perf_counter()
+    s0, n0 = _SAVES
     out = fn(*args)
-    print(f"[time] phase {label}: {time.perf_counter() - t0:.1f} s")
+    saves = (f" (checkpoint saves {_SAVES[0] - s0:.1f} s, {_SAVES[1] - n0})"
+             if _SAVES[1] > n0 else "")
+    print(f"[time] phase {label}: {time.perf_counter() - t0:.1f} s{saves}")
     return out
 
 
@@ -5678,6 +5746,7 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
     t0 = time.perf_counter()
+    count_saves()
     timed("1 build", build)
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     timed("2 gemm core", phase_gemm_core, gen)

@@ -109,3 +109,18 @@ def test_causal_refuses_unknown_settings():
         with pytest.raises(ValueError):
             CausalPredictor(num_obj_classes=NUM_OBJ, num_rel_classes=NUM_REL,
                             hidden_dim=8, pooling_dim=16, in_channels=16, **bad)
+
+
+def test_bridge_passes_only_the_untreated_names_through():
+    """The weight bridge maps a ``batch_stats`` ``mean`` / ``var`` onto
+    ``running_mean`` / ``running_var``, keeps the causal predictor's
+    untreated averages under their own names, and refuses any other leaf."""
+    stats = {"relation": {"untreated_spt": np.ones(3, np.float32),
+                          "pos_bn": {"mean": np.zeros(2, np.float32),
+                                     "var": np.ones(2, np.float32)}}}
+    sd = flax_to_state_dict({"params": {}, "batch_stats": stats})
+    assert set(sd) == {"relation.untreated_spt", "relation.pos_bn.running_mean",
+                       "relation.pos_bn.running_var"}
+    stats["relation"]["pos_bn"]["averge"] = np.zeros(2, np.float32)
+    with pytest.raises(KeyError, match="relation/pos_bn/averge"):
+        flax_to_state_dict({"params": {}, "batch_stats": stats})

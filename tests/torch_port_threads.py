@@ -16,8 +16,9 @@ process is left as it is.
 do not import it: their float64 train-step comparisons hold the union
 features' first convolution's bias gradient, an f32 sum over every pixel
 of the batch, within 1e-4 of its largest value, and PyTorch's one-thread
-order of that sum falls outside it (1.5e-4 and 1.7e-4), where its
-default threads' order falls inside.
+order of that sum falls outside it (1.65e-4 and 1.55e-4 with
+``OMP_NUM_THREADS=1``), where its default threads' order falls inside
+(ROADMAP.md queue C keeps the readings and the repair).
 """
 
 import os

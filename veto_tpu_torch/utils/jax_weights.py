@@ -59,6 +59,8 @@ from typing import Dict, Iterator, Mapping, Tuple
 import numpy as np
 import torch
 
+from ..models.relation.legacy.causal import UNTREATED
+
 _FOLD_PAIRS = {"stem_conv": "stem_bn", "conv1": "bn1", "conv2": "bn2",
                "conv3": "bn3", "downsample_conv": "downsample_bn"}
 _STATS = {"mean": "running_mean", "var": "running_var"}
@@ -152,6 +154,8 @@ def flax_to_state_dict(variables: Mapping,
         sd[".".join(mod + [leaf])] = torch.from_numpy(np.ascontiguousarray(arr))
     for path, arr in _leaves(variables.get("batch_stats", {})):
         *mod, leaf = path
+        if leaf not in _STATS and leaf not in UNTREATED:
+            raise KeyError(f"unknown batch_stats leaf {'/'.join(path)}")
         sd[".".join(mod + [_STATS.get(leaf, leaf)])] = torch.from_numpy(arr)
     return sd
 
